@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of ``repro``: integer-only tree-ensemble serving on an
+NVIDIA H100.
+
+Mirrors the layout of ``src/repro`` module for module (``repro_torch.ir.
+layouts`` is the counterpart of ``repro.ir.layouts``) and imports nothing of
+it, nor JAX.  The serving path is
+
+    float32 rows -> FlInt int32 keys (core.flint)
+      -> ForestIR quantized once (ir.forest_ir) -> leaf_major / padded tables
+      -> TreeEngine (serve.engine) -> single plan -> cuda backend
+      -> hand-written CUDA tree walks (kernels/, csrc/) -> uint32 partials
+      -> numpy finalize (core.ensemble.finalize_partials) -> (scores, preds)
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no card they raise instead of carrying on on the CPU.
+"""

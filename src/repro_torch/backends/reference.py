@@ -1,0 +1,45 @@
+"""ReferenceBackend: the torch node-table walk, the semantic oracle.
+
+All three modes; deterministic modes run through the partials/finalize
+split, float mode adds trees in tree order and finalizes in numpy.
+"""
+from __future__ import annotations
+
+from repro_torch.backends.base import BackendCapabilities, TreeBackend, register_backend
+from repro_torch.core.ensemble import (
+    MODES,
+    ensemble_device_arrays,
+    predict_mode,
+    predict_partials_mode,
+    u32_numpy,
+)
+
+
+@register_backend
+class ReferenceBackend(TreeBackend):
+    name = "reference"
+    capabilities = BackendCapabilities(
+        modes=MODES,
+        deterministic_modes=("flint", "integer"),
+        preferred_block_rows=None,
+        compiles_per_shape=True,
+        # the walk gathers by node index, so node order cannot change scores
+        supported_layouts=("padded", "leaf_major"),
+        preferred_layout="padded",
+    )
+
+    def __init__(self, packed, mode: str = "integer", *, device=None):
+        super().__init__(packed, mode, device=device)
+        self._arrays = ensemble_device_arrays(packed, mode, self.device)
+
+    def predict_partials(self, X):
+        if not self.deterministic:
+            return super().predict_partials(X)  # raises with the shared message
+        return u32_numpy(predict_partials_mode(
+            self.packed, X, self.mode, device=self.device, arrays=self._arrays))
+
+    def predict_scores(self, X):
+        if self.deterministic:
+            return super().predict_scores(X)
+        return predict_mode(self.packed, X, self.mode, device=self.device,
+                            arrays=self._arrays)

@@ -1,0 +1,204 @@
+"""The tree-traversal kernels K1 and K2, each beside its plain version.
+
+  * K1 ``tree_traverse_leaf_major``: the bounded walk over ``leaf_major``
+    tables (CUDA kernel ``leaf_major_kernel``; replaces the TPU's
+    ``_kernel_leaf_major`` linear scan).
+  * K2 ``tree_traverse_gather``: the per-level gather walk over any node
+    order (CUDA kernel ``gather_kernel``; replaces ``_kernel`` with
+    ``impl="gather"``).
+
+Both return (B, C) uint32 partials that wrap mod 2^32.  The CUDA sources are
+in ``repro_torch/csrc/tree_traverse.cu``.  A wrapper takes its plain version
+only for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises.  ``LAUNCHES`` counts kernel launches per kernel, so a run can show
+which kernel the path took.
+
+The plain versions keep the reference wrapper's padding semantics: rows pad
+to ``block_b``, trees to ``block_t`` with inert trees (feature -1,
+self-looping children, zero leaves, no internal nodes).  They walk all trees
+at once and accumulate in int64 masked to 32 bits, because torch's uint32
+has no add, gather or index_add_.
+"""
+from __future__ import annotations
+
+import torch
+
+#: kernel launches per kernel since the last reset (the wrapper adds one
+#: where it launches, and nowhere else)
+LAUNCHES = {"leaf_major": 0, "gather": 0}
+
+_U32_MASK = 0xFFFFFFFF
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _pad_inert(x_keys, feature, threshold_key, left, right, leaf_fixed,
+               internal_counts, block_b, block_t):
+    """Pad rows to ``block_b`` and trees to ``block_t`` with inert trees
+    (leaves come back as their int32 bit pattern)."""
+    leaf_fixed = leaf_fixed.view(torch.int32)
+    b, t, n = x_keys.shape[0], feature.shape[0], feature.shape[1]
+    pad_b, pad_t = (-b) % block_b, (-t) % block_t
+    if pad_b:
+        x_keys = torch.cat([x_keys, x_keys.new_zeros((pad_b, x_keys.shape[1]))])
+    if pad_t:
+        selfloop = torch.arange(n, dtype=left.dtype, device=left.device).expand(pad_t, n)
+        feature = torch.cat([feature, feature.new_full((pad_t, n), -1)])
+        threshold_key = torch.cat([threshold_key, threshold_key.new_zeros((pad_t, n))])
+        left = torch.cat([left, selfloop])
+        right = torch.cat([right, selfloop])
+        leaf_fixed = torch.cat([leaf_fixed, leaf_fixed.new_zeros((pad_t, *leaf_fixed.shape[1:]))])
+        if internal_counts is not None:
+            internal_counts = torch.cat([internal_counts, internal_counts.new_zeros(pad_t)])
+    return x_keys, feature, threshold_key, left, right, leaf_fixed, internal_counts
+
+
+def _step(x_t, feature, threshold_key, left, right, node):
+    """One level for every (tree, row): node (T, B) int64 -> next node."""
+    feat = feature.gather(1, node).clamp(min=0).long()
+    go_left = x_t.gather(0, feat) <= threshold_key.gather(1, node)
+    return torch.where(go_left, left.gather(1, node), right.gather(1, node)).long()
+
+
+def _sum_leaves(leaf_fixed, node, b):
+    """acc[r, c] = sum_t leaf_fixed[t, node[t, r], c] mod 2^32, first b rows."""
+    t, _, c = leaf_fixed.shape
+    leaf = leaf_fixed.to(torch.int64) & _U32_MASK
+    vals = leaf.gather(1, node[:, :, None].expand(t, node.shape[1], c))
+    acc = vals.sum(0)[:b] & _U32_MASK
+    return acc.to(torch.int32).view(torch.uint32)
+
+
+def leaf_major_plain(x_keys, feature, threshold_key, left, right,
+                     internal_counts, leaf_fixed, *, block_b: int,
+                     block_t: int) -> torch.Tensor:
+    """K1's function in plain PyTorch: each row walks from node 0 while it
+    sits inside its tree's internal prefix (at most ``internal_counts[t]``
+    steps), then the leaves add up."""
+    b = x_keys.shape[0]
+    x_keys, feature, threshold_key, left, right, leaf_fixed, internal_counts = \
+        _pad_inert(x_keys, feature, threshold_key, left, right, leaf_fixed,
+                   internal_counts, block_b, block_t)
+    x_t = x_keys.t()
+    nint = internal_counts.long()[:, None]
+    node = torch.zeros((feature.shape[0], x_keys.shape[0]), dtype=torch.int64,
+                       device=x_keys.device)
+    for _ in range(int(nint.max()) if nint.numel() else 0):
+        inside = node < nint
+        if not bool(inside.any()):
+            break
+        node = torch.where(inside, _step(x_t, feature, threshold_key, left, right, node), node)
+    return _sum_leaves(leaf_fixed, node, b)
+
+
+def gather_plain(x_keys, feature, threshold_key, left, right, leaf_fixed, *,
+                 depth: int, block_b: int, block_t: int) -> torch.Tensor:
+    """K2's function in plain PyTorch: exactly ``depth`` levels of
+    ``node = x[row, max(feature, 0)] <= key ? left : right``."""
+    b = x_keys.shape[0]
+    x_keys, feature, threshold_key, left, right, leaf_fixed, _ = _pad_inert(
+        x_keys, feature, threshold_key, left, right, leaf_fixed, None,
+        block_b, block_t)
+    x_t = x_keys.t()
+    node = torch.zeros((feature.shape[0], x_keys.shape[0]), dtype=torch.int64,
+                       device=x_keys.device)
+    for _ in range(depth):
+        node = _step(x_t, feature, threshold_key, left, right, node)
+    return _sum_leaves(leaf_fixed, node, b)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _cuda_args(x_keys, tables: dict):
+    """Check what the kernels take and return the int32 views to pass."""
+    dev = x_keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA tree kernels take CUDA tensors, got {dev}")
+    b, f = x_keys.shape
+    t, n = tables["feature"].shape
+    shapes = {"x_keys": (b, f), "feature": (t, n), "threshold_key": (t, n),
+              "left": (t, n), "right": (t, n), "internal_counts": (t,)}
+    out = {}
+    for name, a in (("x_keys", x_keys), *tables.items()):
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, x_keys on {dev}")
+        if name == "leaf_fixed":
+            if a.dim() != 3 or a.shape[:2] != (t, n) \
+                    or a.dtype not in (torch.uint32, torch.int32):
+                raise ValueError("leaf_fixed must be (T, N, C) uint32")
+            a = a.view(torch.int32)
+        elif a.dtype != torch.int32 or tuple(a.shape) != shapes[name]:
+            raise ValueError(
+                f"{name} must be int32 of shape {shapes[name]}, got "
+                f"{a.dtype} {tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        out[name] = a
+    if t > 65535:
+        raise ValueError(f"{t} trees exceed the kernels' grid.y limit")
+    return out
+
+
+def _launch(kernel: str, x_keys, tables: dict, ints: tuple,
+            block_b: int, block_t: int) -> torch.Tensor:
+    from repro_torch.kernels._build import load_library
+
+    args = _cuda_args(x_keys, tables)
+    b = x_keys.shape[0]
+    t, n = args["feature"].shape
+    c = args["leaf_fixed"].shape[-1]
+    if not (1 <= block_b <= 1024 and block_b % 32 == 0) or block_t < 1:
+        raise ValueError(f"bad CTA shape: {block_b} rows x {block_t} trees")
+    lib = load_library()
+    out = torch.zeros((b, c), dtype=torch.int32, device=x_keys.device)
+    with torch.cuda.device(x_keys.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, f"intreeger_{kernel}")(
+            *(a.data_ptr() for a in args.values()), out.data_ptr(),
+            b, x_keys.shape[1], t, n, c, *ints, block_b, block_t, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+    LAUNCHES[kernel] += 1
+    return out.view(torch.uint32)
+
+
+def tree_traverse_leaf_major(x_keys, feature, threshold_key, left, right,
+                             internal_counts, leaf_fixed, *, block_b: int,
+                             block_t: int) -> torch.Tensor:
+    """K1: (B, C) uint32 partials over ``leaf_major`` tables.
+
+    ``block_b`` rows and ``block_t`` trees per CTA on the card (row and tree
+    block of the padding on the CPU).  ``internal_counts`` (T,) int32 is the
+    layout's per-tree internal-prefix length.
+    """
+    if x_keys.device.type == "cpu":
+        return leaf_major_plain(x_keys, feature, threshold_key, left, right,
+                                internal_counts, leaf_fixed,
+                                block_b=block_b, block_t=block_t)
+    tables = dict(feature=feature, threshold_key=threshold_key, left=left,
+                  right=right, internal_counts=internal_counts,
+                  leaf_fixed=leaf_fixed)
+    return _launch("leaf_major", x_keys, tables, (), block_b, block_t)
+
+
+def tree_traverse_gather(x_keys, feature, threshold_key, left, right,
+                         leaf_fixed, *, depth: int, block_b: int,
+                         block_t: int) -> torch.Tensor:
+    """K2: (B, C) uint32 partials, ``depth`` gather levels per tree over any
+    node order."""
+    if x_keys.device.type == "cpu":
+        return gather_plain(x_keys, feature, threshold_key, left, right,
+                            leaf_fixed, depth=depth, block_b=block_b,
+                            block_t=block_t)
+    tables = dict(feature=feature, threshold_key=threshold_key, left=left,
+                  right=right, leaf_fixed=leaf_fixed)
+    return _launch("gather", x_keys, tables, (int(depth),), block_b, block_t)

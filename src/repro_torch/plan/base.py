@@ -1,0 +1,258 @@
+"""The ExecutionPlan protocol and the name-keyed plan registry.
+
+A plan sits between the serving engine and the backend layer and decides how
+one logical forest is carved across executors:
+
+    engine -> ExecutionPlan -> backend.predict_partials -> merge -> finalize
+
+Finalize (``core.ensemble.finalize_partials``) runs exactly once, on the
+merged uint32 accumulator.  The port registers the ``single`` plan; the
+sharded plans are still to be ported, and naming one fails in
+:func:`plan_class` as an unknown plan.
+
+Tracing is duck-typed: a tracer is any object with
+``record(name, t0_ns, t1_ns, parent=..., **attrs)``.
+"""
+from __future__ import annotations
+
+import abc
+import threading
+import time
+from typing import ClassVar, Optional
+
+from repro_torch.core.ensemble import finalize_partials, mode_spec
+
+
+def build_backend(backend, model, mode: str, layout: Optional[str],
+                  backend_kwargs: Optional[dict], device=None):
+    """Resolve one shard's backend: a registered name (materialize the wanted
+    layout, then construct on ``device``) or an already-built instance (then
+    the artifact, mode and device are taken from it; a conflicting layout
+    pin fails loudly)."""
+    from repro_torch.backends import backend_class, create_backend
+    from repro_torch.ir import resolve_artifact
+
+    if isinstance(backend, str):
+        caps = backend_class(backend).capabilities
+        wanted = layout or caps.preferred_layout
+        caps.require_layout(wanted, backend)
+        return create_backend(
+            backend, resolve_artifact(model, wanted), mode=mode, device=device,
+            **(backend_kwargs or {})
+        )
+    if layout is not None and getattr(backend, "layout", "padded") != layout:
+        raise ValueError(
+            f"layout {layout!r} conflicts with the constructed "
+            f"backend's artifact (layout {backend.layout!r}); "
+            "materialize the backend on the wanted layout instead"
+        )
+    return backend
+
+
+class ExecutionPlan(abc.ABC):
+    """How one logical forest is executed: shards, merge, finalize."""
+
+    name: ClassVar[str]
+
+    def __init__(self, model, *, mode: str = "integer"):
+        self.mode = mode
+        self._spec = mode_spec(mode)
+        # the FULL ensemble's finalize constants
+        self._n_trees = getattr(model, "n_trees", None)
+        self._scale = getattr(model, "scale", None)
+        self._timings: dict = {}
+        self._stages: dict = {}
+        self._timings_lock = threading.Lock()
+        self._tracer = None
+        self._trace_tls = threading.local()
+
+    # ------------------------------------------------------------ execution
+    @abc.abstractmethod
+    def predict_partials(self, X):
+        """Float features (B, F) -> merged (B, C) uint32 partials."""
+
+    def predict_scores(self, X):
+        """(scores, preds) via the standalone finalize over merged partials."""
+        if not self.deterministic:
+            raise NotImplementedError(
+                f"plan {self.name!r} must override predict_scores for the "
+                f"non-deterministic mode {self.mode!r}"
+            )
+        acc = self.predict_partials(X)
+        t0 = time.perf_counter_ns()
+        out = finalize_partials(self.mode, acc, self._n_trees, self._scale)
+        t1 = time.perf_counter_ns()
+        self._record_stage("finalize", (t1 - t0) / 1e9)
+        self._span("finalize", t0, t1, self.trace_parent)
+        return out
+
+    # ------------------------------------------------------- shard metadata
+    @property
+    @abc.abstractmethod
+    def backends(self) -> tuple:
+        """The shard backends."""
+
+    @property
+    @abc.abstractmethod
+    def packed(self):
+        """A metadata-bearing artifact for the full forest."""
+
+    @property
+    def n_shards(self) -> int:
+        return max(len(self.backends), 1)
+
+    @property
+    def deterministic(self) -> bool:
+        return self._spec.deterministic
+
+    @property
+    def compiles_per_shape(self) -> bool:
+        return any(b.capabilities.compiles_per_shape for b in self.backends)
+
+    @property
+    def preferred_block_rows(self) -> Optional[int]:
+        hints = [b.capabilities.preferred_block_rows for b in self.backends]
+        hints = [h for h in hints if h]
+        return max(hints) if hints else None
+
+    @property
+    def layout(self) -> str:
+        layouts = []
+        for b in self.backends:
+            if b.layout not in layouts:
+                layouts.append(b.layout)
+        return "+".join(layouts) if layouts else "padded"
+
+    @property
+    def backend_name(self) -> str:
+        names = []
+        for b in self.backends:
+            if b.name not in names:
+                names.append(b.name)
+        return "+".join(names) if names else self.name
+
+    def describe(self) -> dict:
+        return {
+            "plan": self.name,
+            "mode": self.mode,
+            "shards": self.n_shards,
+            "backends": [b.name for b in self.backends],
+            "layout": self.layout,
+        }
+
+    # ------------------------------------------------- timing + trace spans
+    def attach_tracer(self, tracer) -> None:
+        """Attach a tracer (plan-wide; idempotent)."""
+        self._tracer = tracer
+
+    @property
+    def trace_parent(self):
+        """The span that parents this thread's execution spans."""
+        return getattr(self._trace_tls, "parent", None)
+
+    @trace_parent.setter
+    def trace_parent(self, span) -> None:
+        self._trace_tls.parent = span
+
+    def _span(self, name: str, t0_ns: int, t1_ns: int, parent, **attrs) -> None:
+        """Commit one completed span under ``parent`` (no-op when untraced)."""
+        if parent and self._tracer is not None:
+            self._tracer.record(name, t0_ns, t1_ns, parent=parent, **attrs)
+
+    def _record(self, label: str, seconds: float) -> None:
+        with self._timings_lock:
+            ms, calls = self._timings.get(label, (0.0, 0))
+            self._timings[label] = (ms + seconds * 1e3, calls + 1)
+
+    def _record_stage(self, stage: str, seconds: float) -> None:
+        """Accumulate one pipeline-stage sample (pad/finalize)."""
+        with self._timings_lock:
+            ms, calls = self._stages.get(stage, (0.0, 0))
+            self._stages[stage] = (ms + seconds * 1e3, calls + 1)
+
+    def _timed(self, label: str, fn, *args, span_parent=None):
+        """Run ``fn`` timing it into the shard ledger (and a span when
+        traced).  Backends return host arrays, so the wall time includes
+        the device work."""
+        t0 = time.perf_counter_ns()
+        out = fn(*args)
+        t1 = time.perf_counter_ns()
+        self._record(label, (t1 - t0) / 1e9)
+        if span_parent:
+            self._span(f"shard:{label}", t0, t1, span_parent, label=label)
+        return out
+
+    def drain_timings(self) -> dict:
+        """Per-shard wall time since the last drain: ``{label: (ms, calls)}``."""
+        with self._timings_lock:
+            out, self._timings = self._timings, {}
+        return out
+
+    def drain_stage_timings(self) -> dict:
+        """Pipeline-stage wall time since the last drain."""
+        with self._timings_lock:
+            out, self._stages = self._stages, {}
+        return out
+
+    def drain_setup_timings(self) -> dict:
+        """One-time setup cost to fold into the engine's warm ledger."""
+        return {}
+
+    def close(self) -> None:
+        """Release executors the plan owns (none for the single plan)."""
+
+
+_REGISTRY: dict = {}
+
+
+def register_plan(cls):
+    """Class decorator: make ``cls`` constructible via :func:`create_plan`."""
+    if not (isinstance(cls, type) and issubclass(cls, ExecutionPlan)):
+        raise TypeError(f"register_plan expects an ExecutionPlan subclass, got {cls!r}")
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+def available_plans() -> list:
+    return sorted(_REGISTRY)
+
+
+def plan_class(name: str):
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown plan {name!r}; available: {available_plans()}"
+        ) from None
+
+
+def select_plan(plan: Optional[str], *, mode: str, backend, shards=None,
+                model=None) -> str:
+    """Capability-driven auto-selection (``plan in (None, "auto")``): one
+    shard is the single plan; several pick tree-parallel for integer
+    partials with trees to carve, else row-parallel (not ported yet, so
+    :func:`create_plan` then fails as an unknown plan)."""
+    if plan not in (None, "auto"):
+        plan_class(plan)  # fail fast on unknown names
+        return plan
+    if not isinstance(backend, str) and isinstance(backend, (list, tuple)):
+        return "tree_parallel"
+    if shards is None or int(shards) <= 1:
+        return "single"
+    n_trees = getattr(model, "n_trees", None)
+    if mode_spec(mode).deterministic and (n_trees is None or n_trees >= 2):
+        return "tree_parallel"
+    return "row_parallel"
+
+
+def create_plan(name: Optional[str], model, *, mode: str = "integer",
+                backend="reference", shards=None, layout: Optional[str] = None,
+                backend_kwargs: Optional[dict] = None, device=None,
+                **plan_kwargs) -> ExecutionPlan:
+    """Instantiate a plan by name (``None``/"auto" -> :func:`select_plan`)."""
+    resolved = select_plan(name, mode=mode, backend=backend, shards=shards,
+                           model=model)
+    return plan_class(resolved)(
+        model, mode=mode, backend=backend, shards=shards, layout=layout,
+        backend_kwargs=backend_kwargs, device=device, **plan_kwargs
+    )

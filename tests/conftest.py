@@ -75,6 +75,10 @@ def pytest_configure(config):
         'workloads); CI deselects them with -m "not slow", `make check` '
         "still runs everything",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; the test's fixture skips it when there is none",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

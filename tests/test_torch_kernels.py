@@ -1,0 +1,195 @@
+"""The port's kernel module on the CPU: the plain versions of K1 (bounded
+walk over leaf_major tables) and K2 (per-level gather walk) against the JAX
+package's Pallas kernels (interpret mode) and both oracles — bit-identical
+uint32 partials, including row and tree padding and degenerate forests.
+The CUDA kernels themselves are held against these plain versions on the
+card by ``test_torch_cuda.py`` and ``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from forest_cases import DEGENERATE_FORESTS, forest_from_trees
+from repro.core.flint import float_to_key as jax_float_to_key
+from repro.core.packing import pack_forest
+from repro.ir import ForestIR as JForestIR
+from repro.kernels.ops import tree_predict_integer as jax_tree_predict_integer
+from repro.kernels.ref import tree_predict_integer_ref as jax_ref
+from repro.trees.cart import TreeArrays
+from repro.trees.forest import RandomForestClassifier
+from repro_torch.core.flint import float_to_key
+from repro_torch.ir import ForestIR
+from repro_torch.ir.forest_ir import ARRAY_DTYPES
+from repro_torch.kernels import tree_traverse as tt
+from repro_torch.kernels.ops import packed_predict_integer, pick_blocks, tree_predict_integer
+from repro_torch.kernels.ref import tree_predict_integer_ref
+
+
+def _forest(n_trees, depth, n_features, n_classes, seed=0, n=1500):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, n_features)).astype(np.float32)
+    y = rng.integers(0, n_classes, n)
+    y = np.where(X[:, 0] > 0.5, (y + 1) % n_classes, y)
+    rf = RandomForestClassifier(n_estimators=n_trees, max_depth=depth, seed=seed).fit(X, y)
+    return rf, X
+
+
+def _tables(packed):
+    return (packed.feature, packed.threshold_key, packed.left, packed.right,
+            packed.leaf_fixed)
+
+
+def _jax(x, packed, impl, **kw):
+    keys = jax_float_to_key(jnp.asarray(x))
+    extra = {"internal_counts": packed.internal_counts} if impl == "leaf_major" else {}
+    out = jax_tree_predict_integer(
+        keys, *(jnp.asarray(a) for a in _tables(packed)),
+        depth=packed.max_depth, impl=impl, **extra, **kw)
+    return np.asarray(out)
+
+
+def _port(x, packed, impl, **kw):
+    keys = float_to_key(torch.from_numpy(x))
+    extra = {"internal_counts": packed.internal_counts} if impl == "leaf_major" else {}
+    out = tree_predict_integer(keys, *_tables(packed), depth=packed.max_depth,
+                               impl=impl, device="cpu", **extra, **kw)
+    assert out.dtype == torch.uint32
+    return out.numpy()
+
+
+def _oracles(x, packed):
+    """(JAX oracle, port oracle) partials over the same tables."""
+    ref_j = np.asarray(jax_ref(jax_float_to_key(jnp.asarray(x)),
+                               *(jnp.asarray(a) for a in _tables(packed)),
+                               packed.max_depth))
+    ref_t = tree_predict_integer_ref(
+        float_to_key(torch.from_numpy(x)),
+        *(torch.from_numpy(a) for a in _tables(packed)), packed.max_depth).numpy()
+    np.testing.assert_array_equal(ref_t, ref_j)
+    return ref_j
+
+
+@pytest.mark.parametrize("impl", ["gather", "leaf_major"])
+@pytest.mark.parametrize(
+    "n_trees,depth,n_features,n_classes",
+    [(3, 3, 4, 2), (7, 5, 7, 7), (12, 6, 11, 3), (5, 4, 87, 2)],
+)
+def test_plain_matches_pallas_sweep(impl, n_trees, depth, n_features, n_classes):
+    """217 rows (not a block multiple) and block_t=5 (tree padding with
+    inert trees) through both the port's plain version and the Pallas
+    kernel; both equal both oracles."""
+    rf, X = _forest(n_trees, depth, n_features, n_classes)
+    ir = JForestIR.from_forest(rf)
+    packed = ir.materialize("leaf_major" if impl == "leaf_major" else "padded")
+    x = X[:217]
+    ref = _oracles(x, packed)
+    blocks = dict(block_b=64, block_t=min(5, n_trees))
+    jax_out = _jax(x, packed, impl, **blocks)
+    port_out = _port(x, packed, impl, **blocks)
+    np.testing.assert_array_equal(jax_out, ref)
+    np.testing.assert_array_equal(port_out, ref)
+    assert port_out.dtype == np.uint32
+
+
+@pytest.mark.parametrize("blocks", [dict(block_b=32, block_t=1), dict(block_b=128, block_t=3),
+                                    dict(block_b=None, block_t=None)])
+@pytest.mark.parametrize("rows", [1, 63, 200])
+def test_plain_block_shapes(blocks, rows):
+    """Any (rows per block, trees per block, rows) combination, including the
+    H100 block choice, gives the same partials from both plain versions."""
+    rf, X = _forest(7, 4, 5, 3, seed=2)
+    ir = ForestIR.from_forest(rf)
+    lm, padded = ir.materialize("leaf_major"), ir.materialize("padded")
+    x = X[:rows]
+    ref = _oracles(x, padded)
+    np.testing.assert_array_equal(_port(x, lm, "leaf_major", **blocks), ref)
+    np.testing.assert_array_equal(_port(x, padded, "gather", **blocks), ref)
+    np.testing.assert_array_equal(_port(x, lm, "gather", **blocks), ref)
+
+
+@pytest.mark.parametrize("name", sorted(DEGENERATE_FORESTS))
+def test_plain_degenerate_forests(name):
+    """Stumps (no internal prefix: K1 does no walk), T == 1 and a
+    depth-skewed mix, against the Pallas kernels."""
+    ir = JForestIR.from_forest(DEGENERATE_FORESTS[name]())
+    x = np.random.default_rng(5).normal(0.0, 6.0, (33, ir.n_features)).astype(np.float32)
+    lm, padded = ir.materialize("leaf_major"), ir.materialize("padded")
+    ref = _oracles(x, padded)
+    for impl, packed in (("leaf_major", lm), ("gather", padded)):
+        np.testing.assert_array_equal(_jax(x, packed, impl, block_b=16, block_t=2), ref)
+        np.testing.assert_array_equal(_port(x, packed, impl, block_b=16, block_t=2), ref)
+
+
+def test_single_tree_partials_above_2_31():
+    """One tree with leaf probability 1.0 quantizes at scale 2^32 - 1, so
+    every partial is >= 2^31: the uint32 must come through unsigned."""
+    tree = TreeArrays(
+        feature=np.array([0, -1, -1], np.int32),
+        threshold=np.array([0.0, 0.0, 0.0], np.float32),
+        left=np.array([1, 1, 2], np.int32),
+        right=np.array([2, 1, 2], np.int32),
+        leaf_probs=np.array([[0, 0], [1.0, 0.0], [0.25, 0.75]], np.float64),
+        depth=1,
+    )
+    ir = JForestIR.from_forest(forest_from_trees([tree], 2, 1))
+    x = np.array([[-1.0], [1.0], [0.0]], np.float32)
+    ref = _oracles(x, ir.materialize("padded"))
+    assert ref.max() >= 2 ** 31 and ref[0, 0] == 2 ** 32 - 1
+    for impl, layout in (("leaf_major", "leaf_major"), ("gather", "padded")):
+        packed = ir.materialize(layout)
+        np.testing.assert_array_equal(_port(x, packed, impl), ref)
+        np.testing.assert_array_equal(_jax(x, packed, impl, block_b=8), ref)
+
+
+def test_packed_entry_point_auto_impl(small_packed, shuttle_small):
+    """``impl="auto"`` resolves per layout, a pinned scan re-materializes a
+    padded artifact, and all agree with the reference ensemble."""
+    from repro.core.ensemble import predict_integer
+
+    _, _, Xte, _ = shuttle_small
+    acc_ref, pred_ref = predict_integer(small_packed, Xte[:150])
+    ref_ir = small_packed.to_ir()
+    ir = ForestIR.from_numpy({k: getattr(ref_ir, k) for k in ARRAY_DTYPES},
+                             n_trees=ref_ir.n_trees, n_classes=ref_ir.n_classes,
+                             n_features=ref_ir.n_features)
+    for model, kw in ((ir, {}), (ir.materialize("leaf_major"), {}),
+                      (ir.materialize("padded"), {}),
+                      (ir.materialize("padded"), {"impl": "leaf_major"})):
+        acc, pred = packed_predict_integer(model, Xte[:150], device="cpu", **kw)
+        np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_ref))
+        np.testing.assert_array_equal(pred.numpy(), np.asarray(pred_ref))
+
+
+def test_onehot_and_missing_internal_counts_raise():
+    rf, X = _forest(3, 3, 4, 2)
+    packed = ForestIR.from_forest(rf).materialize("padded")
+    with pytest.raises(NotImplementedError, match="K3"):
+        _port(X[:4], packed, "onehot")
+    with pytest.raises(ValueError, match="internal_counts"):
+        tree_predict_integer(float_to_key(torch.from_numpy(X[:4])), *_tables(packed),
+                             depth=packed.max_depth, impl="leaf_major", device="cpu")
+
+
+def test_wrappers_take_plain_versions_on_cpu_only():
+    """CPU tensors go to the plain versions and launch nothing."""
+    rf, X = _forest(3, 3, 4, 2)
+    ir = ForestIR.from_forest(rf)
+    lm = ir.materialize("leaf_major")
+    before = dict(tt.LAUNCHES)
+    keys = float_to_key(torch.from_numpy(X[:50]))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    out = tt.tree_traverse_leaf_major(
+        keys, *(t(a) for a in _tables(lm)[:4]), t(lm.internal_counts),
+        t(lm.leaf_fixed), block_b=128, block_t=2)
+    assert tt.LAUNCHES == before
+    np.testing.assert_array_equal(out.numpy(), _oracles(X[:50], lm))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tt._cuda_args(keys, {"feature": t(lm.feature)})
+
+
+def test_h100_block_choice():
+    # the serve_64k batch: 512 row blocks x 9 tree chunks of 15 trees
+    assert pick_blocks(65_536, 128, 132) == (128, 15)
+    assert pick_blocks(1, 128, 132) == (128, 1)  # small batches: a tree per CTA
+    assert pick_blocks(10 ** 7, 128, 132) == (128, 128)
+    assert pick_blocks(1000, 1, 132) == (128, 1)
