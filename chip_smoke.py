@@ -50,9 +50,9 @@ ROWS = 65_536
 SMALL_REQUESTS = (1000, 100, 20, 1)
 THRESHOLD_SAMPLE_ROWS = 4096
 
-# H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip-measurement
-# guide): HBM bandwidth, and the float32 rate outside the tensor cores, the
-# table's nearest row for these integer compares, selects and adds
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the float32 rate
+# outside the tensor cores, the nearest published rate for these integer
+# compares, selects and adds
 HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_OPS_PER_S = 67e12
 

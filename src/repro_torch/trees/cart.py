@@ -1,6 +1,6 @@
 """A trained tree as flat arrays, the input of ``ForestIR.from_forest``.
 
-Only the container is ported so far; training waits for its own slice.
+This package holds the container only; training is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The slice as a whole: the port's ``TreeEngine`` against the JAX package's,
+"""The serving path as a whole: the port's ``TreeEngine`` against the JAX package's,
 route by route, with scores and predictions bit-identical.
 
 ``integer|flint:cuda@leaf_major|padded`` (plain versions on the CPU) is held
