@@ -17,9 +17,17 @@ with one CUDA card.  It
      kernels' launch counters set to 0 just before and read just after,
   4. holds every result bit for bit against the torch reference walk on the
      card, a 100-row result against the independent CPU oracle, and each
-     kernel against its plain version at the 65,536-row shape,
+     kernel (K1, K2 and K3, the one-hot walk) against its plain version at
+     the 65,536-row shape, K3 also on a small malformed table,
   5. times each kernel (L2 flushed before every launch), its plain version
-     and the end-to-end request with CUDA events and the host clock.
+     and the end-to-end request with CUDA events and the host clock,
+  6. serves a seeded open-loop workload through two ``Gateway``s over one
+     ``ModelRegistry`` at once — ``integer:cuda?autotune=true`` (K1, and K2
+     under 64 rows) and ``integer:cuda@padded?impl=onehot`` (K3) — with
+     repeated rows for the cache and a hot swap to a second forest halfway,
+     with the launch counters set to 0 just before and read just after, and
+     holds every response against the reference walk of the version that
+     served it.
 
 Any mismatch, build failure or launch error ends the run with a non-zero
 exit.  On success the lines before the last hold the card's name and power
@@ -59,6 +67,16 @@ NON_TENSOR_OPS_PER_S = 67e12
 KERNEL_TIMING_REPS = 20
 PLAIN_TIMING_REPS = 5
 REQUEST_TIMING_REPS = 10
+
+# the gateway phase: request sizes and their shares, the share of requests
+# that repeat an earlier request's rows, the open-loop arrival rate
+GATEWAY_REQUESTS = 240
+GATEWAY_ROWS = (1, 20, 256, 4096)
+GATEWAY_ROW_SHARES = (0.35, 0.35, 0.2, 0.1)
+GATEWAY_REPEAT_SHARE = 0.25
+GATEWAY_RATE_PER_S = 100.0
+GATEWAY_MAX_BATCH_ROWS = 4096
+MODEL_ID = "intreeger-rf"
 
 
 def fail(message: str, code: int = 1):
@@ -112,6 +130,7 @@ def complete_tree(rng, sample, tree_arrays_cls):
 
 
 def build_model(seed: int):
+    """(forest, its ForestIR, the 65,536 rows its thresholds came from)."""
     from repro_torch.ir import ForestIR
     from repro_torch.trees import TreeArrays
 
@@ -121,7 +140,21 @@ def build_model(seed: int):
     forest = SimpleNamespace(
         trees_=[complete_tree(rng, sample, TreeArrays) for _ in range(N_TREES)],
         n_classes_=N_CLASSES, n_features_=N_FEATURES)
-    return ForestIR.from_forest(forest), X
+    return forest, ForestIR.from_forest(forest), X
+
+
+def malformed_tables(packed):
+    """The first three trees of ``packed``'s tables with reads that leave
+    them: at the root, a left child >= N, a feature index >= F and a right
+    child < 0.  K3 reads 0 for each."""
+    tables = [np.ascontiguousarray(a[:3]).copy() for a in
+              (packed.feature, packed.threshold_key, packed.left, packed.right,
+               packed.leaf_fixed.view(np.int32))]
+    feature, _, left, right, _ = tables
+    left[0, 0] = feature.shape[1] + 3
+    feature[1, 0] = N_FEATURES + 2
+    right[2, 0] = -2
+    return tables
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +228,115 @@ def bound(nbytes: int, ops: int):
 
 
 # ---------------------------------------------------------------------------
+# the gateway path
+# ---------------------------------------------------------------------------
+
+def gateway_workload(seed: int):
+    """(request rows, arrival seconds): sizes drawn from GATEWAY_ROWS, a
+    GATEWAY_REPEAT_SHARE of requests repeating an earlier request's rows,
+    Poisson arrivals at GATEWAY_RATE_PER_S."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.choice(GATEWAY_ROWS, GATEWAY_REQUESTS, p=GATEWAY_ROW_SHARES)
+    reqs = []
+    for i, n in enumerate(sizes):
+        if i and rng.random() < GATEWAY_REPEAT_SHARE:
+            reqs.append(reqs[int(rng.integers(i))])
+        else:
+            reqs.append(rng.normal(0.0, 1.0, (int(n), N_FEATURES)).astype(np.float32))
+    arrivals = np.cumsum(rng.exponential(1.0 / GATEWAY_RATE_PER_S, GATEWAY_REQUESTS))
+    return reqs, arrivals
+
+
+def gateway_phase(forest_v1, forest_v2, seed: int, dev, card: str) -> dict:
+    """Serve the seeded workload through two gateways over one registry at
+    once, hot-swap to ``forest_v2`` halfway, hold every response against
+    the reference walk of the version that served it, print each gateway's
+    metrics, and return the kernel launches of the run."""
+    import asyncio
+
+    import torch
+    from repro_torch.kernels import tree_traverse as tt
+    from repro_torch.serve import Gateway, ModelRegistry, TreeEngine
+
+    reg = ModelRegistry()
+    versions = {1: reg.register_forest(MODEL_ID, forest_v1)}
+    routes = {"A": "integer:cuda?autotune=true", "B": "integer:cuda@padded?impl=onehot"}
+    gws = {name: Gateway(reg, route, max_batch_rows=GATEWAY_MAX_BATCH_ROWS,
+                         max_delay_ms=2.0, max_queue_rows=1 << 22,
+                         cache_rows=1 << 20, device=dev)
+           for name, route in routes.items()}
+    t0 = time.perf_counter()
+    for gw in gws.values():  # autotunes A's CTA shape, then warms its buckets
+        versions[1].engine(gw.spec, device=dev).warm(GATEWAY_MAX_BATCH_ROWS)
+    torch.cuda.synchronize()
+    print(f"gateway: warmed both routes in {time.perf_counter() - t0:.2f} s")
+    reqs, arrivals = gateway_workload(seed + 2)
+    swap_at = GATEWAY_REQUESTS // 2
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        start = loop.time()
+        swap = []
+
+        async def client(i):
+            await asyncio.sleep(max(0.0, start + arrivals[i] - loop.time()))
+            if i == swap_at:  # quantize v2 off the loop; the repoint is atomic
+                swap.append(loop.run_in_executor(
+                    None, reg.register_forest, MODEL_ID, forest_v2))
+            version = reg.version(MODEL_ID)
+            outs = await asyncio.gather(*[gw.submit(MODEL_ID, reqs[i])
+                                          for gw in gws.values()])
+            return version, outs
+
+        results = await asyncio.gather(*[client(i) for i in range(GATEWAY_REQUESTS)])
+        versions[2] = await swap[0]
+        for gw in gws.values():
+            await gw.close()
+        return results, loop.time() - start
+
+    tt.reset_launches()
+    results, seconds = asyncio.run(run())
+    torch.cuda.synchronize()
+    gw_launches = dict(tt.LAUNCHES)
+    rows = sum(len(x) for x in reqs)
+    print(f"gateway path: {GATEWAY_REQUESTS} requests ({rows} rows) to each of 2 "
+          f"gateways in {seconds:.3f} s, hot swap at request {swap_at}, kernel "
+          f"launches {gw_launches}")
+
+    # every response against the reference walk of v1 or v2 on the card
+    all_rows = np.concatenate(reqs)
+    offsets = np.cumsum([0] + [len(x) for x in reqs])
+    expect = {v: TreeEngine(mv.packed, spec="integer:reference", device=dev)
+              .predict_scores(all_rows) for v, mv in versions.items()}
+    served = {name: {1: 0, 2: 0} for name in gws}
+    for i, (version, outs) in enumerate(results):
+        lo, hi = offsets[i], offsets[i + 1]
+        for name, (scores, preds) in zip(gws, outs):
+            match = [v for v in (1, 2) if np.array_equal(scores, expect[v][0][lo:hi])
+                     and np.array_equal(preds, expect[v][1][lo:hi])]
+            if not match:
+                fail(f"gateway {name} request {i} ({hi - lo} rows) matches neither "
+                     "version's reference")
+            if version == 2 and match != [2]:
+                fail(f"gateway {name} request {i} was submitted after the swap "
+                     "but not served by v2")
+            served[name][match[-1]] += 1
+    print(f"gateway responses bit-identical to the reference walk of the version "
+          f"that served them: {served}")
+
+    for name, gw in gws.items():
+        st = gw.stats()["per_model"][MODEL_ID]
+        stage_ms = {k: h["mean"] for k, h in st["stages"].items()}
+        print(f"{card} | gateway {name} {routes[name]}: p50 {st['p50_ms']:.3f} ms, "
+              f"p99 {st['p99_ms']:.3f} ms, {st['rows_per_s']:.0f} rows/s, cache hit "
+              f"rate {st['cache_hit_rate']:.4f}, batches {st['batches']}, occupancy "
+              f"{st['batch_occupancy']:.1f} rows, tuned {st['tuned']}, tune ms "
+              f"{st['compile_ms_by_bucket'].get('tune', 0.0):.1f}, stage ms means "
+              + json.dumps({k: round(v, 4) for k, v in sorted(stage_ms.items())}))
+    return gw_launches
+
+
+# ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
 
@@ -235,7 +377,7 @@ def main() -> None:
 
     # 2. the model
     t0 = time.perf_counter()
-    ir, X = build_model(args.seed)
+    forest, ir, X = build_model(args.seed)
     print(f"model: {ir.n_trees} trees, depth {ir.max_depth}, {ir.n_features} "
           f"features, {ir.n_classes} classes, {ir.total_nodes} nodes; built and "
           f"quantized in {time.perf_counter() - t0:.2f} s")
@@ -252,8 +394,8 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = dict(tt.LAUNCHES)
     print(f"main path: {len(requests)} requests, kernel launches {launches}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("leaf_major", "gather"):
+        if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
 
     # 4a. every result against the torch reference walk on the card
@@ -312,6 +454,12 @@ def main() -> None:
             lambda: tt.gather_plain(keys, *pad_tables, depth=ir.max_depth,
                                     block_b=block_b, block_t=block_t),
             "src/repro/kernels/tree_traverse.py:80"),
+        "onehot": (
+            lambda: tt.tree_traverse_onehot(keys, *pad_tables, depth=ir.max_depth,
+                                            block_b=block_b, block_t=block_t),
+            lambda: tt.onehot_plain(keys, *pad_tables, depth=ir.max_depth,
+                                    block_b=block_b, block_t=block_t),
+            "src/repro/kernels/tree_traverse.py:80"),
     }
     errors = {}
     for name, (kernel, plain, _) in kernels.items():
@@ -322,6 +470,18 @@ def main() -> None:
               f"max |kernel - plain| = {errors[name]} (tolerance 0: integer sums)")
         if errors[name] != 0:
             fail(f"kernel {name} disagrees with its plain version")
+    # K3's own function: every read outside its table reads 0
+    bad = [torch.from_numpy(a).to(dev) for a in malformed_tables(ir.materialize("padded"))]
+    depth = ir.max_depth + 2
+    for bb, bt in ((block_b, 1), (64, 3)):
+        out = tt.tree_traverse_onehot(keys[:300], *bad, depth=depth, block_b=bb, block_t=bt)
+        ref = tt.onehot_plain(keys[:300], *bad, depth=depth, block_b=bb, block_t=bt)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, ref)
+        print(f"kernel onehot on a malformed table (child >= N, child < 0, feature "
+              f">= F), {bb} rows x {bt} trees per CTA: max |kernel - plain| = {err}")
+        if err != 0:
+            fail("kernel onehot disagrees with its plain version on a malformed table")
 
     # 5. times and bounds
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -331,27 +491,27 @@ def main() -> None:
     steps = {
         "leaf_major": leaf_major_steps(keys, f, k, l, r, nint),
         "gather": ROWS * N_TREES * ir.max_depth,
+        "onehot": ROWS * N_TREES * ir.max_depth,
     }
-    rows_out = []
+    measured = {}
     for name, (kernel, plain, replaces) in kernels.items():
         ms = cuda_ms(kernel, KERNEL_TIMING_REPS, flush)
         warm_ms = cuda_ms(kernel, KERNEL_TIMING_REPS)
         plain_ms = cuda_ms(plain, PLAIN_TIMING_REPS, flush)
         nbytes = table_bytes + io_bytes + (N_TREES * 4 if name == "leaf_major" else 0)
         # per walk step: the key compare, the child select and the loop's
-        # own compare; per (row, tree): one add per class
-        ops = 3 * steps[name] + ROWS * N_TREES * N_CLASSES
+        # own compare (K3 adds its node and feature range checks); per
+        # (row, tree): one add per class
+        ops = (5 if name == "onehot" else 3) * steps[name] + ROWS * N_TREES * N_CLASSES
         bound_ms, bound_by = bound(nbytes, ops)
         print(f"kernel {name}: {ms:.4f} ms L2-flushed, {warm_ms:.4f} ms warm, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes} bytes, {ops} ops, {steps[name]} walk steps), "
-              f"launches {launches[name]}; no single PyTorch call computes "
-              "this function, so there is no library time")
-        rows_out.append(dict(
+              f"({nbytes} bytes, {ops} ops, {steps[name]} walk steps); no single "
+              "PyTorch call computes this function, so there is no library time")
+        measured[name] = dict(
             name=name, route="cuda", source="src/repro_torch/csrc/tree_traverse.cu",
-            replaces=replaces, launches=launches[name], max_abs_err=errors[name],
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None))
+            replaces=replaces, max_abs_err=errors[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
     for spec in routes:
         eng = engines[spec]
@@ -374,7 +534,22 @@ def main() -> None:
     print("request integer:cuda@leaf_major steps, ms median: " + ", ".join(
         f"{k} {v:.4f}" for k, v in steps_ms.items()))
 
-    print(card_line())
+    # 6. the gateway path, with the launch counters read around it
+    card = card_line()
+    t0 = time.perf_counter()
+    forest_v2 = build_model(args.seed + 1)[0]
+    print(f"gateway: v2 forest built from seed {args.seed + 1} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gw_launches = gateway_phase(forest, forest_v2, args.seed, dev, card)
+    for name in ("leaf_major", "gather", "onehot"):
+        if gw_launches[name] == 0:
+            fail(f"kernel {name} was not launched on the gateway path")
+
+    rows_out = [dict(measured[name], launches=launches[name] + gw_launches[name],
+                     launches_by_path={"engine": launches[name],
+                                       "gateway": gw_launches[name]})
+                for name in kernels]
+    print(card)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

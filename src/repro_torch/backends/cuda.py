@@ -2,7 +2,7 @@
 protocol (the counterpart of the JAX package's ``pallas`` backend).
 
 It copies the node tables to the card once, at construction, and per call
-moves the rows over, keys them (FlInt), launches K1 or K2 through
+moves the rows over, keys them (FlInt), launches K1, K2 or K3 through
 ``kernels.ops.tree_predict_integer`` and returns the uint32 partials to the
 host, where the shared numpy finalize runs.  ``flint`` and ``integer``
 accumulate the same partials and differ only in that finalize.
@@ -11,7 +11,12 @@ accumulate the same partials and differ only in that finalize.
 scannable ``leaf_major`` tables, the gather walk (K2) on ``padded`` ones or
 when the node order is not scannable.  Only an auto resolution switches to
 K2 for batches under ``_SMALL_BATCH_GATHER_ROWS`` rows; a pinned impl is a
-routing decision the caller owns.
+routing decision the caller owns (``impl="onehot"`` always launches K3).
+
+Rows must carry at least the forest's ``n_features`` columns: the kernels
+take the row stride from the rows, so fewer columns would read the next
+row, and past the buffer at the last one.  The JAX package's Pallas path
+clamps there instead; this backend raises ``ValueError`` on every device.
 """
 from __future__ import annotations
 
@@ -68,6 +73,11 @@ class CudaBackend(TreeBackend):
                                  if scannable else None)
 
     def predict_partials(self, X):
+        X = np.asarray(X)
+        if X.ndim != 2 or X.shape[1] < self.packed.n_features:
+            raise ValueError(
+                f"rows of shape {X.shape} have fewer columns than the "
+                f"{self.packed.n_features} features the forest reads")
         impl = self.impl
         if self._auto_small_batch and len(X) < _SMALL_BATCH_GATHER_ROWS:
             impl = "gather"

@@ -37,6 +37,7 @@ _SIGNATURES = {
     # x, feature, key, left, right, leaf, out,
     # B, F, T, N, C, depth, rows_per_cta, trees_per_cta, stream
     "intreeger_gather": [_PTR] * 7 + [_INT] * 8 + [_PTR],
+    "intreeger_onehot": [_PTR] * 7 + [_INT] * 8 + [_PTR],
 }
 
 _lock = threading.Lock()

@@ -21,7 +21,11 @@ import torch
 
 from repro_torch.core.flint import float_to_key
 from repro_torch.device import resolve_device
-from repro_torch.kernels.tree_traverse import tree_traverse_gather, tree_traverse_leaf_major
+from repro_torch.kernels.tree_traverse import (
+    tree_traverse_gather,
+    tree_traverse_leaf_major,
+    tree_traverse_onehot,
+)
 
 ROWS_PER_CTA = 128
 _THREADS_PER_SM = 2048
@@ -29,14 +33,10 @@ _WAVES = 2
 #: the H100 SXM's SM count, used when the tensors are not on a card
 _H100_SMS = 132
 
-IMPLS = ("gather", "leaf_major")
+IMPLS = ("gather", "leaf_major", "onehot")
 
 
 def check_impl(impl: str) -> None:
-    if impl == "onehot":
-        raise NotImplementedError(
-            "impl='onehot' (kernel K3, the one-hot variant of the gather walk) "
-            "is not ported yet; see ROADMAP.md Queue 2")
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
 
@@ -49,6 +49,21 @@ def pick_blocks(b: int, t: int, sm_count: int = _H100_SMS):
     return ROWS_PER_CTA, -(-t // chunks)
 
 
+def pick_blocks_candidates(b: int, t: int, sm_count: int = _H100_SMS) -> list:
+    """The measured-autotune grid: :func:`pick_blocks`'s choice first (ties
+    resolve to it), then its neighbours with rows per CTA halved and doubled
+    (multiples of 32 up to 1,024, what a CTA can hold) and trees per CTA
+    halved and doubled (1 to ``t``).  Every entry gives the same partials."""
+    auto_b, auto_t = pick_blocks(b, t, sm_count)
+    cands = [(auto_b, auto_t)]
+    for bb, bt in ((auto_b // 2, auto_t), (auto_b * 2, auto_t),
+                   (auto_b, auto_t // 2), (auto_b, min(t, auto_t * 2))):
+        if 32 <= bb <= 1024 and bb % 32 == 0 and bt >= 1 \
+                and (bb, bt) not in cands:
+            cands.append((bb, bt))
+    return cands
+
+
 def _sm_count(device: torch.device) -> int:
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).multi_processor_count
@@ -59,10 +74,11 @@ def tree_predict_integer(x_keys, feature, threshold_key, left, right,
                          leaf_fixed, *, depth: int, block_b=None, block_t=None,
                          impl: str = "gather", internal_counts=None,
                          device=None) -> torch.Tensor:
-    """Integer ensemble inference through K1 (``impl="leaf_major"``) or K2
-    (``impl="gather"``), any B and T.  Inputs are moved to ``device``
-    (``cuda`` unless ``device="cpu"``).  Returns (B, C) uint32 partials,
-    bit-identical to ``ref.tree_predict_integer_ref``."""
+    """Integer ensemble inference through K1 (``impl="leaf_major"``), K2
+    (``impl="gather"``) or K3 (``impl="onehot"``), any B and T.  Inputs are
+    moved to ``device`` (``cuda`` unless ``device="cpu"``).  Returns (B, C)
+    uint32 partials, bit-identical to ``ref.tree_predict_integer_ref`` (for
+    K3, on tables whose every index lies inside its table)."""
     check_impl(impl)
     if impl == "leaf_major" and internal_counts is None:
         raise ValueError(
@@ -85,14 +101,15 @@ def tree_predict_integer(x_keys, feature, threshold_key, left, right,
             x_keys, feature, threshold_key, left, right,
             on_dev(internal_counts).to(torch.int32), leaf_fixed,
             block_b=block_b, block_t=block_t)
-    return tree_traverse_gather(
-        x_keys, feature, threshold_key, left, right, leaf_fixed,
-        depth=depth, block_b=block_b, block_t=block_t)
+    walk = tree_traverse_onehot if impl == "onehot" else tree_traverse_gather
+    return walk(x_keys, feature, threshold_key, left, right, leaf_fixed,
+                depth=depth, block_b=block_b, block_t=block_t)
 
 
 def resolve_impl(packed, impl: str) -> str:
     """``auto`` -> the bounded walk on scannable ``leaf_major`` tables, else
-    the gather walk (any node order)."""
+    the gather walk (any node order).  ``gather`` and ``onehot`` walk
+    ``max_depth`` levels over either layout."""
     layout = getattr(packed, "layout", "padded")
     scannable = getattr(packed, "internal_counts", None) is not None
     if impl == "auto":

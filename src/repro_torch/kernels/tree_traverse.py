@@ -1,4 +1,4 @@
-"""The tree-traversal kernels K1 and K2, each beside its plain version.
+"""The tree-traversal kernels K1, K2 and K3, each beside its plain version.
 
   * K1 ``tree_traverse_leaf_major``: the bounded walk over ``leaf_major``
     tables (CUDA kernel ``leaf_major_kernel``; replaces the TPU's
@@ -6,12 +6,18 @@
   * K2 ``tree_traverse_gather``: the per-level gather walk over any node
     order (CUDA kernel ``gather_kernel``; replaces ``_kernel`` with
     ``impl="gather"``).
+  * K3 ``tree_traverse_onehot``: K2's walk with every table read masked
+    (CUDA kernel ``onehot_kernel``; replaces ``_kernel`` with
+    ``impl="onehot"``).  The TPU kernel reads through compare-iota masked
+    sums, so an index outside its table matches no lane and reads 0; on
+    well-formed tables K3 and K2 give the same bits.
 
-Both return (B, C) uint32 partials that wrap mod 2^32.  The CUDA sources are
-in ``repro_torch/csrc/tree_traverse.cu``.  A wrapper takes its plain version
-only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``LAUNCHES`` counts kernel launches per kernel, so a run can show
-which kernel the path took.
+All three return (B, C) uint32 partials that wrap mod 2^32.  The CUDA
+sources are in ``repro_torch/csrc/tree_traverse.cu``.  A wrapper takes its
+plain version only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel, so a run
+can show which kernel the path took; the gateway launches from executor
+threads, so the counts change under a lock.
 
 The plain versions keep the reference wrapper's padding semantics: rows pad
 to ``block_b``, trees to ``block_t`` with inert trees (feature -1,
@@ -21,18 +27,22 @@ has no add, gather or index_add_.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 #: kernel launches per kernel since the last reset (the wrapper adds one
 #: where it launches, and nowhere else)
-LAUNCHES = {"leaf_major": 0, "gather": 0}
+LAUNCHES = {"leaf_major": 0, "gather": 0, "onehot": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 _U32_MASK = 0xFFFFFFFF
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -67,11 +77,33 @@ def _step(x_t, feature, threshold_key, left, right, node):
     return torch.where(go_left, left.gather(1, node), right.gather(1, node)).long()
 
 
-def _sum_leaves(leaf_fixed, node, b):
-    """acc[r, c] = sum_t leaf_fixed[t, node[t, r], c] mod 2^32, first b rows."""
-    t, _, c = leaf_fixed.shape
+def _masked_read(table, node, ok):
+    """table[t, node] where ``ok``, else 0 (the index is clamped first)."""
+    return torch.where(ok, table.gather(1, torch.where(ok, node, 0)), 0)
+
+
+def _step_masked(x_t, feature, threshold_key, left, right, node):
+    """K3's level: :func:`_step` with every read outside its table read as 0
+    (a node outside [0, N), a feature index outside [0, F))."""
+    ok = (node >= 0) & (node < feature.shape[1])
+    feat = _masked_read(feature, node, ok).clamp(min=0).long()
+    f_ok = feat < x_t.shape[0]
+    xv = torch.where(f_ok, x_t.gather(0, torch.where(f_ok, feat, 0)), 0)
+    go_left = xv <= _masked_read(threshold_key, node, ok)
+    return torch.where(go_left, _masked_read(left, node, ok),
+                       _masked_read(right, node, ok)).long()
+
+
+def _sum_leaves(leaf_fixed, node, b, masked: bool = False):
+    """acc[r, c] = sum_t leaf_fixed[t, node[t, r], c] mod 2^32, first b rows;
+    ``masked`` adds a zero row for a node outside [0, N)."""
+    t, n, c = leaf_fixed.shape
     leaf = leaf_fixed.to(torch.int64) & _U32_MASK
-    vals = leaf.gather(1, node[:, :, None].expand(t, node.shape[1], c))
+    ok = (node >= 0) & (node < n) if masked else None
+    idx = torch.where(ok, node, 0) if masked else node
+    vals = leaf.gather(1, idx[:, :, None].expand(t, idx.shape[1], c))
+    if masked:
+        vals = vals * ok[:, :, None]
     acc = vals.sum(0)[:b] & _U32_MASK
     return acc.to(torch.int32).view(torch.uint32)
 
@@ -98,10 +130,8 @@ def leaf_major_plain(x_keys, feature, threshold_key, left, right,
     return _sum_leaves(leaf_fixed, node, b)
 
 
-def gather_plain(x_keys, feature, threshold_key, left, right, leaf_fixed, *,
-                 depth: int, block_b: int, block_t: int) -> torch.Tensor:
-    """K2's function in plain PyTorch: exactly ``depth`` levels of
-    ``node = x[row, max(feature, 0)] <= key ? left : right``."""
+def _walk_plain(step, masked, x_keys, feature, threshold_key, left, right,
+                leaf_fixed, depth, block_b, block_t):
     b = x_keys.shape[0]
     x_keys, feature, threshold_key, left, right, leaf_fixed, _ = _pad_inert(
         x_keys, feature, threshold_key, left, right, leaf_fixed, None,
@@ -110,8 +140,27 @@ def gather_plain(x_keys, feature, threshold_key, left, right, leaf_fixed, *,
     node = torch.zeros((feature.shape[0], x_keys.shape[0]), dtype=torch.int64,
                        device=x_keys.device)
     for _ in range(depth):
-        node = _step(x_t, feature, threshold_key, left, right, node)
-    return _sum_leaves(leaf_fixed, node, b)
+        node = step(x_t, feature, threshold_key, left, right, node)
+    return _sum_leaves(leaf_fixed, node, b, masked)
+
+
+def gather_plain(x_keys, feature, threshold_key, left, right, leaf_fixed, *,
+                 depth: int, block_b: int, block_t: int) -> torch.Tensor:
+    """K2's function in plain PyTorch: exactly ``depth`` levels of
+    ``node = x[row, max(feature, 0)] <= key ? left : right``."""
+    return _walk_plain(_step, False, x_keys, feature, threshold_key, left,
+                       right, leaf_fixed, depth, block_b, block_t)
+
+
+def onehot_plain(x_keys, feature, threshold_key, left, right, leaf_fixed, *,
+                 depth: int, block_b: int, block_t: int) -> torch.Tensor:
+    """K3's function in plain PyTorch: K2's walk where a node outside
+    [0, N) reads feature, key and children as 0, a feature index
+    ``max(f, 0) >= F`` reads x as 0, and a final node outside [0, N) adds a
+    zero leaf row.  Each read is a select over a clamped gather, not the TPU's
+    literal compare-iota sum, which would build (B, N) masks."""
+    return _walk_plain(_step_masked, True, x_keys, feature, threshold_key,
+                       left, right, leaf_fixed, depth, block_b, block_t)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +207,8 @@ def _launch(kernel: str, x_keys, tables: dict, ints: tuple,
     c = args["leaf_fixed"].shape[-1]
     if not (1 <= block_b <= 1024 and block_b % 32 == 0) or block_t < 1:
         raise ValueError(f"bad CTA shape: {block_b} rows x {block_t} trees")
+    if x_keys.shape[1] < 1:  # every walk reads x[row, max(f, 0)] at least once
+        raise ValueError("the CUDA tree kernels need rows with at least one feature")
     lib = load_library()
     out = torch.zeros((b, c), dtype=torch.int32, device=x_keys.device)
     with torch.cuda.device(x_keys.device):
@@ -167,7 +218,8 @@ def _launch(kernel: str, x_keys, tables: dict, ints: tuple,
             b, x_keys.shape[1], t, n, c, *ints, block_b, block_t, stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
-    LAUNCHES[kernel] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[kernel] += 1
     return out.view(torch.uint32)
 
 
@@ -202,3 +254,17 @@ def tree_traverse_gather(x_keys, feature, threshold_key, left, right,
     tables = dict(feature=feature, threshold_key=threshold_key, left=left,
                   right=right, leaf_fixed=leaf_fixed)
     return _launch("gather", x_keys, tables, (int(depth),), block_b, block_t)
+
+
+def tree_traverse_onehot(x_keys, feature, threshold_key, left, right,
+                         leaf_fixed, *, depth: int, block_b: int,
+                         block_t: int) -> torch.Tensor:
+    """K3: (B, C) uint32 partials, ``depth`` levels per tree with every
+    table read outside its table reading 0."""
+    if x_keys.device.type == "cpu":
+        return onehot_plain(x_keys, feature, threshold_key, left, right,
+                            leaf_fixed, depth=depth, block_b=block_b,
+                            block_t=block_t)
+    tables = dict(feature=feature, threshold_key=threshold_key, left=left,
+                  right=right, leaf_fixed=leaf_fixed)
+    return _launch("onehot", x_keys, tables, (int(depth),), block_b, block_t)

@@ -39,6 +39,14 @@ class TreeEngine:
     tables and work: ``cuda`` unless ``device="cpu"`` is passed.
     ``predict``/``predict_scores`` take numpy (B, F) float32 rows of any
     count and return numpy results.
+
+    ``autotune=True`` (or ``?autotune=true`` in the spec) measures the cuda
+    backend's CTA shape during :meth:`warm` and rebuilds the plan on the
+    measured winner (:mod:`repro_torch.serve.autotune`); single-plan
+    string-backend routes only, and knobs the caller already pinned via
+    ``backend_kwargs`` are never overridden.  ``tuned_store`` (a mutable
+    dict, normally the owning ``ModelVersion``'s) caches winners per route
+    so a hot-swapped version or a rebuilt engine skips re-measuring.
     """
 
     def __init__(self, packed=None, spec=None, *, mode: Optional[str] = None,
@@ -46,24 +54,42 @@ class TreeEngine:
                  max_bucket: Optional[int] = None, layout: Optional[str] = None,
                  plan: Optional[str] = None, shards: Optional[int] = None,
                  plan_kwargs: Optional[dict] = None, autotune=None,
-                 device=None):
-        from repro_torch.plan import create_plan
+                 tuned_store: Optional[dict] = None, device=None):
+        from repro_torch.device import resolve_device
+        from repro_torch.plan import create_plan, select_plan
+        from repro_torch.serve.autotune import TUNABLE_BACKENDS, autotune_enabled, \
+            config_str
         from repro_torch.serve.spec import EngineSpec
 
         spec = EngineSpec.coerce(spec, caller="TreeEngine", mode=mode,
                                  backend=backend, layout=layout, plan=plan,
                                  shards=shards, backend_kwargs=backend_kwargs,
                                  autotune=autotune)
-        if spec.autotune:
-            raise NotImplementedError(
-                "autotune is not ported yet (ROADMAP.md Queue 1 item 7, "
-                "serve/autotune.py)")
         self.spec = spec
+        backend_kwargs = dict(spec.backend_kwargs) if spec.backend_kwargs else None
+        self._ctor = dict(packed=packed, mode=spec.mode, backend=spec.backend,
+                          backend_kwargs=backend_kwargs, layout=spec.layout,
+                          plan=spec.plan, shards=spec.shards,
+                          plan_kwargs=plan_kwargs, device=resolve_device(device))
+        self._tuned_store = tuned_store if tuned_store is not None else {}
+        self._tuned_config: Optional[str] = None
+        self._pending_tune = False
+        if autotune_enabled(spec.autotune) and isinstance(spec.backend, str) \
+                and spec.backend in TUNABLE_BACKENDS \
+                and select_plan(spec.plan, mode=spec.mode, backend=spec.backend,
+                                shards=spec.shards, model=packed) == "single":
+            winner = self._tuned_store.get(self._tune_key())
+            if winner is not None:
+                # a cached measurement (hot-swap, rebuilt engine): apply it
+                # now — caller-pinned kwargs still win on key collisions
+                backend_kwargs = {**winner, **(backend_kwargs or {})}
+                self._tuned_config = config_str(winner)
+            else:
+                self._pending_tune = True
         self.plan = create_plan(
             spec.plan, packed, mode=spec.mode, backend=spec.backend,
-            shards=spec.shards, layout=spec.layout,
-            backend_kwargs=dict(spec.backend_kwargs) if spec.backend_kwargs else None,
-            device=device, **(plan_kwargs or {})
+            shards=spec.shards, layout=spec.layout, backend_kwargs=backend_kwargs,
+            device=self._ctor["device"], **(plan_kwargs or {})
         )
         self.packed = self.plan.packed
         self.mode = self.plan.mode
@@ -72,6 +98,54 @@ class TreeEngine:
         # first-execution wall ms per bucket, drained into metrics
         self._compile_ms: dict = {}
         self.closed = False
+
+    def _tune_key(self):
+        c = self._ctor
+        return (c["backend"], c["layout"], c["mode"], str(c["device"]))
+
+    @property
+    def tuned_config(self) -> Optional[str]:
+        """The autotuned backend config serving this engine (e.g.
+        ``"block_b=128,block_t=2"``), or ``None`` when untuned (autotune
+        off, tuning still pending, or a knob the caller pinned)."""
+        return self._tuned_config
+
+    def _run_autotune(self, max_rows: int) -> None:
+        """Measure the backend's candidate grid and rebuild the plan on the
+        winner (see :mod:`repro_torch.serve.autotune`).  Runs at most once,
+        at the start of the first :meth:`warm`; the measuring wall-ms lands
+        in the compile ledger under ``"tune"`` and the winner in
+        ``tuned_store``."""
+        from repro_torch.plan import create_plan
+        from repro_torch.serve import autotune as at
+
+        self._pending_tune = False
+        c = self._ctor
+        user_kw = c["backend_kwargs"] or {}
+        backend = self.backend
+        grid = at.candidate_grid(self.backend_name, backend.packed,
+                                 device=backend.device)
+        if not grid or set(grid[0]) & set(user_kw):
+            return  # nothing to sweep, or the caller pinned the knob
+        t0 = time.perf_counter()
+        winner, winner_backend, _ = at.tune_backend(
+            self.backend_name, backend.packed, self.mode,
+            rows=min(max(max_rows, 1), at._TUNE_ROWS), baseline=backend,
+            backend_kwargs=user_kw, device=backend.device,
+        )
+        self._compile_ms["tune"] = (time.perf_counter() - t0) * 1e3
+        if winner is None:
+            return
+        self._tuned_store[self._tune_key()] = winner
+        self._tuned_config = at.config_str(winner)
+        if winner_backend is not backend:
+            # serve on the measured winner: rebuild the plan around the
+            # already-built winning backend
+            self.plan = create_plan(
+                c["plan"], c["packed"], mode=c["mode"], backend=winner_backend,
+                shards=c["shards"], layout=c["layout"], **(c["plan_kwargs"] or {})
+            )
+            self.compiled_buckets.clear()
 
     @property
     def backend(self):
@@ -132,7 +206,10 @@ class TreeEngine:
     def warm(self, max_rows: int) -> None:
         """Run every bucket any batch of 1..``max_rows`` rows can map to: the
         power-of-two buckets below ``max_bucket`` and the ``max_bucket``
-        multiples at or above it."""
+        multiples at or above it.  When autotuning is armed, the candidate
+        sweep runs first, and the buckets warm whatever won."""
+        if self._pending_tune:
+            self._run_autotune(max_rows)
         zeros = lambda nb: np.zeros((nb, self.packed.n_features), np.float32)
         if not self.plan.compiles_per_shape:
             self.predict(zeros(1))

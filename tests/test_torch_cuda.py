@@ -1,13 +1,17 @@
-"""Card-only tests of the CUDA kernels K1 and K2: each against its plain
+"""Card-only tests of the CUDA kernels K1, K2 and K3: each against its plain
 version on the same CUDA tensors, bit for bit, with the launch counters
-showing the kernel ran.  Marked ``cuda``; each test asks the ``card``
-fixture, which skips when no card is present.  Run on a machine with a
-card::
+showing the kernel ran; K3 also on a malformed table; and two gateways on
+two routes serving at once from executor threads.  Marked ``cuda``; each
+test asks the ``card`` fixture, which skips when no card is present.  Run
+on a machine with a card::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import asyncio
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +20,7 @@ from repro_torch.core.flint import float_to_key
 from repro_torch.ir import ForestIR
 from repro_torch.kernels import tree_traverse as tt
 from repro_torch.kernels.ops import pick_blocks
-from repro_torch.serve import TreeEngine
+from repro_torch.serve import Gateway, ModelRegistry, TreeEngine
 from repro_torch.trees import TreeArrays
 
 
@@ -72,6 +76,26 @@ def _on(dev, packed):
             t(packed.right), t(packed.leaf_fixed.view(np.int32)))
 
 
+def malformed_case():
+    """(rows, node tables, depth) where reads leave their tables: the padded
+    tables of a small random forest with, at the first internal node of
+    three trees, a left child >= N, a feature index >= F and a right child
+    < 0.  K3 reads 0 for each; K2's gather would read out of bounds."""
+    ir = _forest(3, 5, 4, 6, 3)
+    p = ir.materialize("padded")
+    feature, key, left, right = (a.copy() for a in (p.feature, p.threshold_key,
+                                                    p.left, p.right))
+    n, f = feature.shape[1], ir.n_features
+    trees = [t for t in range(ir.n_trees) if (feature[t] >= 0).any()][:3]
+    assert len(trees) == 3
+    first = [int(np.flatnonzero(feature[t] >= 0)[0]) for t in trees]
+    left[trees[0], first[0]] = n + 3
+    feature[trees[1], first[1]] = f + 2
+    right[trees[2], first[2]] = -2
+    x = np.random.default_rng(4).normal(size=(300, f)).astype(np.float32)
+    return x, (feature, key, left, right, p.leaf_fixed), ir.max_depth + 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 37, 1000])
 @pytest.mark.parametrize("n_trees,depth,n_features,n_classes",
@@ -84,21 +108,38 @@ def test_kernels_match_plain_versions(card, rows, n_trees, depth, n_features, n_
     f, k, l, r, leaf = _on(card, lm)
     nint = torch.from_numpy(lm.internal_counts.astype(np.int32)).to(card)
     pad = _on(card, ir.materialize("padded"))
+    blocks = lambda: dict(depth=ir.max_depth, block_b=block_b, block_t=block_t)
     for block_b, block_t in (pick_blocks(rows, n_trees, 132), (32, 1), (256, n_trees)):
         tt.reset_launches()
         k1 = tt.tree_traverse_leaf_major(keys, f, k, l, r, nint, leaf,
                                          block_b=block_b, block_t=block_t)
-        k2 = tt.tree_traverse_gather(keys, *pad, depth=ir.max_depth,
-                                     block_b=block_b, block_t=block_t)
+        k2 = tt.tree_traverse_gather(keys, *pad, **blocks())
+        k3 = tt.tree_traverse_onehot(keys, *pad, **blocks())
         torch.cuda.synchronize()
-        assert tt.LAUNCHES == {"leaf_major": 1, "gather": 1}
+        assert tt.LAUNCHES == {"leaf_major": 1, "gather": 1, "onehot": 1}
         p1 = tt.leaf_major_plain(keys, f, k, l, r, nint, leaf, block_b=block_b, block_t=block_t)
-        p2 = tt.gather_plain(keys, *pad, depth=ir.max_depth, block_b=block_b, block_t=block_t)
-        assert k1.dtype == k2.dtype == torch.uint32
-        np.testing.assert_array_equal(k1.view(torch.int32).cpu().numpy(),
-                                      p1.view(torch.int32).cpu().numpy())
-        np.testing.assert_array_equal(k2.view(torch.int32).cpu().numpy(),
-                                      p2.view(torch.int32).cpu().numpy())
+        p2 = tt.gather_plain(keys, *pad, **blocks())
+        p3 = tt.onehot_plain(keys, *pad, **blocks())
+        assert k1.dtype == k2.dtype == k3.dtype == torch.uint32
+        for kernel, plain in ((k1, p1), (k2, p2), (k3, p3), (k3, p2)):
+            np.testing.assert_array_equal(kernel.view(torch.int32).cpu().numpy(),
+                                          plain.view(torch.int32).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_onehot_kernel_on_a_malformed_table(card):
+    x, tables, depth = malformed_case()
+    keys = float_to_key(torch.from_numpy(x).to(card))
+    on = [torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32
+                                                else a)).to(card) for a in tables]
+    for block_b, block_t in ((128, 1), (64, 2), (256, len(tables[0]))):
+        tt.reset_launches()
+        out = tt.tree_traverse_onehot(keys, *on, depth=depth, block_b=block_b, block_t=block_t)
+        torch.cuda.synchronize()
+        assert tt.LAUNCHES["onehot"] == 1
+        ref = tt.onehot_plain(keys, *on, depth=depth, block_b=block_b, block_t=block_t)
+        np.testing.assert_array_equal(out.view(torch.int32).cpu().numpy(),
+                                      ref.view(torch.int32).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -117,3 +158,61 @@ def test_engine_on_card_matches_reference_on_cpu(card):
             np.testing.assert_array_equal(p, p_ref)
         assert tt.LAUNCHES["gather"] > 0
         assert (tt.LAUNCHES["leaf_major"] > 0) == spec.endswith("leaf_major")
+
+
+@pytest.mark.cuda
+def test_two_gateways_serve_from_threads_at_once(card):
+    """Two gateways on two routes (K1/K2 and K3) share one registry and
+    serve at once: their batches run in executor threads and launch kernels
+    concurrently.  A hot swap lands halfway.  Every response equals the CPU
+    reference of the version that served it (v2 for every request submitted
+    after the swap), and no launch count is lost."""
+    ir1, ir2 = _forest(10, 24, 7, 9, 4), _forest(11, 24, 7, 9, 4)
+    refs = {1: TreeEngine(ir1, spec="integer:reference", device="cpu"),
+            2: TreeEngine(ir2, spec="integer:reference", device="cpu")}
+    reg = ModelRegistry()
+    reg.register_packed("m", ir1.materialize("padded"))
+    gws = [Gateway(reg, route, max_batch_rows=512, max_delay_ms=1.0,
+                   max_queue_rows=1 << 20)
+           for route in ("integer:cuda", "integer:cuda@padded?impl=onehot")]
+    rng = np.random.default_rng(5)
+    reqs = [rng.normal(size=(int(rng.choice([1, 20, 100, 300])), 9)).astype(np.float32)
+            for _ in range(48)]
+
+    async def run():
+        # a lone 5-row request: a batch under 64 rows, which takes K2 on
+        # the first route (a burst coalesces into larger batches)
+        lone = [await gw.submit("m", reqs[0][:1].repeat(5, axis=0)) for gw in gws]
+
+        async def one(i, gw):
+            if i == len(reqs) // 2 and gw is gws[0]:
+                reg.register_packed("m", ir2.materialize("padded"))
+            version = reg.version("m")
+            return version, await gw.submit("m", reqs[i])
+
+        outs = await asyncio.wait_for(asyncio.gather(
+            *[one(i, gw) for i in range(len(reqs)) for gw in gws]), timeout=300)
+        for gw in gws:
+            await gw.close()
+        return lone, outs
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    tt.reset_launches()
+    try:
+        lone, outs = asyncio.run(run())
+    finally:
+        sys.setswitchinterval(old)
+    for scores, preds in lone:
+        ref = refs[1].predict_scores(reqs[0][:1].repeat(5, axis=0))
+        np.testing.assert_array_equal(scores, ref[0])
+        np.testing.assert_array_equal(preds, ref[1])
+    for k, (version, (scores, preds)) in enumerate(outs):
+        x = reqs[k // len(gws)]
+        want = [refs[v].predict_scores(x) for v in ((2,) if version == 2 else (1, 2))]
+        assert any(np.array_equal(scores, s) and np.array_equal(preds, p)
+                   for s, p in want), (k, version)
+    batches = sum(st["batches"] for gw in gws for st in gw.stats()["per_model"].values())
+    assert tt.LAUNCHES["onehot"] > 0 and tt.LAUNCHES["leaf_major"] > 0
+    assert tt.LAUNCHES["gather"] > 0
+    assert sum(tt.LAUNCHES.values()) == batches

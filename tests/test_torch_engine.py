@@ -29,6 +29,8 @@ from test_backends import _child_before_parent_forest
 BATCHES = (1, 20, 37, 100, 300)
 KERNEL_ROUTES = [(f"{mode}:cuda@{layout}", f"{mode}:pallas@{layout}")
                  for mode in ("integer", "flint") for layout in ("leaf_major", "padded")]
+KERNEL_ROUTES += [(f"integer:cuda@{layout}?impl=onehot", f"integer:pallas@{layout}?impl=onehot")
+                  for layout in ("leaf_major", "padded")]
 REFERENCE_ROUTES = [(f"{mode}:reference", f"{mode}:reference")
                     for mode in ("integer", "flint", "float")]
 FORESTS = ["trained", *sorted(DEGENERATE_FORESTS)]
@@ -171,9 +173,21 @@ def test_entry_points_raise_without_a_card(monkeypatch, trained):
 
 
 def test_unported_routes_fail_loudly(trained):
+    """Sharded plans and float on the kernels still fail loudly; the
+    autotuned route and the one-hot walk (K3) now build and equal the JAX
+    engines."""
     ir = ForestIR.from_forest(trained)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TreeEngine(ir, spec="integer:cuda?autotune=true", device="cpu")
+    jir = JForestIR.from_forest(trained)
+    x = np.random.default_rng(8).normal(0.0, 2.0, (45, ir.n_features)).astype(np.float32)
+    for spec, ref_spec in (("integer:cuda?autotune=true", "integer:pallas"),
+                           ("integer:cuda?impl=onehot", "integer:pallas?impl=onehot")):
+        eng = TreeEngine(ir, spec=spec, device="cpu")
+        eng.warm(64)
+        s, p = eng.predict_scores(x)
+        s_ref, p_ref = JTreeEngine(jir, spec=ref_spec).predict_scores(x)
+        np.testing.assert_array_equal(s, np.asarray(s_ref))
+        np.testing.assert_array_equal(p, np.asarray(p_ref))
+    assert eng.backend.impl == "onehot"
     with pytest.raises(KeyError, match="unknown plan"):
         TreeEngine(ir, spec=EngineSpec(backend="cuda", plan="tree_parallel", shards=2),
                    device="cpu")
@@ -181,8 +195,21 @@ def test_unported_routes_fail_loudly(trained):
         TreeEngine(ir, spec=EngineSpec(backend="cuda", shards=2), device="cpu")
     with pytest.raises(ValueError, match="mode"):
         TreeEngine(ir, spec="float:cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="K3"):
-        TreeEngine(ir, spec="integer:cuda?impl=onehot", device="cpu")
+
+
+def test_cuda_backend_refuses_rows_with_too_few_features(trained):
+    """The kernels take the row stride from the rows: fewer columns than the
+    forest reads would walk into the next row (and past the buffer at the
+    last one), so the backend raises on every device before any launch."""
+    ir = ForestIR.from_forest(trained)
+    x = np.zeros((40, ir.n_features - 1), np.float32)
+    for layout, impl in (("leaf_major", "auto"), ("padded", "gather"), ("padded", "onehot")):
+        backend = create_backend("cuda", ir.materialize(layout), device="cpu", impl=impl)
+        with pytest.raises(ValueError, match="fewer columns"):
+            backend.predict_partials(x)
+    wide = np.zeros((40, ir.n_features + 3), np.float32)
+    np.testing.assert_array_equal(backend.predict_partials(wide),
+                                  backend.predict_partials(wide[:, :ir.n_features]))
 
 
 def test_warm_and_timing_ledgers(trained):

@@ -1,7 +1,8 @@
 """The port's kernel module on the CPU: the plain versions of K1 (bounded
-walk over leaf_major tables) and K2 (per-level gather walk) against the JAX
-package's Pallas kernels (interpret mode) and both oracles — bit-identical
-uint32 partials, including row and tree padding and degenerate forests.
+walk over leaf_major tables), K2 (per-level gather walk) and K3 (the
+masked one-hot walk) against the JAX package's Pallas kernels (interpret
+mode) and both oracles — bit-identical uint32 partials, including row and
+tree padding, degenerate forests, and for K3 a malformed table.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``test_torch_cuda.py`` and ``chip_smoke.py``."""
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from repro_torch.ir.forest_ir import ARRAY_DTYPES
 from repro_torch.kernels import tree_traverse as tt
 from repro_torch.kernels.ops import packed_predict_integer, pick_blocks, tree_predict_integer
 from repro_torch.kernels.ref import tree_predict_integer_ref
+from test_torch_cuda import malformed_case
 
 
 def _forest(n_trees, depth, n_features, n_classes, seed=0, n=1500):
@@ -69,7 +71,7 @@ def _oracles(x, packed):
     return ref_j
 
 
-@pytest.mark.parametrize("impl", ["gather", "leaf_major"])
+@pytest.mark.parametrize("impl", ["gather", "leaf_major", "onehot"])
 @pytest.mark.parametrize(
     "n_trees,depth,n_features,n_classes",
     [(3, 3, 4, 2), (7, 5, 7, 7), (12, 6, 11, 3), (5, 4, 87, 2)],
@@ -115,7 +117,8 @@ def test_plain_degenerate_forests(name):
     x = np.random.default_rng(5).normal(0.0, 6.0, (33, ir.n_features)).astype(np.float32)
     lm, padded = ir.materialize("leaf_major"), ir.materialize("padded")
     ref = _oracles(x, padded)
-    for impl, packed in (("leaf_major", lm), ("gather", padded)):
+    for impl, packed in (("leaf_major", lm), ("gather", padded), ("onehot", padded),
+                         ("onehot", lm)):
         np.testing.assert_array_equal(_jax(x, packed, impl, block_b=16, block_t=2), ref)
         np.testing.assert_array_equal(_port(x, packed, impl, block_b=16, block_t=2), ref)
 
@@ -161,13 +164,54 @@ def test_packed_entry_point_auto_impl(small_packed, shuttle_small):
 
 
 def test_onehot_and_missing_internal_counts_raise():
+    """``impl="onehot"`` (K3) now runs and equals the JAX kernel; a scan
+    without ``internal_counts`` still raises."""
     rf, X = _forest(3, 3, 4, 2)
     packed = ForestIR.from_forest(rf).materialize("padded")
-    with pytest.raises(NotImplementedError, match="K3"):
-        _port(X[:4], packed, "onehot")
+    np.testing.assert_array_equal(_port(X[:4], packed, "onehot"),
+                                  _jax(X[:4], packed, "onehot", block_b=8))
+    with pytest.raises(ValueError, match="unknown impl"):
+        _port(X[:4], packed, "scan")
     with pytest.raises(ValueError, match="internal_counts"):
         tree_predict_integer(float_to_key(torch.from_numpy(X[:4])), *_tables(packed),
                              depth=packed.max_depth, impl="leaf_major", device="cpu")
+
+
+def _malformed_partials(impl, blocks):
+    x, tables, depth = malformed_case()
+    keys = jax_float_to_key(jnp.asarray(x))
+    jax_out = np.asarray(jax_tree_predict_integer(
+        keys, *(jnp.asarray(a) for a in tables), depth=depth, impl=impl, **blocks))
+    if impl != "onehot":
+        return jax_out, None
+    port = tree_predict_integer(float_to_key(torch.from_numpy(x)), *tables, depth=depth,
+                                impl=impl, device="cpu", **blocks)
+    return jax_out, port.numpy()
+
+
+@pytest.mark.parametrize("blocks", [dict(block_b=64, block_t=1), dict(block_b=128, block_t=2)])
+def test_onehot_reads_zero_outside_the_tables(blocks):
+    """K3's own function: on a table with a child >= N, a child < 0 and a
+    feature >= F, every read outside its table reads 0, as the TPU's
+    compare-iota gathers do.  The port's K3 equals the JAX kernel there."""
+    jax_onehot, port_onehot = _malformed_partials("onehot", blocks)
+    np.testing.assert_array_equal(port_onehot, jax_onehot)
+    assert port_onehot.dtype == np.uint32
+
+
+def test_gather_and_onehot_differ_on_a_malformed_table():
+    """On well-formed tables K2 and K3 give the same bits; on the malformed
+    table they do not, so the two walks are two functions."""
+    blocks = dict(block_b=64, block_t=2)
+    jax_gather, _ = _malformed_partials("gather", blocks)
+    jax_onehot, port_onehot = _malformed_partials("onehot", blocks)
+    differ = (jax_gather != jax_onehot).any(axis=1)
+    assert differ.mean() > 0.5
+    np.testing.assert_array_equal(port_onehot, jax_onehot)
+    x, tables, depth = malformed_case()
+    with pytest.raises(RuntimeError):  # the gather walk indexes past the table
+        tree_predict_integer(float_to_key(torch.from_numpy(x)), *tables, depth=depth,
+                             impl="gather", device="cpu", **blocks)
 
 
 def test_wrappers_take_plain_versions_on_cpu_only():
