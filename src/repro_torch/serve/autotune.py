@@ -17,7 +17,7 @@ never change an answer, only its latency.  Winner selection is
 deterministic: strict-min time with the heuristic first, so ties — and an
 injected constant timer — resolve to the default.
 
-The winner is cached per (backend, layout, mode, device) route in the
+The winner is cached per (backend, layout, mode, route kwargs, device) in the
 owning ``ModelVersion`` and copied across hot-swaps by the registry, so a
 swapped-in version of the same model reuses the measurement instead of
 re-timing; the measuring cost itself is surfaced through

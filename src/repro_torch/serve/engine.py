@@ -100,8 +100,11 @@ class TreeEngine:
         self.closed = False
 
     def _tune_key(self):
+        # the route's own kwargs (``impl``) pick the kernel being tuned, so
+        # routes that differ only in them measure and cache independently
         c = self._ctor
-        return (c["backend"], c["layout"], c["mode"], str(c["device"]))
+        return (c["backend"], c["layout"], c["mode"],
+                tuple(sorted((c["backend_kwargs"] or {}).items())), str(c["device"]))
 
     @property
     def tuned_config(self) -> Optional[str]:

@@ -53,11 +53,7 @@ from repro_torch.serve.registry import ModelRegistry
 
 
 class Gateway:
-    def __init__(self, registry: ModelRegistry, spec=None, *, mode: str = None,
-                 backend=None, layout: str = None,
-                 backend_kwargs: dict = None,
-                 plan: str = None, shards: int = None,
-                 autotune: bool = None,
+    def __init__(self, registry: ModelRegistry, spec=None, *,
                  max_batch_rows: int = 256,
                  max_delay_ms: float = 2.0, max_queue_rows: int = 4096,
                  cache_rows: int = 65536, tracer=None, device=None):
@@ -72,12 +68,8 @@ class Gateway:
         # short-circuits to a no-op when tracing is off
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # the serving route is one EngineSpec (object, dict, or spec string
-        # like "integer:cuda@padded?impl=onehot"); the loose keyword
-        # arguments remain as the deprecation-shimmed pre-spec API
-        spec = EngineSpec.coerce(spec, caller="Gateway", mode=mode,
-                                 backend=backend, layout=layout, plan=plan,
-                                 shards=shards, backend_kwargs=backend_kwargs,
-                                 autotune=autotune)
+        # like "integer:cuda@padded?impl=onehot"); None is the default route
+        spec = EngineSpec.coerce(spec, caller="Gateway")
         self.spec = spec
         self.mode = spec.mode
         self.backend = spec.backend

@@ -56,45 +56,27 @@ class ModelVersion:
     _tuned: dict = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
-    def engine(self, spec=None, *, mode: str = None, backend=None,
-               layout: str = None, backend_kwargs: dict = None,
-               plan: str = None, shards: int = None, autotune=None,
-               device=None) -> TreeEngine:
+    def engine(self, spec=None, *, device=None) -> TreeEngine:
         """The memoized TreeEngine for one route on ``device`` (``cuda``
         unless ``device="cpu"`` is passed).
 
         The route is an :class:`~repro_torch.serve.spec.EngineSpec` (object,
-        dict, or spec string) — ``engine("integer:cuda?impl=onehot")``; a
-        bare mode name (``engine("integer")``) and the loose keyword
-        arguments remain as the deprecation-shimmed pre-spec API.
-
-        ``layout=None`` resolves to the backend's ``preferred_layout`` (and
-        memoizes under the resolved name, so a later explicit request for
-        that layout reuses the same engine).  ``backend_kwargs`` only apply
-        on the call that first builds the engine; later lookups for the same
-        route return it as-is.  ``autotune`` arms warm-time measured tuning
-        (memoized separately, so tuned and untuned routes never alias);
-        winners land in this version's ``_tuned`` cache and survive
-        hot-swaps.
+        dict, or spec string) — ``engine("integer:cuda?impl=onehot")``.
+        A layout of ``None`` resolves to the backend's ``preferred_layout``
+        (and memoizes under the resolved name, so a later explicit request
+        for that layout reuses the same engine).  The route's
+        ``backend_kwargs`` are part of the memo key, so routes that differ
+        only in a kernel knob (``impl=onehot``) get engines of their own.
+        ``autotune`` arms warm-time measured tuning (memoized separately, so
+        tuned and untuned routes never alias); winners land in this
+        version's ``_tuned`` cache and survive hot-swaps.
         """
         from repro_torch.backends import backend_class
         from repro_torch.device import resolve_device
         from repro_torch.plan import select_plan
-        from repro_torch.serve.spec import MODES, EngineSpec
+        from repro_torch.serve.spec import EngineSpec
 
-        if isinstance(spec, str) and spec in MODES and mode is None:
-            # a bare mode name is valid under both APIs: alone it is simply
-            # the spec string "integer" (no deprecation); combined with loose
-            # route kwargs it is the pre-spec positional call
-            # engine("integer", backend=...) and goes through the shim
-            loose = (backend, layout, plan, shards, backend_kwargs)
-            if any(v is not None for v in loose) or autotune is not None:
-                mode, spec = spec, None
-        spec = EngineSpec.coerce(spec, caller="ModelVersion.engine",
-                                 mode=mode, backend=backend, layout=layout,
-                                 plan=plan, shards=shards,
-                                 backend_kwargs=backend_kwargs,
-                                 autotune=autotune)
+        spec = EngineSpec.coerce(spec, caller="ModelVersion.engine")
         dev = resolve_device(device)
         resolved = spec.layout or \
             backend_class(spec.backend).capabilities.preferred_layout
@@ -105,7 +87,8 @@ class ModelVersion:
                                     model=self.packed)
         key = (spec.mode, spec.backend, resolved, resolved_plan,
                None if resolved_plan == "single" else spec.shards,
-               bool(spec.autotune), str(dev))
+               bool(spec.autotune), tuple(sorted((spec.backend_kwargs or {}).items())),
+               str(dev))
         with self._lock:
             if self.released:
                 raise RuntimeError(

@@ -161,3 +161,24 @@ def test_escape_hatches(forests, monkeypatch):
     onehot.warm(16)
     assert onehot.tuned_config == "block_b=64,block_t=1"
     assert onehot.backend.impl == "onehot"
+
+
+def test_routes_differing_only_in_impl_tune_independently(forests, monkeypatch):
+    X, v1, _ = forests
+    reg = ModelRegistry()
+    mv = reg.register_forest("m", v1)
+    monkeypatch.setattr(at, "measure_backend", _ranked(64, 1))
+    k3 = mv.engine("integer:cuda@padded?autotune=true,impl=onehot", device="cpu")
+    k3.warm(16)
+    monkeypatch.setattr(at, "measure_backend", _ranked(256, 1))
+    k2 = mv.engine("integer:cuda@padded?autotune=true", device="cpu")
+    assert k2 is not k3 and k2._pending_tune  # K3's winner is not reused
+    k2.warm(16)
+    assert k3.tuned_config == "block_b=64,block_t=1"
+    assert k2.tuned_config == "block_b=256,block_t=1"
+    assert (k3.backend.impl, k2.backend.impl) == ("onehot", "gather")
+    assert sorted(mv._tuned.values(), key=lambda w: w["block_b"]) == [
+        {"block_b": 64, "block_t": 1}, {"block_b": 256, "block_t": 1}]
+    for b in (1, 20, 100):
+        np.testing.assert_array_equal(k3.predict_scores(X[:b])[0],
+                                      k2.predict_scores(X[:b])[0])

@@ -182,6 +182,15 @@ def test_registry_versions_retention_and_release(data):
     eng1 = mv1.engine("integer:cuda", device="cpu")
     assert mv1.engine("integer:cuda@leaf_major", device="cpu") is eng1  # resolved layout
     assert mv1.engine("integer:cuda?autotune=true", device="cpu") is not eng1
+    # a kernel knob is part of the route: K3 and K2 on one layout never alias
+    k3 = mv1.engine("integer:cuda@padded?impl=onehot", device="cpu")
+    k2 = mv1.engine("integer:cuda@padded?impl=gather", device="cpu")
+    assert k3 is not k2 and (k3.backend.impl, k2.backend.impl) == ("onehot", "gather")
+    # the route is a spec and nothing else
+    with pytest.raises(TypeError):
+        mv1.engine(mode="integer", backend="cuda", device="cpu")
+    with pytest.raises(TypeError):
+        Gateway(reg, backend="cuda", device="cpu")
     mv2 = reg.register_forest("m", v2)
     assert reg.version("m") == 2 and reg.ids() == ["m"]
     with pytest.raises(ValueError, match="current version"):
