@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--sweep]
+    python3 chip_smoke.py --kernels-only [--src DIR]
 
 Run from the root of a checkout (it imports ``src/repro_torch``) on a host
 with one CUDA card.  It
@@ -19,8 +20,10 @@ with one CUDA card.  It
      card, a 100-row result against the independent CPU oracle, and each
      kernel (K1, K2 and K3, the one-hot walk) against its plain version at
      the 65,536-row shape, K3 also on a small malformed table,
-  5. times each kernel (L2 flushed before every launch), its plain version
-     and the end-to-end request with CUDA events and the host clock,
+  5. times each kernel (L2 flushed before every launch, and warm), its plain
+     version and the end-to-end request with CUDA events and the host
+     clock; K1 and K2 also at the gateway's small batches (K1 at 1,000
+     rows, K2 at 20), and prints K1's and K2's CTA shape and shared memory,
   6. serves a seeded open-loop workload through two ``Gateway``s over one
      ``ModelRegistry`` at once — ``integer:cuda?autotune=true`` (K1, and K2
      under 64 rows) and ``integer:cuda@padded?impl=onehot`` (K3) — with
@@ -28,6 +31,13 @@ with one CUDA card.  It
      with the launch counters set to 0 just before and read just after, and
      holds every response against the reference walk of the version that
      served it.
+
+``--sweep`` adds K1's and K2's times over the walks per thread, CTA shapes
+and the staged and unstaged row tile.  ``--kernels-only`` builds the
+kernels and the model and only checks and times the five kernel cases of
+step 5, printing them as one JSON line; ``--src`` names another checkout's
+``src`` to take ``repro_torch`` from (an older tree, for a before/after
+comparison in one process per tree), through entry points both trees have.
 
 Any mismatch, build failure or launch error ends the run with a non-zero
 exit.  On success the lines before the last hold the card's name and power
@@ -67,6 +77,17 @@ NON_TENSOR_OPS_PER_S = 67e12
 KERNEL_TIMING_REPS = 20
 PLAIN_TIMING_REPS = 5
 REQUEST_TIMING_REPS = 10
+# a kernel timing starts behind this many cycles of device sleep (about half
+# a millisecond), so the host's launch work before a kernel lies outside the
+# events and the time is the device's alone
+LEAD_SLEEP_CYCLES = 1_000_000
+# the gateway's small batches, at which K1 and K2 are also timed
+K1_SMALL_ROWS, K2_SMALL_ROWS = 1000, 20
+
+# the TPU kernels that K1, K2 and K3 replace
+REPLACES = {"leaf_major": "src/repro/kernels/tree_traverse.py:110",
+            "gather": "src/repro/kernels/tree_traverse.py:80",
+            "onehot": "src/repro/kernels/tree_traverse.py:80"}
 
 # the gateway phase: request sizes and their shares, the share of requests
 # that repeat an earlier request's rows, the open-loop arrival rate
@@ -161,14 +182,17 @@ def malformed_tables(packed):
 # measurement helpers
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps: int, flush=None) -> float:
+def cuda_ms(fn, reps: int, flush=None, lead: bool = False) -> float:
     """Median device ms of ``fn()`` over ``reps`` runs after one warm-up,
-    each timed with its own CUDA events; ``flush()`` runs before each."""
+    each timed with its own CUDA events; ``flush()`` runs before each, and
+    with ``lead`` a device sleep first, so the events hold only device work."""
     import torch
 
     fn()
     times = []
     for _ in range(reps):
+        if lead:
+            torch.cuda._sleep(LEAD_SLEEP_CYCLES)
         if flush is not None:
             flush()
         start = torch.cuda.Event(enable_timing=True)
@@ -225,6 +249,117 @@ def bound(nbytes: int, ops: int):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / NON_TENSOR_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def kernel_cases(ops, tt, ir, keys, dev) -> dict:
+    """The kernel cases of step 5: K1, K2 and K3 at ROWS rows, K1 at
+    K1_SMALL_ROWS and K2 at K2_SMALL_ROWS, each ``name -> (kernel call,
+    plain call, rows, impl)``.  The kernel calls go through
+    ``ops.tree_predict_integer`` with the tables on the card, the node quads
+    packed once where the tree has them, and each tree's own CTA heuristic:
+    entry points that this tree and older ones share."""
+    import torch
+
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def on_card(packed):
+        return (as_t(packed.feature), as_t(packed.threshold_key), as_t(packed.left),
+                as_t(packed.right), as_t(packed.leaf_fixed.view(np.int32)))
+
+    lm, pad = on_card(ir.materialize("leaf_major")), on_card(ir.materialize("padded"))
+    nint = as_t(ir.materialize("leaf_major").internal_counts.astype(np.int32))
+    quads = (lambda t: {"quads": tt.pack_node_quads(*t[:4])}) \
+        if hasattr(tt, "pack_node_quads") else (lambda t: {})
+    lm_kw, pad_kw = dict(internal_counts=nint, **quads(lm)), quads(pad)
+    plain_blocks = dict(block_b=128, block_t=1)  # the plain versions' padding
+    cases = {}
+
+    def add(name, impl, rows, tables, kw):
+        x = keys[:rows]
+        kernel = lambda: ops.tree_predict_integer(x, *tables, depth=ir.max_depth,
+                                                  impl=impl, device=dev, **kw)
+        if impl == "leaf_major":
+            plain = lambda: tt.leaf_major_plain(x, *tables[:4], nint, tables[4],
+                                                **plain_blocks)
+        else:
+            plain = lambda: getattr(tt, f"{impl}_plain")(x, *tables, depth=ir.max_depth,
+                                                         **plain_blocks)
+        cases[name] = (kernel, plain, rows, impl)
+
+    add("leaf_major", "leaf_major", ROWS, lm, lm_kw)
+    add("gather", "gather", ROWS, pad, pad_kw)
+    add("onehot", "onehot", ROWS, pad, {})
+    add(f"leaf_major@{K1_SMALL_ROWS}", "leaf_major", K1_SMALL_ROWS, lm, lm_kw)
+    add(f"gather@{K2_SMALL_ROWS}", "gather", K2_SMALL_ROWS, pad, pad_kw)
+    return cases
+
+
+def check_and_time(cases: dict, flush) -> dict:
+    """Each case against its plain version (tolerance 0: integer sums), then
+    its device ms L2-flushed and warm and its plain version's ms; fails on a
+    mismatch."""
+    import torch
+
+    out = {}
+    for name, (kernel, plain, rows, _) in cases.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        print(f"kernel {name}: {rows} rows, max |kernel - plain| = {err} "
+              "(tolerance 0: integer sums)")
+        if err != 0:
+            fail(f"kernel {name} disagrees with its plain version")
+        out[name] = dict(max_abs_err=err,
+                         ms=cuda_ms(kernel, KERNEL_TIMING_REPS, flush, lead=True),
+                         warm_ms=cuda_ms(kernel, KERNEL_TIMING_REPS, lead=True),
+                         plain_ms=cuda_ms(plain, PLAIN_TIMING_REPS, flush, lead=True))
+        print(f"kernel {name}: {out[name]['ms']:.4f} ms L2-flushed, "
+              f"{out[name]['warm_ms']:.4f} ms warm, plain {out[name]['plain_ms']:.4f} ms")
+    return out
+
+
+def sweep(tt, ir, keys, dev, flush, card: str) -> None:
+    """K1's and K2's L2-flushed ms over walks per thread, CTA shapes and the
+    staged and unstaged row tile, at ROWS rows and at the small batches."""
+    import torch
+
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    tables = {}
+    for layout in ("leaf_major", "padded"):
+        p = ir.materialize(layout)
+        t = [as_t(a) for a in (p.feature, p.threshold_key, p.left, p.right,
+                               p.leaf_fixed.view(np.int32))]
+        tables[layout] = (t, tt.pack_node_quads(*t[:4]))
+    nint = as_t(ir.materialize("leaf_major").internal_counts.astype(np.int32))
+
+    def run(impl, rows, block_b, block_t, walks, stage_x):
+        x = keys[:rows]
+        t, quads = tables["leaf_major" if impl == "leaf_major" else "padded"]
+        kw = dict(block_b=block_b, block_t=block_t, walks=walks, stage_x=stage_x,
+                  quads=quads)
+        if impl == "leaf_major":
+            return lambda: tt.tree_traverse_leaf_major(x, *t[:4], nint, t[4], **kw)
+        return lambda: tt.tree_traverse_gather(x, *t, depth=ir.max_depth, **kw)
+
+    grid = [(impl, rows, 128, bt, w, True) for impl in ("leaf_major", "gather")
+            for rows, bts in ((ROWS, (16, 24, 32, 64)), (4096, (4, 8, 16)),
+                              (K1_SMALL_ROWS, (2, 4, 8)))
+            for bt in bts for w in tt.WALKS if w <= bt]
+    grid += [(impl, ROWS, 128, 24, w, False) for impl in ("leaf_major", "gather")
+             for w in tt.WALKS]
+    grid += [("gather", K2_SMALL_ROWS, 128, bt, tt.default_walks(bt), st)
+             for bt in (1, 2, 4) for st in (True, False)]
+    for impl, rows, bb, bt, w, st in grid:
+        ms = cuda_ms(run(impl, rows, bb, bt, w, st), KERNEL_TIMING_REPS, flush, lead=True)
+        print(f"{card} | sweep {impl} rows {rows} block_b {bb} block_t {bt} "
+              f"walks {w} stage_x {st}: {ms:.4f} ms L2-flushed")
+    pad, _ = tables["padded"]
+    for bt in (15, 32, 128):
+        fn = lambda: tt.tree_traverse_onehot(keys, *pad, depth=ir.max_depth,
+                                             block_b=128, block_t=bt)
+        ms = cuda_ms(fn, KERNEL_TIMING_REPS, flush, lead=True)
+        print(f"{card} | sweep onehot rows {ROWS} block_b 128 block_t {bt}: "
+              f"{ms:.4f} ms L2-flushed")
 
 
 # ---------------------------------------------------------------------------
@@ -343,27 +478,38 @@ def gateway_phase(forest_v1, forest_v2, seed: int, dev, card: str) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sweep", action="store_true",
+                        help="also time K1 and K2 over walks, CTA shapes and staging")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="only check and time the kernel cases of step 5")
+    parser.add_argument("--src", type=Path, default=SRC,
+                        help="the src directory to take repro_torch from "
+                             "(with --kernels-only)")
     args = parser.parse_args()
 
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        fail(f"no src/repro_torch beside {Path(__file__).name}; run it from "
-             "the root of a checkout", code=2)
+    src = args.src.resolve()
+    if src != SRC and not args.kernels_only:
+        fail("--src takes another tree's kernels only with --kernels-only", code=2)
+    if not (src / "repro_torch" / "csrc").is_dir():
+        fail(f"no repro_torch under {src}; run {Path(__file__).name} from the root "
+             "of a checkout", code=2)
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     from repro_torch.core.ensemble import finalize_partials
     from repro_torch.core.flint import float_to_key
-    from repro_torch.kernels import _build, tree_traverse as tt
-    from repro_torch.kernels.ops import pick_blocks
+    from repro_torch.kernels import _build, ops, tree_traverse as tt
     from repro_torch.kernels.ref import tree_predict_integer_ref
     from repro_torch.serve import TreeEngine
 
     dev = torch.device("cuda")
     torch.cuda.set_device(0)
+    card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}; "
+          f"repro_torch from {src}")
 
     # 1. build the kernels
     t0 = time.perf_counter()
@@ -372,7 +518,10 @@ def main() -> None:
           f"(nvcc {_build.BUILD_INFO.get('seconds', 0.0):.2f} s)")
     for line in _build.BUILD_INFO.get("log", "").splitlines():
         if "ptxas info" in line and ("Used" in line or "spill" in line
-                                     or "Function properties" in line):
+                                     or "Function properties" in line
+                                     or "Compiling entry" in line):
+            print("  " + line.strip())
+        elif "bytes stack frame" in line:
             print("  " + line.strip())
 
     # 2. the model
@@ -381,6 +530,15 @@ def main() -> None:
     print(f"model: {ir.n_trees} trees, depth {ir.max_depth}, {ir.n_features} "
           f"features, {ir.n_classes} classes, {ir.total_nodes} nodes; built and "
           f"quantized in {time.perf_counter() - t0:.2f} s")
+    keys = float_to_key(torch.from_numpy(X).to(dev))
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = lambda: flush_buf.fill_(1)
+
+    if args.kernels_only:
+        times = check_and_time(kernel_cases(ops, tt, ir, keys, dev), flush)
+        print(card)
+        print(json.dumps({"kernel_times": times, "src": str(src)}))
+        return
 
     # 3. the main path, with the launch counters read around it
     routes = ("integer:cuda@leaf_major", "flint:cuda@leaf_major",
@@ -428,52 +586,22 @@ def main() -> None:
         fail("100-row integer:cuda result differs from the CPU oracle")
     print("  integer:cuda@leaf_major    100 rows: bit-identical to the CPU oracle")
 
-    # 4c. each kernel against its plain version at the main path's shape
-    def on_card(packed):
-        as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        return (as_t(packed.feature), as_t(packed.threshold_key),
-                as_t(packed.left), as_t(packed.right),
-                as_t(packed.leaf_fixed.view(np.int32)))
-
-    keys = float_to_key(torch.from_numpy(X).to(dev))
-    lm_tables, pad_tables = on_card(lm), on_card(ir.materialize("padded"))
-    nint = torch.from_numpy(lm.internal_counts.astype(np.int32)).to(dev)
-    block_b, block_t = pick_blocks(ROWS, N_TREES,
-                                   torch.cuda.get_device_properties(dev).multi_processor_count)
-    f, k, l, r, leaf = lm_tables
-    kernels = {
-        "leaf_major": (
-            lambda: tt.tree_traverse_leaf_major(keys, f, k, l, r, nint, leaf,
-                                                block_b=block_b, block_t=block_t),
-            lambda: tt.leaf_major_plain(keys, f, k, l, r, nint, leaf,
-                                        block_b=block_b, block_t=block_t),
-            "src/repro/kernels/tree_traverse.py:110"),
-        "gather": (
-            lambda: tt.tree_traverse_gather(keys, *pad_tables, depth=ir.max_depth,
-                                            block_b=block_b, block_t=block_t),
-            lambda: tt.gather_plain(keys, *pad_tables, depth=ir.max_depth,
-                                    block_b=block_b, block_t=block_t),
-            "src/repro/kernels/tree_traverse.py:80"),
-        "onehot": (
-            lambda: tt.tree_traverse_onehot(keys, *pad_tables, depth=ir.max_depth,
-                                            block_b=block_b, block_t=block_t),
-            lambda: tt.onehot_plain(keys, *pad_tables, depth=ir.max_depth,
-                                    block_b=block_b, block_t=block_t),
-            "src/repro/kernels/tree_traverse.py:80"),
-    }
-    errors = {}
-    for name, (kernel, plain, _) in kernels.items():
-        out, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        errors[name] = max_abs_err(out, ref)
-        print(f"kernel {name}: {block_b} rows x {block_t} trees per CTA, "
-              f"max |kernel - plain| = {errors[name]} (tolerance 0: integer sums)")
-        if errors[name] != 0:
-            fail(f"kernel {name} disagrees with its plain version")
+    # 4c and 5. each kernel against its plain version at the main path's
+    # shapes, and its times; the CTA shapes the heuristic gives them
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = kernel_cases(ops, tt, ir, keys, dev)
+    for name, (_, _, rows, impl) in cases.items():
+        block_b, block_t = ops.pick_blocks(rows, N_TREES, N_FEATURES, sms)
+        tile = ("" if impl == "onehot" else
+                f", {tt.default_walks(block_t)} walks per thread, row tile in "
+                + (f"shared memory, {tt.tile_bytes(block_b, N_FEATURES)} bytes per CTA"
+                   if tt.stages_x(N_FEATURES) else "global memory"))
+        print(f"kernel {name}: {block_b} rows x {block_t} trees per CTA{tile}")
+    measured = check_and_time(cases, flush)
     # K3's own function: every read outside its table reads 0
     bad = [torch.from_numpy(a).to(dev) for a in malformed_tables(ir.materialize("padded"))]
     depth = ir.max_depth + 2
-    for bb, bt in ((block_b, 1), (64, 3)):
+    for bb, bt in ((128, 1), (64, 3)):
         out = tt.tree_traverse_onehot(keys[:300], *bad, depth=depth, block_b=bb, block_t=bt)
         ref = tt.onehot_plain(keys[:300], *bad, depth=depth, block_b=bb, block_t=bt)
         torch.cuda.synchronize()
@@ -482,36 +610,45 @@ def main() -> None:
               f">= F), {bb} rows x {bt} trees per CTA: max |kernel - plain| = {err}")
         if err != 0:
             fail("kernel onehot disagrees with its plain version on a malformed table")
+    if args.sweep:
+        sweep(tt, ir, keys, dev, flush, card)
 
-    # 5. times and bounds
-    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    flush = lambda: flush_buf.fill_(1)
-    table_bytes = sum(t.numel() * 4 for t in lm_tables)
+    # the bounds at the main path's shape
+    lm_tables = [lm.feature, lm.threshold_key, lm.left, lm.right, lm.leaf_fixed]
+    table_bytes = sum(a.size * 4 for a in lm_tables)
     io_bytes = keys.numel() * 4 + ROWS * N_CLASSES * 4
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     steps = {
-        "leaf_major": leaf_major_steps(keys, f, k, l, r, nint),
+        "leaf_major": leaf_major_steps(keys, *(on(a) for a in lm_tables[:4]),
+                                       on(lm.internal_counts.astype(np.int32))),
         "gather": ROWS * N_TREES * ir.max_depth,
         "onehot": ROWS * N_TREES * ir.max_depth,
     }
-    measured = {}
-    for name, (kernel, plain, replaces) in kernels.items():
-        ms = cuda_ms(kernel, KERNEL_TIMING_REPS, flush)
-        warm_ms = cuda_ms(kernel, KERNEL_TIMING_REPS)
-        plain_ms = cuda_ms(plain, PLAIN_TIMING_REPS, flush)
+    rows_out = {}
+    for name in REPLACES:
         nbytes = table_bytes + io_bytes + (N_TREES * 4 if name == "leaf_major" else 0)
         # per walk step: the key compare, the child select and the loop's
         # own compare (K3 adds its node and feature range checks); per
         # (row, tree): one add per class
-        ops = (5 if name == "onehot" else 3) * steps[name] + ROWS * N_TREES * N_CLASSES
-        bound_ms, bound_by = bound(nbytes, ops)
-        print(f"kernel {name}: {ms:.4f} ms L2-flushed, {warm_ms:.4f} ms warm, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes} bytes, {ops} ops, {steps[name]} walk steps); no single "
-              "PyTorch call computes this function, so there is no library time")
-        measured[name] = dict(
+        n_ops = (5 if name == "onehot" else 3) * steps[name] + ROWS * N_TREES * N_CLASSES
+        bound_ms, bound_by = bound(nbytes, n_ops)
+        small = {f"{name}@{r}": measured[f"{name}@{r}"] for r in (K1_SMALL_ROWS, K2_SMALL_ROWS)
+                 if f"{name}@{r}" in measured}
+        print(f"kernel {name}: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
+              f"{n_ops} ops, {steps[name]} walk steps); no single PyTorch call computes "
+              "this function, so there is no library time")
+        block_b, block_t = ops.pick_blocks(ROWS, N_TREES, N_FEATURES, sms)
+        shape = dict(block_b=block_b, block_t=block_t)
+        if name != "onehot":
+            shape.update(walks=tt.default_walks(block_t), stage_x=tt.stages_x(N_FEATURES),
+                         smem_bytes=tt.tile_bytes(block_b, N_FEATURES)
+                         if tt.stages_x(N_FEATURES) else 0)
+        rows_out[name] = dict(
             name=name, route="cuda", source="src/repro_torch/csrc/tree_traverse.cu",
-            replaces=replaces, max_abs_err=errors[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            replaces=REPLACES[name], max_abs_err=measured[name]["max_abs_err"],
+            ms=measured[name]["ms"], warm_ms=measured[name]["warm_ms"],
+            plain_ms=measured[name]["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, shape=shape, small_batches=small)
 
     for spec in routes:
         eng = engines[spec]
@@ -521,12 +658,13 @@ def main() -> None:
 
     # the integer:cuda@leaf_major request's steps, each timed on its own
     x_dev = torch.from_numpy(X).to(dev)
-    acc = kernels["leaf_major"][0]()
+    k1 = cases["leaf_major"][0]
+    acc = k1()
     acc_host = acc.view(torch.int32).cpu().numpy().view(np.uint32)
     steps_ms = {
         "h2d": cuda_ms(lambda: torch.from_numpy(X).to(dev), REQUEST_TIMING_REPS),
         "keys": cuda_ms(lambda: float_to_key(x_dev), REQUEST_TIMING_REPS),
-        "kernel": cuda_ms(kernels["leaf_major"][0], REQUEST_TIMING_REPS),
+        "kernel": cuda_ms(k1, REQUEST_TIMING_REPS, lead=True),
         "d2h": cuda_ms(lambda: acc.view(torch.int32).cpu(), REQUEST_TIMING_REPS),
         "finalize": host_ms(lambda: finalize_partials("integer", acc_host, ir.n_trees,
                                                       ir.scale), REQUEST_TIMING_REPS),
@@ -535,7 +673,6 @@ def main() -> None:
         f"{k} {v:.4f}" for k, v in steps_ms.items()))
 
     # 6. the gateway path, with the launch counters read around it
-    card = card_line()
     t0 = time.perf_counter()
     forest_v2 = build_model(args.seed + 1)[0]
     print(f"gateway: v2 forest built from seed {args.seed + 1} in "
@@ -545,12 +682,12 @@ def main() -> None:
         if gw_launches[name] == 0:
             fail(f"kernel {name} was not launched on the gateway path")
 
-    rows_out = [dict(measured[name], launches=launches[name] + gw_launches[name],
-                     launches_by_path={"engine": launches[name],
-                                       "gateway": gw_launches[name]})
-                for name in kernels]
+    kernels_out = [dict(rows_out[name], launches=launches[name] + gw_launches[name],
+                        launches_by_path={"engine": launches[name],
+                                          "gateway": gw_launches[name]})
+                   for name in REPLACES]
     print(card)
-    print(json.dumps({"kernels": rows_out}))
+    print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

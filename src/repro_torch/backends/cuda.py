@@ -1,11 +1,13 @@
 """CudaBackend: the hand-written CUDA tree walks behind the TreeBackend
 protocol (the counterpart of the JAX package's ``pallas`` backend).
 
-It copies the node tables to the card once, at construction, and per call
-moves the rows over, keys them (FlInt), launches K1, K2 or K3 through
-``kernels.ops.tree_predict_integer`` and returns the uint32 partials to the
-host, where the shared numpy finalize runs.  ``flint`` and ``integer``
-accumulate the same partials and differ only in that finalize.
+It copies the node tables to the card once, at construction, and packs the
+node quads that K1 and K2 read there once too (``pack_node_quads``), so no
+request repacks them.  Per call it moves the rows over, keys them (FlInt),
+launches K1, K2 or K3 through ``kernels.ops.tree_predict_integer`` and
+returns the uint32 partials to the host, where the shared numpy finalize
+runs.  ``flint`` and ``integer`` accumulate the same partials and differ
+only in that finalize.
 
 ``impl="auto"`` (the default) resolves per layout: the bounded walk (K1) on
 scannable ``leaf_major`` tables, the gather walk (K2) on ``padded`` ones or
@@ -29,6 +31,7 @@ from repro_torch.backends.base import BackendCapabilities, TreeBackend, register
 from repro_torch.core.ensemble import u32_numpy
 from repro_torch.core.flint import float_to_key
 from repro_torch.kernels.ops import resolve_impl, tree_predict_integer
+from repro_torch.kernels.tree_traverse import pack_node_quads
 
 _DEFAULT_BLOCK_B = 256  # the engine's row bucket; not the CTA size
 
@@ -71,6 +74,8 @@ class CudaBackend(TreeBackend):
                         as_t(packed.leaf_fixed.view(np.int32)))
         self._internal_counts = (as_t(packed.internal_counts.astype(np.int32))
                                  if scannable else None)
+        self._quads = (None if impl == "onehot"
+                       else pack_node_quads(*self._tables[:4]))
 
     def predict_partials(self, X):
         X = np.asarray(X)
@@ -86,5 +91,5 @@ class CudaBackend(TreeBackend):
             float_to_key(x), *self._tables, depth=self.packed.max_depth,
             impl=impl, device=self.device,
             internal_counts=self._internal_counts if impl == "leaf_major" else None,
-            **self._blocks)
+            quads=self._quads, **self._blocks)
         return u32_numpy(acc)

@@ -31,12 +31,14 @@ NVCC_FLAGS = (
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
-    # x, feature, key, left, right, internal_counts, leaf, out,
-    # B, F, T, N, C, rows_per_cta, trees_per_cta, stream
-    "intreeger_leaf_major": [_PTR] * 8 + [_INT] * 7 + [_PTR],
+    # x, quads, internal_counts, leaf, out,
+    # B, F, T, N, C, rows_per_cta, trees_per_cta, walks, stage_x, stream
+    "intreeger_leaf_major": [_PTR] * 5 + [_INT] * 9 + [_PTR],
+    # x, quads, leaf, out,
+    # B, F, T, N, C, depth, rows_per_cta, trees_per_cta, walks, stage_x, stream
+    "intreeger_gather": [_PTR] * 4 + [_INT] * 10 + [_PTR],
     # x, feature, key, left, right, leaf, out,
     # B, F, T, N, C, depth, rows_per_cta, trees_per_cta, stream
-    "intreeger_gather": [_PTR] * 7 + [_INT] * 8 + [_PTR],
     "intreeger_onehot": [_PTR] * 7 + [_INT] * 8 + [_PTR],
 }
 

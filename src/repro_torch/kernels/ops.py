@@ -1,15 +1,24 @@
 """Host wrapper around the tree-traversal kernels: block choice, impl
 resolution, the ensemble-level entry points.
 
-Block choice for the H100.  A CTA is ``ROWS_PER_CTA = 128`` threads, one row
-each, and walks a chunk of ``block_t`` trees.  Each walk is a chain of
-dependent loads, so the card is kept busy by having many walks in flight,
-not by large tiles: 128-thread CTAs let 16 CTAs share an SM (2,048 threads),
-and the tree axis is split until the grid holds about two waves of them,
-``2 * SMs * 16`` CTAs.  A 65,536-row batch has 512 row blocks; on 132 SMs
-that splits 128 trees into chunks of 15 (9 chunks, 4,608 CTAs).  Small
-batches get one tree per CTA.  Partials of the chunks meet through uint32
-atomics, which are exact in any order.
+Block choice for the H100.  K1 and K2 stage each CTA's rows of ``x_keys``
+in shared memory (``kernels/tree_traverse.py::stages_x``: while a 32-row
+tile of F features fits in 227 KB), so the tile bounds the rows an SM
+holds: 128 rows of the 87-feature model take 44,544 bytes, and five such
+CTAs (640 rows) share an SM's 228 KB.  A CTA keeps ``ROWS_PER_CTA = 128``
+rows where the tile fits, else the most rows, in multiples of 32, that fit.
+Each thread walks several trees at once (``tree_traverse.py::
+default_walks``), which keeps more loads in flight than the resident rows
+alone would.  The tree axis is split into chunks for about four waves of
+resident CTAs, with at least one group of walks (4 trees) per CTA and
+chunks rounded up to whole groups: a 65,536-row batch (512 row blocks)
+gets 6 chunks of 24 trees (3,072 CTAs), a batch of 1,000 or 20 rows chunks
+of 4.  Each chunk copies its rows once more, which is what the floor of 4
+trees pays for at small batches.  Launches that stage nothing (K3, and K1
+and K2 on rows too wide to stage) keep the first version's rule: about two
+waves of 16 CTAs of 128 threads per SM, 9 chunks of 15 trees at 65,536
+rows.  ``PERF.md`` has the sweep behind these constants.  Partials of the
+chunks meet through uint32 atomics, which are exact in any order.
 
 The TPU's VMEM budget and tiny-batch clamp do not carry over: they were
 facts of the TPU.
@@ -22,14 +31,26 @@ import torch
 from repro_torch.core.flint import float_to_key
 from repro_torch.device import resolve_device
 from repro_torch.kernels.tree_traverse import (
+    DEFAULT_WALKS,
+    MAX_TILE_ROWS,
+    SMEM_PER_CTA,
+    default_walks,
+    stages_x,
+    tile_bytes,
     tree_traverse_gather,
     tree_traverse_leaf_major,
     tree_traverse_onehot,
 )
 
 ROWS_PER_CTA = 128
+#: waves of resident CTAs that the tree chunks aim at, staged and unstaged
+_STAGED_WAVES = 4
+_UNSTAGED_WAVES = 2
 _THREADS_PER_SM = 2048
-_WAVES = 2
+_CTAS_PER_SM = 32
+#: an SM's shared memory (228 KB), and what the card keeps of it per CTA
+_SMEM_PER_SM = 233_472
+_SMEM_RESERVED_PER_CTA = 1024
 #: the H100 SXM's SM count, used when the tensors are not on a card
 _H100_SMS = 132
 
@@ -41,25 +62,62 @@ def check_impl(impl: str) -> None:
         raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
 
 
-def pick_blocks(b: int, t: int, sm_count: int = _H100_SMS):
-    """(rows per CTA, trees per CTA) for a (b rows, t trees) launch."""
-    row_blocks = -(-b // ROWS_PER_CTA)
-    target = _WAVES * sm_count * (_THREADS_PER_SM // ROWS_PER_CTA)
+def fits(block_b: int, n_features: int) -> bool:
+    """Whether K1 and K2 take ``block_b`` rows per CTA at F features."""
+    return (32 <= block_b <= MAX_TILE_ROWS and block_b % 32 == 0
+            and (not stages_x(n_features)
+                 or tile_bytes(block_b, n_features) <= SMEM_PER_CTA))
+
+
+def resident_ctas(block_b: int, n_features=None) -> int:
+    """CTAs of ``block_b`` rows an SM holds at once, by threads and, where
+    the rows are staged (``n_features`` given and :func:`stages_x`), by
+    shared memory."""
+    ctas = min(_THREADS_PER_SM // block_b, _CTAS_PER_SM)
+    if n_features is not None and stages_x(n_features):
+        per_cta = tile_bytes(block_b, n_features) + _SMEM_RESERVED_PER_CTA
+        ctas = min(ctas, _SMEM_PER_SM // per_cta)
+    return ctas
+
+
+def pick_blocks(b: int, t: int, n_features: int, sm_count: int = _H100_SMS, *,
+                staged=None):
+    """(rows per CTA, trees per CTA) for a (b rows, t trees, F features)
+    launch.  ``staged`` says whether the launch stages its row tile (K1 and
+    K2 where :func:`stages_x`, the default; K3 never does).
+
+    Staged: ``ROWS_PER_CTA`` rows or the most whose tile fits; tree chunks
+    for about ``_STAGED_WAVES`` waves of resident CTAs, at least
+    ``DEFAULT_WALKS`` trees per CTA, rounded up to whole groups of walks.
+    Unstaged: 128 rows and about ``_UNSTAGED_WAVES`` waves of 16 CTAs per
+    SM, the first version's rule."""
+    staged = stages_x(n_features) if staged is None else staged
+    rows = ROWS_PER_CTA
+    while staged and tile_bytes(rows, n_features) > SMEM_PER_CTA:
+        rows -= 32  # stages_x guarantees that 32 rows fit
+    row_blocks = max(1, -(-b // rows))
+    waves = _STAGED_WAVES if staged else _UNSTAGED_WAVES
+    target = waves * sm_count * resident_ctas(rows, n_features if staged else None)
     chunks = min(t, max(1, -(-target // row_blocks)))
-    return ROWS_PER_CTA, -(-t // chunks)
+    block_t = -(-t // chunks)
+    if not staged:
+        return rows, block_t
+    block_t = max(block_t, min(t, DEFAULT_WALKS))
+    walks = default_walks(block_t)
+    return rows, min(t, -(-block_t // walks) * walks)
 
 
-def pick_blocks_candidates(b: int, t: int, sm_count: int = _H100_SMS) -> list:
+def pick_blocks_candidates(b: int, t: int, n_features: int,
+                           sm_count: int = _H100_SMS, *, staged=None) -> list:
     """The measured-autotune grid: :func:`pick_blocks`'s choice first (ties
     resolve to it), then its neighbours with rows per CTA halved and doubled
-    (multiples of 32 up to 1,024, what a CTA can hold) and trees per CTA
-    halved and doubled (1 to ``t``).  Every entry gives the same partials."""
-    auto_b, auto_t = pick_blocks(b, t, sm_count)
+    and trees per CTA halved and doubled (1 to ``t``), each only if the
+    kernels take it (:func:`fits`).  Every entry gives the same partials."""
+    auto_b, auto_t = pick_blocks(b, t, n_features, sm_count, staged=staged)
     cands = [(auto_b, auto_t)]
     for bb, bt in ((auto_b // 2, auto_t), (auto_b * 2, auto_t),
                    (auto_b, auto_t // 2), (auto_b, min(t, auto_t * 2))):
-        if 32 <= bb <= 1024 and bb % 32 == 0 and bt >= 1 \
-                and (bb, bt) not in cands:
+        if fits(bb, n_features) and bt >= 1 and (bb, bt) not in cands:
             cands.append((bb, bt))
     return cands
 
@@ -73,12 +131,14 @@ def _sm_count(device: torch.device) -> int:
 def tree_predict_integer(x_keys, feature, threshold_key, left, right,
                          leaf_fixed, *, depth: int, block_b=None, block_t=None,
                          impl: str = "gather", internal_counts=None,
-                         device=None) -> torch.Tensor:
+                         quads=None, device=None) -> torch.Tensor:
     """Integer ensemble inference through K1 (``impl="leaf_major"``), K2
     (``impl="gather"``) or K3 (``impl="onehot"``), any B and T.  Inputs are
-    moved to ``device`` (``cuda`` unless ``device="cpu"``).  Returns (B, C)
-    uint32 partials, bit-identical to ``ref.tree_predict_integer_ref`` (for
-    K3, on tables whose every index lies inside its table)."""
+    moved to ``device`` (``cuda`` unless ``device="cpu"``).  ``quads`` is the
+    tables' ``pack_node_quads``, which K1 and K2 read (packed per call when
+    None).  Returns (B, C) uint32 partials, bit-identical to
+    ``ref.tree_predict_integer_ref`` (for K3, on tables whose every index
+    lies inside its table)."""
     check_impl(impl)
     if impl == "leaf_major" and internal_counts is None:
         raise ValueError(
@@ -94,16 +154,24 @@ def tree_predict_integer(x_keys, feature, threshold_key, left, right,
 
     x_keys, feature, threshold_key, left, right, leaf_fixed = (
         on_dev(a) for a in (x_keys, feature, threshold_key, left, right, leaf_fixed))
-    auto_b, auto_t = pick_blocks(x_keys.shape[0], feature.shape[0], _sm_count(dev))
+    auto_b, auto_t = pick_blocks(
+        x_keys.shape[0], feature.shape[0], x_keys.shape[1], _sm_count(dev),
+        staged=impl != "onehot" and stages_x(x_keys.shape[1]))
     block_b, block_t = block_b or auto_b, block_t or auto_t
+    if impl == "onehot":
+        return tree_traverse_onehot(x_keys, feature, threshold_key, left, right,
+                                    leaf_fixed, depth=depth, block_b=block_b,
+                                    block_t=block_t)
+    if quads is not None:
+        quads = on_dev(quads)
     if impl == "leaf_major":
         return tree_traverse_leaf_major(
             x_keys, feature, threshold_key, left, right,
             on_dev(internal_counts).to(torch.int32), leaf_fixed,
-            block_b=block_b, block_t=block_t)
-    walk = tree_traverse_onehot if impl == "onehot" else tree_traverse_gather
-    return walk(x_keys, feature, threshold_key, left, right, leaf_fixed,
-                depth=depth, block_b=block_b, block_t=block_t)
+            block_b=block_b, block_t=block_t, quads=quads)
+    return tree_traverse_gather(x_keys, feature, threshold_key, left, right,
+                                leaf_fixed, depth=depth, block_b=block_b,
+                                block_t=block_t, quads=quads)
 
 
 def resolve_impl(packed, impl: str) -> str:

@@ -1,11 +1,11 @@
 """The tree-traversal kernels K1, K2 and K3, each beside its plain version.
 
   * K1 ``tree_traverse_leaf_major``: the bounded walk over ``leaf_major``
-    tables (CUDA kernel ``leaf_major_kernel``; replaces the TPU's
+    tables (CUDA kernel ``walk_tile<K, true, ...>``; replaces the TPU's
     ``_kernel_leaf_major`` linear scan).
   * K2 ``tree_traverse_gather``: the per-level gather walk over any node
-    order (CUDA kernel ``gather_kernel``; replaces ``_kernel`` with
-    ``impl="gather"``).
+    order (CUDA kernel ``walk_tile<K, false, ...>``; replaces ``_kernel``
+    with ``impl="gather"``).
   * K3 ``tree_traverse_onehot``: K2's walk with every table read masked
     (CUDA kernel ``onehot_kernel``; replaces ``_kernel`` with
     ``impl="onehot"``).  The TPU kernel reads through compare-iota masked
@@ -18,6 +18,14 @@ plain version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel, so a run
 can show which kernel the path took; the gateway launches from executor
 threads, so the counts change under a lock.
+
+K1 and K2 read the nodes as quads (:func:`pack_node_quads`, one (T, N, 4)
+int32 table); a caller that serves many requests packs once and passes
+``quads``, else the wrapper packs per call.  They stage each CTA's rows of
+``x_keys`` in shared memory (:func:`tile_bytes`) when a 32-row tile fits
+in a CTA's 227 KB (:func:`stages_x`, by the feature count alone), else read
+``x_keys`` from global memory; a CTA shape whose tile does not fit raises.
+``walks`` trees per thread are walked at once (:func:`default_walks`).
 
 The plain versions keep the reference wrapper's padding semantics: rows pad
 to ``block_b``, trees to ``block_t`` with inert trees (feature -1,
@@ -37,6 +45,15 @@ LAUNCHES = {"leaf_major": 0, "gather": 0, "onehot": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _U32_MASK = 0xFFFFFFFF
+
+#: shared memory one CTA may take on the H100 (227 KB), the most rows a K1/K2
+#: CTA takes (the kernels' launch bound), and the walks a thread may carry
+SMEM_PER_CTA = 232_448
+MAX_TILE_ROWS = 512
+WALKS = (1, 2, 4)
+#: walks per thread when the caller names none (fewer when a CTA's tree
+#: chunk is shorter)
+DEFAULT_WALKS = 4
 
 
 def reset_launches() -> None:
@@ -164,6 +181,55 @@ def onehot_plain(x_keys, feature, threshold_key, left, right, leaf_fixed, *,
 
 
 # ---------------------------------------------------------------------------
+# node quads and CTA shapes of K1 and K2
+# ---------------------------------------------------------------------------
+
+def pack_node_quads(feature, threshold_key, left, right) -> torch.Tensor:
+    """The (T, N, 4) int32 node table K1 and K2 read, one 16-byte
+    ``{feature, threshold_key, left, right}`` per node."""
+    return torch.stack((feature, threshold_key, left, right), dim=-1).contiguous()
+
+
+def tile_stride(n_features: int) -> int:
+    """Words per row of the staged tile: F rounded up to odd, so the 32
+    rows of a warp reading one feature hit 32 banks."""
+    return n_features | 1
+
+
+def tile_bytes(block_b: int, n_features: int) -> int:
+    """Shared memory of a ``block_b``-row tile of ``x_keys``."""
+    return block_b * tile_stride(n_features) * 4
+
+
+def stages_x(n_features: int) -> bool:
+    """Whether K1 and K2 stage ``x_keys`` in shared memory: when a 32-row
+    tile fits in a CTA (F <= 1,815); above that they read it from global
+    memory.  Chosen by shape, never on a failure."""
+    return tile_bytes(32, n_features) <= SMEM_PER_CTA
+
+
+def default_walks(block_t: int) -> int:
+    """Walks per thread: :data:`DEFAULT_WALKS`, or the largest of
+    :data:`WALKS` that a chunk of ``block_t`` trees fills."""
+    return max(w for w in WALKS if w <= max(1, min(DEFAULT_WALKS, block_t)))
+
+
+def check_tile_shape(block_b: int, n_features: int, walks: int,
+                     stage_x: bool) -> None:
+    """Raise on a K1/K2 CTA shape the kernels do not take; never shrink it."""
+    if not (32 <= block_b <= MAX_TILE_ROWS and block_b % 32 == 0):
+        raise ValueError(f"K1 and K2 take 32 to {MAX_TILE_ROWS} rows per CTA in "
+                         f"multiples of 32, got {block_b}")
+    if walks not in WALKS:
+        raise ValueError(f"walks must be one of {WALKS}, got {walks}")
+    if stage_x and tile_bytes(block_b, n_features) > SMEM_PER_CTA:
+        raise ValueError(
+            f"a {block_b}-row tile of {n_features} features takes "
+            f"{tile_bytes(block_b, n_features)} bytes of shared memory, over "
+            f"the {SMEM_PER_CTA} a CTA may take")
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -173,9 +239,10 @@ def _cuda_args(x_keys, tables: dict):
     if dev.type != "cuda":
         raise ValueError(f"the CUDA tree kernels take CUDA tensors, got {dev}")
     b, f = x_keys.shape
-    t, n = tables["feature"].shape
+    t, n = (tables["quads"] if "quads" in tables else tables["feature"]).shape[:2]
     shapes = {"x_keys": (b, f), "feature": (t, n), "threshold_key": (t, n),
-              "left": (t, n), "right": (t, n), "internal_counts": (t,)}
+              "left": (t, n), "right": (t, n), "quads": (t, n, 4),
+              "internal_counts": (t,)}
     out = {}
     for name, a in (("x_keys", x_keys), *tables.items()):
         if a.device != dev:
@@ -192,30 +259,39 @@ def _cuda_args(x_keys, tables: dict):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         out[name] = a
+    if "quads" in out and out["quads"].data_ptr() % 16:
+        raise ValueError("quads must be 16-byte aligned")
     if t > 65535:
         raise ValueError(f"{t} trees exceed the kernels' grid.y limit")
+    if not 1 <= n <= 2 ** 28:  # K1 and K2 index a group of 4 trees in 32 bits
+        raise ValueError(f"the node tables need 1 to 2**28 nodes per tree, got {n}")
     return out
 
 
 def _launch(kernel: str, x_keys, tables: dict, ints: tuple,
-            block_b: int, block_t: int) -> torch.Tensor:
+            block_b: int, block_t: int, tile: tuple = ()) -> torch.Tensor:
+    """Launch ``intreeger_<kernel>``; ``tile`` is K1's and K2's
+    ``(walks, stage_x)``."""
     from repro_torch.kernels._build import load_library
 
     args = _cuda_args(x_keys, tables)
     b = x_keys.shape[0]
-    t, n = args["feature"].shape
+    t, n = args["leaf_fixed"].shape[:2]
     c = args["leaf_fixed"].shape[-1]
     if not (1 <= block_b <= 1024 and block_b % 32 == 0) or block_t < 1:
         raise ValueError(f"bad CTA shape: {block_b} rows x {block_t} trees")
     if x_keys.shape[1] < 1:  # every walk reads x[row, max(f, 0)] at least once
         raise ValueError("the CUDA tree kernels need rows with at least one feature")
+    if tile:
+        check_tile_shape(block_b, x_keys.shape[1], *tile)
     lib = load_library()
     out = torch.zeros((b, c), dtype=torch.int32, device=x_keys.device)
     with torch.cuda.device(x_keys.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"intreeger_{kernel}")(
             *(a.data_ptr() for a in args.values()), out.data_ptr(),
-            b, x_keys.shape[1], t, n, c, *ints, block_b, block_t, stream)
+            b, x_keys.shape[1], t, n, c, *ints, block_b, block_t,
+            *(int(v) for v in tile), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     with _LAUNCHES_LOCK:
@@ -223,37 +299,53 @@ def _launch(kernel: str, x_keys, tables: dict, ints: tuple,
     return out.view(torch.uint32)
 
 
+def _tile(x_keys, block_t: int, walks, stage_x) -> tuple:
+    """K1's and K2's ``(walks, stage_x)``: the caller's, else the defaults
+    by shape."""
+    return (default_walks(block_t) if walks is None else walks,
+            stages_x(x_keys.shape[1]) if stage_x is None else bool(stage_x))
+
+
 def tree_traverse_leaf_major(x_keys, feature, threshold_key, left, right,
                              internal_counts, leaf_fixed, *, block_b: int,
-                             block_t: int) -> torch.Tensor:
+                             block_t: int, walks=None, stage_x=None,
+                             quads=None) -> torch.Tensor:
     """K1: (B, C) uint32 partials over ``leaf_major`` tables.
 
     ``block_b`` rows and ``block_t`` trees per CTA on the card (row and tree
     block of the padding on the CPU).  ``internal_counts`` (T,) int32 is the
-    layout's per-tree internal-prefix length.
+    layout's per-tree internal-prefix length.  On the card, ``quads`` is the
+    tables' :func:`pack_node_quads` (packed here when None), ``walks`` the
+    trees each thread walks at once and ``stage_x`` whether the row tile
+    goes to shared memory (both by shape when None).
     """
     if x_keys.device.type == "cpu":
         return leaf_major_plain(x_keys, feature, threshold_key, left, right,
                                 internal_counts, leaf_fixed,
                                 block_b=block_b, block_t=block_t)
-    tables = dict(feature=feature, threshold_key=threshold_key, left=left,
-                  right=right, internal_counts=internal_counts,
+    if quads is None:
+        quads = pack_node_quads(feature, threshold_key, left, right)
+    tables = dict(quads=quads, internal_counts=internal_counts,
                   leaf_fixed=leaf_fixed)
-    return _launch("leaf_major", x_keys, tables, (), block_b, block_t)
+    return _launch("leaf_major", x_keys, tables, (), block_b, block_t,
+                   _tile(x_keys, block_t, walks, stage_x))
 
 
 def tree_traverse_gather(x_keys, feature, threshold_key, left, right,
                          leaf_fixed, *, depth: int, block_b: int,
-                         block_t: int) -> torch.Tensor:
+                         block_t: int, walks=None, stage_x=None,
+                         quads=None) -> torch.Tensor:
     """K2: (B, C) uint32 partials, ``depth`` gather levels per tree over any
-    node order."""
+    node order.  ``walks``, ``stage_x`` and ``quads`` as for K1."""
     if x_keys.device.type == "cpu":
         return gather_plain(x_keys, feature, threshold_key, left, right,
                             leaf_fixed, depth=depth, block_b=block_b,
                             block_t=block_t)
-    tables = dict(feature=feature, threshold_key=threshold_key, left=left,
-                  right=right, leaf_fixed=leaf_fixed)
-    return _launch("gather", x_keys, tables, (int(depth),), block_b, block_t)
+    if quads is None:
+        quads = pack_node_quads(feature, threshold_key, left, right)
+    tables = dict(quads=quads, leaf_fixed=leaf_fixed)
+    return _launch("gather", x_keys, tables, (int(depth),), block_b, block_t,
+                   _tile(x_keys, block_t, walks, stage_x))
 
 
 def tree_traverse_onehot(x_keys, feature, threshold_key, left, right,

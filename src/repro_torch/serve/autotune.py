@@ -1,12 +1,12 @@
 """Warm-time measured autotuning of the cuda backend's CTA shape.
 
 The cuda backend's ``(block_b, block_t)`` — rows and trees per CTA — has a
-static heuristic (``kernels/ops.py::pick_blocks``: 128 rows, about two waves
-of CTAs), but the best shape is a property of the card and the forest, not
-a constant.  This module is the measured answer: during
-``TreeEngine.warm()`` each candidate of
+static heuristic (``kernels/ops.py::pick_blocks``: 128 rows where the
+staged row tile fits, one wave of CTAs), but the best shape is a property
+of the card and the forest, not a constant.  This module is the measured
+answer: during ``TreeEngine.warm()`` each candidate of
 ``kernels/ops.py::pick_blocks_candidates`` (the heuristic first, then its
-halved and doubled neighbours) is built on the engine's *already
+halved and doubled neighbours that fit) is built on the engine's *already
 materialized* layout artifact and timed (min-of-rounds ``predict_partials``
 on deterministic pseudo-random rows, with ``torch.cuda.synchronize()``
 around each round on the card), and the winner's kwargs are pinned.
@@ -58,17 +58,21 @@ def config_str(kwargs: dict) -> str:
 
 
 def candidate_grid(backend_name: str, artifact, rows: int = _TUNE_ROWS, *,
-                   device=None) -> list:
+                   device=None, impl=None) -> list:
     """The candidate ``backend_kwargs`` grid for one backend, the heuristic
-    FIRST (ties resolve to it), sized for ``device``'s SM count.  Empty when
-    the backend has no tunable knob."""
+    FIRST (ties resolve to it), sized for ``device``'s SM count and for the
+    route's ``impl`` (K3, ``onehot``, stages no row tile).  Empty when the
+    backend has no tunable knob."""
     if backend_name != "cuda":
         return []
     from repro_torch.kernels.ops import _sm_count, pick_blocks_candidates
 
     sms = _sm_count(torch.device(device if device is not None else "cpu"))
+    staged = False if impl == "onehot" else None
     return [{"block_b": bb, "block_t": bt}
-            for bb, bt in pick_blocks_candidates(rows, artifact.feature.shape[0], sms)]
+            for bb, bt in pick_blocks_candidates(rows, artifact.feature.shape[0],
+                                                 artifact.n_features, sms,
+                                                 staged=staged)]
 
 
 def measure_backend(backend, X, *, rounds: int = _ROUNDS,
@@ -108,7 +112,8 @@ def tune_backend(backend_name: str, artifact, mode: str, *,
 
     # resolve the default at call time so tests can monkeypatch the module
     measure = measure if measure is not None else measure_backend
-    grid = candidate_grid(backend_name, artifact, rows, device=device)
+    grid = candidate_grid(backend_name, artifact, rows, device=device,
+                          impl=(backend_kwargs or {}).get("impl"))
     if len(grid) < 2:
         return None, None, []
     rng = np.random.default_rng(0)

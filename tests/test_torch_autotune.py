@@ -3,8 +3,8 @@ cuda backend's CTA shape, on the CPU.
 
 What must hold, as for the JAX package's autotuner:
   * the grid — ``pick_blocks``'s choice first, then its feasible halved and
-    doubled neighbours (rows per CTA multiples of 32 up to 1,024, trees per
-    CTA from 1 to T);
+    doubled neighbours (rows per CTA multiples of 32 up to 512 whose staged
+    row tile fits, trees per CTA from 1 to T);
   * determinism — a constant timer resolves ties to the heuristic, a ranked
     timer picks the same winner every run;
   * bit-identity — serving on the tuned config equals the JAX engine;
@@ -23,7 +23,7 @@ from repro.serve import autotune as jat
 from repro.serve.engine import TreeEngine as JTreeEngine
 from repro.trees.forest import RandomForestClassifier
 from repro_torch.ir import ForestIR
-from repro_torch.kernels.ops import pick_blocks, pick_blocks_candidates
+from repro_torch.kernels.ops import fits, pick_blocks, pick_blocks_candidates
 from repro_torch.serve import Gateway, ModelRegistry, TreeEngine
 from repro_torch.serve import autotune as at
 
@@ -48,23 +48,23 @@ def _ranked(block_b, block_t):
 
 @pytest.mark.parametrize("b,t", [(256, 6), (256, 128), (65_536, 128), (1, 1), (4096, 40)])
 def test_candidate_grid_heuristic_first(b, t):
-    cands = pick_blocks_candidates(b, t, 132)
-    assert cands[0] == pick_blocks(b, t, 132)
+    cands = pick_blocks_candidates(b, t, 87, 132)
+    assert cands[0] == pick_blocks(b, t, 87, 132)
     assert len(set(cands)) == len(cands)
     auto_b, auto_t = cands[0]
     for bb, bt in cands[1:]:
-        assert 32 <= bb <= 1024 and bb % 32 == 0 and 1 <= bt <= t
+        assert fits(bb, 87) and 32 <= bb <= 512 and bb % 32 == 0 and 1 <= bt <= t
         assert (bb in (auto_b // 2, auto_b * 2) and bt == auto_t) or \
-            (bb == auto_b and bt in (auto_t // 2, auto_t * 2))
+            (bb == auto_b and bt in (auto_t // 2, min(t, auto_t * 2)))
 
 
 def test_grid_for_backends(forests):
     _, v1, _ = forests
     lm = ForestIR.from_forest(v1).materialize("leaf_major")
     grid = at.candidate_grid("cuda", lm)
-    assert grid[0] == {"block_b": 128, "block_t": 1} and len(grid) >= 2
+    assert grid[0] == {"block_b": 128, "block_t": 4} and len(grid) >= 2
     assert at.candidate_grid("reference", lm) == []
-    assert at.config_str(grid[0]) == jat.config_str(grid[0]) == "block_b=128,block_t=1"
+    assert at.config_str(grid[0]) == jat.config_str(grid[0]) == "block_b=128,block_t=4"
     assert at.config_str({}) == jat.config_str({}) == "-"
 
 
@@ -74,11 +74,11 @@ def test_tune_is_deterministic_and_ties_go_to_default(forests):
     const = lambda backend, X: 1.0
     winners = {tuple(at.tune_backend("cuda", lm, "integer", measure=const,
                                      device="cpu")[0].items()) for _ in range(3)}
-    assert winners == {(("block_b", 128), ("block_t", 1))}
+    assert winners == {(("block_b", 128), ("block_t", 4))}
     for _ in range(2):
         w, wb, report = at.tune_backend("cuda", lm, "integer", device="cpu",
-                                        measure=_ranked(64, 1))
-        assert w == {"block_b": 64, "block_t": 1} and wb._blocks == w
+                                        measure=_ranked(64, 4))
+        assert w == {"block_b": 64, "block_t": 4} and wb._blocks == w
         assert [kw for kw, _ in report] == at.candidate_grid("cuda", lm)
 
 
@@ -91,16 +91,16 @@ def test_measure_backend_times_real_calls(forests):
 
 def test_warm_tunes_and_stays_bit_identical(forests, monkeypatch):
     X, v1, _ = forests
-    monkeypatch.setattr(at, "measure_backend", _ranked(64, 1))
+    monkeypatch.setattr(at, "measure_backend", _ranked(64, 4))
     ir = ForestIR.from_forest(v1)
     store = {}
     eng = TreeEngine(ir, spec="integer:cuda?autotune=true", tuned_store=store, device="cpu")
     assert eng.tuned_config is None
     eng.warm(64)
-    assert eng.tuned_config == "block_b=64,block_t=1"
-    assert eng.backend._blocks == {"block_b": 64, "block_t": 1}
+    assert eng.tuned_config == "block_b=64,block_t=4"
+    assert eng.backend._blocks == {"block_b": 64, "block_t": 4}
     assert "tune" in eng.drain_compile_timings()
-    assert list(store.values()) == [{"block_b": 64, "block_t": 1}]
+    assert list(store.values()) == [{"block_b": 64, "block_t": 4}]
     ref = JTreeEngine(JForestIR.from_forest(v1), spec="integer:pallas")
     for b in (1, 20, 100):
         s, p = eng.predict_scores(X[:b])
@@ -115,7 +115,7 @@ def test_hot_swap_reuses_the_winner_without_measuring(forests, monkeypatch):
 
     def measure(backend, X):
         calls.append(backend._blocks)
-        return _ranked(256, 1)(backend, X)
+        return _ranked(256, 4)(backend, X)
 
     monkeypatch.setattr(at, "measure_backend", measure)
     reg = ModelRegistry()
@@ -126,7 +126,7 @@ def test_hot_swap_reuses_the_winner_without_measuring(forests, monkeypatch):
     calls.clear()
     mv2 = reg.register_forest("m", v2)
     eng2 = mv2.engine(route, device="cpu")
-    assert eng2.tuned_config == "block_b=256,block_t=1" and not eng2._pending_tune
+    assert eng2.tuned_config == "block_b=256,block_t=4" and not eng2._pending_tune
     eng2.warm(64)
     assert calls == []
     gw = Gateway(reg, route, device="cpu")
@@ -139,13 +139,13 @@ def test_hot_swap_reuses_the_winner_without_measuring(forests, monkeypatch):
     s, _ = asyncio.run(run())
     np.testing.assert_array_equal(s, TreeEngine(mv2.packed, spec="integer:reference",
                                                 device="cpu").predict_scores(X[:10])[0])
-    assert gw.stats()["per_model"]["m"]["tuned"] == "block_b=256,block_t=1"
+    assert gw.stats()["per_model"]["m"]["tuned"] == "block_b=256,block_t=4"
 
 
 def test_escape_hatches(forests, monkeypatch):
     X, v1, _ = forests
     ir = ForestIR.from_forest(v1)
-    monkeypatch.setattr(at, "measure_backend", _ranked(64, 1))
+    monkeypatch.setattr(at, "measure_backend", _ranked(64, 4))
     monkeypatch.setenv("REPRO_AUTOTUNE", "0")
     off = TreeEngine(ir, spec="integer:cuda?autotune=true", device="cpu")
     off.warm(16)
@@ -156,6 +156,7 @@ def test_escape_hatches(forests, monkeypatch):
     assert pinned.tuned_config is None and pinned.backend._blocks["block_b"] == 32
     untunable = TreeEngine(ir, spec="integer:reference?autotune=true", device="cpu")
     assert not untunable._pending_tune
+    monkeypatch.setattr(at, "measure_backend", _ranked(64, 1))  # K3's grid
     onehot = TreeEngine(ir, spec="integer:cuda@padded?autotune=true,impl=onehot",
                         device="cpu")
     onehot.warm(16)
@@ -167,18 +168,18 @@ def test_routes_differing_only_in_impl_tune_independently(forests, monkeypatch):
     X, v1, _ = forests
     reg = ModelRegistry()
     mv = reg.register_forest("m", v1)
-    monkeypatch.setattr(at, "measure_backend", _ranked(64, 1))
+    monkeypatch.setattr(at, "measure_backend", _ranked(64, 1))  # K3's grid
     k3 = mv.engine("integer:cuda@padded?autotune=true,impl=onehot", device="cpu")
     k3.warm(16)
-    monkeypatch.setattr(at, "measure_backend", _ranked(256, 1))
+    monkeypatch.setattr(at, "measure_backend", _ranked(256, 4))
     k2 = mv.engine("integer:cuda@padded?autotune=true", device="cpu")
     assert k2 is not k3 and k2._pending_tune  # K3's winner is not reused
     k2.warm(16)
     assert k3.tuned_config == "block_b=64,block_t=1"
-    assert k2.tuned_config == "block_b=256,block_t=1"
+    assert k2.tuned_config == "block_b=256,block_t=4"
     assert (k3.backend.impl, k2.backend.impl) == ("onehot", "gather")
     assert sorted(mv._tuned.values(), key=lambda w: w["block_b"]) == [
-        {"block_b": 64, "block_t": 1}, {"block_b": 256, "block_t": 1}]
+        {"block_b": 64, "block_t": 1}, {"block_b": 256, "block_t": 4}]
     for b in (1, 20, 100):
         np.testing.assert_array_equal(k3.predict_scores(X[:b])[0],
                                       k2.predict_scores(X[:b])[0])

@@ -1,7 +1,11 @@
 """Card-only tests of the CUDA kernels K1, K2 and K3: each against its plain
 version on the same CUDA tensors, bit for bit, with the launch counters
-showing the kernel ran; K3 also on a malformed table; and two gateways on
-two routes serving at once from executor threads.  Marked ``cuda``; each
+showing the kernel ran, at shapes that reach each edge of K1's and K2's
+design (odd and even feature counts, rows too wide to stage, class counts
+that take the scalar leaf path and several class chunks, tree chunks that
+the walks per thread do not divide, rows past the last full CTA); K3 also
+on a malformed table, where K1 and K2 must stay inside their buffers; and
+two gateways on two routes serving at once from executor threads.  Marked ``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
 on a machine with a card::
 
@@ -99,8 +103,14 @@ def malformed_case():
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 37, 1000])
 @pytest.mark.parametrize("n_trees,depth,n_features,n_classes",
-                         [(1, 3, 4, 2), (7, 6, 11, 3), (33, 8, 87, 8), (20, 5, 9, 19)])
+                         [(1, 3, 4, 2), (7, 6, 11, 3), (33, 8, 87, 8), (20, 5, 9, 19),
+                          (13, 6, 10, 4), (6, 7, 64, 16), (9, 5, 2000, 3)])
 def test_kernels_match_plain_versions(card, rows, n_trees, depth, n_features, n_classes):
+    """F = 10 and 64 are even (the tile pads them to odd strides), 4, 11, 9
+    and 87 are not multiples of 4, F = 2,000 is too wide to stage; C = 3 and
+    19 take the scalar leaf path, 4 and 16 the 16-byte one, 16 and 19 more
+    than one class chunk; 7, 9, 13 and 33 trees leave chunks that 2 or 4
+    walks do not divide; 37 and 1,000 rows end inside a CTA."""
     ir = _forest(rows + n_trees, n_trees, depth, n_features, n_classes)
     x = np.random.default_rng(rows).normal(size=(rows, n_features)).astype(np.float32)
     keys = float_to_key(torch.from_numpy(x).to(card))
@@ -108,22 +118,72 @@ def test_kernels_match_plain_versions(card, rows, n_trees, depth, n_features, n_
     f, k, l, r, leaf = _on(card, lm)
     nint = torch.from_numpy(lm.internal_counts.astype(np.int32)).to(card)
     pad = _on(card, ir.materialize("padded"))
-    blocks = lambda: dict(depth=ir.max_depth, block_b=block_b, block_t=block_t)
-    for block_b, block_t in (pick_blocks(rows, n_trees, 132), (32, 1), (256, n_trees)):
+    auto_b, auto_t = pick_blocks(rows, n_trees, n_features, 132)
+    assert tt.stages_x(n_features) == (n_features != 2000)
+    for block_b, block_t, walks in ((auto_b, auto_t, None), (32, 1, 1), (256, n_trees, 4),
+                                    (64, 3, 2), (96, 5, 4), (512, n_trees, 2)):
+        tile = dict(block_b=block_b, block_t=block_t, walks=walks)
         tt.reset_launches()
-        k1 = tt.tree_traverse_leaf_major(keys, f, k, l, r, nint, leaf,
-                                         block_b=block_b, block_t=block_t)
-        k2 = tt.tree_traverse_gather(keys, *pad, **blocks())
-        k3 = tt.tree_traverse_onehot(keys, *pad, **blocks())
+        k1 = tt.tree_traverse_leaf_major(keys, f, k, l, r, nint, leaf, **tile)
+        k2 = tt.tree_traverse_gather(keys, *pad, depth=ir.max_depth, **tile)
+        k3 = tt.tree_traverse_onehot(keys, *pad, depth=ir.max_depth, block_b=block_b,
+                                     block_t=block_t)
         torch.cuda.synchronize()
         assert tt.LAUNCHES == {"leaf_major": 1, "gather": 1, "onehot": 1}
-        p1 = tt.leaf_major_plain(keys, f, k, l, r, nint, leaf, block_b=block_b, block_t=block_t)
-        p2 = tt.gather_plain(keys, *pad, **blocks())
-        p3 = tt.onehot_plain(keys, *pad, **blocks())
+        blocks = dict(block_b=block_b, block_t=block_t)
+        p1 = tt.leaf_major_plain(keys, f, k, l, r, nint, leaf, **blocks)
+        p2 = tt.gather_plain(keys, *pad, depth=ir.max_depth, **blocks)
+        p3 = tt.onehot_plain(keys, *pad, depth=ir.max_depth, **blocks)
         assert k1.dtype == k2.dtype == k3.dtype == torch.uint32
         for kernel, plain in ((k1, p1), (k2, p2), (k3, p3), (k3, p2)):
             np.testing.assert_array_equal(kernel.view(torch.int32).cpu().numpy(),
                                           plain.view(torch.int32).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_walks_stay_inside_their_buffers_on_malformed_tables(card):
+    """K1 and K2 clamp every index into its buffer: on a table with a child
+    >= N, a child < 0, a feature >= F and prefix lengths past N, both run
+    to the end without a fault, staged and not (their function there is
+    undefined, so only the run is checked); K3 still equals its plain
+    version on the same table."""
+    x, tables, depth = malformed_case()
+    keys = float_to_key(torch.from_numpy(x).to(card))
+    on = [torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32
+                                                else a)).to(card) for a in tables]
+    nint = torch.full((on[0].shape[0],), on[0].shape[1] + 5, dtype=torch.int32, device=card)
+    nint[0] = -3
+    for stage_x in (True, False):
+        for walks in (1, 4):
+            tile = dict(block_b=64, block_t=2, walks=walks, stage_x=stage_x)
+            k1 = tt.tree_traverse_leaf_major(keys, *on[:4], nint, on[4], **tile)
+            k2 = tt.tree_traverse_gather(keys, *on, depth=depth, **tile)
+            torch.cuda.synchronize()
+            assert k1.shape == k2.shape == (len(x), on[4].shape[-1])
+    k3 = tt.tree_traverse_onehot(keys, *on, depth=depth, block_b=64, block_t=2)
+    np.testing.assert_array_equal(
+        k3.view(torch.int32).cpu().numpy(),
+        tt.onehot_plain(keys, *on, depth=depth, block_b=64, block_t=2)
+        .view(torch.int32).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_tile_that_does_not_fit_raises_before_launch(card):
+    """A CTA whose row tile needs more than 227 KB raises and launches
+    nothing; the wrapper does not shrink it."""
+    ir = _forest(2, 4, 3, 1000, 3)
+    x = np.random.default_rng(0).normal(size=(70, 1000)).astype(np.float32)
+    keys = float_to_key(torch.from_numpy(x).to(card))
+    pad = _on(card, ir.materialize("padded"))
+    tt.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        tt.tree_traverse_gather(keys, *pad, depth=ir.max_depth, block_b=64, block_t=1)
+    assert tt.LAUNCHES["gather"] == 0
+    out = tt.tree_traverse_gather(keys, *pad, depth=ir.max_depth, block_b=32, block_t=1)
+    np.testing.assert_array_equal(
+        out.view(torch.int32).cpu().numpy(),
+        tt.gather_plain(keys, *pad, depth=ir.max_depth, block_b=32, block_t=1)
+        .view(torch.int32).cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -22,7 +22,14 @@ from repro_torch.core.flint import float_to_key
 from repro_torch.ir import ForestIR
 from repro_torch.ir.forest_ir import ARRAY_DTYPES
 from repro_torch.kernels import tree_traverse as tt
-from repro_torch.kernels.ops import packed_predict_integer, pick_blocks, tree_predict_integer
+from repro_torch.kernels.ops import (
+    fits,
+    packed_predict_integer,
+    pick_blocks,
+    pick_blocks_candidates,
+    resident_ctas,
+    tree_predict_integer,
+)
 from repro_torch.kernels.ref import tree_predict_integer_ref
 from test_torch_cuda import malformed_case
 
@@ -232,8 +239,117 @@ def test_wrappers_take_plain_versions_on_cpu_only():
 
 
 def test_h100_block_choice():
-    # the serve_64k batch: 512 row blocks x 9 tree chunks of 15 trees
-    assert pick_blocks(65_536, 128, 132) == (128, 15)
-    assert pick_blocks(1, 128, 132) == (128, 1)  # small batches: a tree per CTA
-    assert pick_blocks(10 ** 7, 128, 132) == (128, 128)
-    assert pick_blocks(1000, 1, 132) == (128, 1)
+    # the serve_64k batch of the 87-feature model: 512 row blocks of 128
+    # rows; 132 SMs hold 5 CTAs each of 44,544-byte tiles, so four waves
+    # are 2,640 CTAs: 6 chunks of 22 trees, rounded up to whole groups of
+    # 4 walks, 24
+    assert resident_ctas(128, 87) == 5
+    assert pick_blocks(65_536, 128, 87, 132) == (128, 24)
+    assert pick_blocks(10 ** 7, 128, 87, 132) == (128, 128)
+    # small batches: one group of walks per CTA, the least a CTA takes
+    assert pick_blocks(1000, 128, 87, 132) == (128, 4)
+    assert pick_blocks(20, 128, 87, 132) == (128, 4)
+    assert pick_blocks(1, 128, 87, 132) == (128, 4)
+    assert pick_blocks(1000, 1, 87, 132) == (128, 1)
+    assert pick_blocks(1000, 3, 87, 132) == (128, 3)
+    # launches that stage nothing (K3; K1 and K2 on rows too wide to stage)
+    # keep the first version's rule: about two waves of 16 CTAs per SM
+    for f, staged in ((87, False), (4000, None)):
+        assert pick_blocks(65_536, 128, f, 132, staged=staged) == (128, 15)
+        assert pick_blocks(1, 128, f, 132, staged=staged) == (128, 1)
+
+
+@pytest.mark.parametrize("n_features", [1, 87, 1815, 1816, 4000])
+@pytest.mark.parametrize("b,t", [(1, 128), (20, 128), (1000, 128), (65_536, 128), (256, 6)])
+def test_cta_shapes_fit_shared_memory(n_features, b, t):
+    """Every shape the heuristic and the autotune grid offer fits a CTA's
+    227 KB; 32-row tiles fit up to 1,815 features (1,816 pads to 1,817
+    words, one past the limit), and wider rows take the global-x variant."""
+    staged = tt.stages_x(n_features)
+    assert staged == (n_features <= 1815)
+    cands = pick_blocks_candidates(b, t, n_features, 132)
+    assert cands[0] == pick_blocks(b, t, n_features, 132)
+    for bb, bt in cands:
+        assert fits(bb, n_features) and 32 <= bb <= tt.MAX_TILE_ROWS and 1 <= bt <= t
+        if staged:
+            assert tt.tile_bytes(bb, n_features) <= tt.SMEM_PER_CTA == 232_448
+        tt.check_tile_shape(bb, n_features, tt.default_walks(bt), staged)
+    if n_features == 1815:
+        assert cands[0][0] == 32  # only a 32-row tile fits
+
+
+def test_tile_shapes_that_do_not_fit_raise():
+    """The wrapper's check raises on a tile over 227 KB, a CTA over 512 rows
+    or an unknown walk count; it never shrinks the shape."""
+    assert tt.tile_stride(87) == 87 and tt.tile_stride(64) == 65
+    assert tt.tile_bytes(128, 87) == 44_544
+    tt.check_tile_shape(512, 87, 4, True)
+    tt.check_tile_shape(512, 4000, 2, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        tt.check_tile_shape(64, 1000, 4, True)
+    with pytest.raises(ValueError, match="rows per CTA"):
+        tt.check_tile_shape(1024, 87, 4, True)
+    for walks in (3, 8):
+        with pytest.raises(ValueError, match="walks"):
+            tt.check_tile_shape(128, 87, walks, True)
+    assert [tt.default_walks(n) for n in (1, 2, 3, 5, 128)] == [1, 2, 2, 4, 4]
+
+
+def _quad_cases():
+    rf, _ = _forest(6, 5, 9, 3, seed=7)
+    yield "trained", ForestIR.from_forest(rf)
+    for name in sorted(DEGENERATE_FORESTS):
+        ref_ir = JForestIR.from_forest(DEGENERATE_FORESTS[name]())
+        yield name, ForestIR.from_numpy(
+            {k: getattr(ref_ir, k) for k in ARRAY_DTYPES}, n_trees=ref_ir.n_trees,
+            n_classes=ref_ir.n_classes, n_features=ref_ir.n_features)
+
+
+@pytest.mark.parametrize("layout", ["padded", "leaf_major"])
+def test_pack_node_quads_equals_the_stacked_tables(layout):
+    """quads[t, n] == (feature, threshold_key, left, right)[t, n], int32 and
+    contiguous, on a trained forest and on every degenerate forest."""
+    for name, ir in _quad_cases():
+        p = ir.materialize(layout)
+        tables = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+                  (p.feature, p.threshold_key, p.left, p.right)]
+        quads = tt.pack_node_quads(*tables)
+        assert quads.shape == (*p.feature.shape, 4), name
+        assert quads.dtype == torch.int32 and quads.is_contiguous()
+        np.testing.assert_array_equal(
+            quads.numpy(), np.stack([p.feature, p.threshold_key, p.left, p.right], -1))
+
+
+def test_cuda_backend_packs_quads_once(monkeypatch):
+    """The engine path packs the node quads once per backend and hands the
+    same tensor to every request; the one-hot route packs none."""
+    from repro_torch.backends import cuda as cuda_backend
+    from repro_torch.serve import TreeEngine
+
+    packs, seen = [], []
+    real_pack, real_predict = cuda_backend.pack_node_quads, cuda_backend.tree_predict_integer
+
+    def pack(*tables):
+        packs.append(tables[0].shape)
+        return real_pack(*tables)
+
+    def predict(*args, **kw):
+        seen.append(kw["quads"])
+        return real_predict(*args, **kw)
+
+    monkeypatch.setattr(cuda_backend, "pack_node_quads", pack)
+    monkeypatch.setattr(cuda_backend, "tree_predict_integer", predict)
+    rf, X = _forest(5, 4, 6, 3, seed=3)
+    ir = ForestIR.from_forest(rf)
+    eng = TreeEngine(ir, spec="integer:cuda@leaf_major", device="cpu")
+    for b in (1, 20, 100, 300):  # K2 under 64 rows, K1 above
+        eng.predict_scores(X[:b])
+    assert len(packs) == 1 and len(seen) == 4
+    assert all(q is eng.backend._quads for q in seen)
+    np.testing.assert_array_equal(
+        eng.backend._quads.numpy(),
+        np.stack([getattr(ir.materialize("leaf_major"), k) for k in
+                  ("feature", "threshold_key", "left", "right")], -1))
+    onehot = TreeEngine(ir, spec="integer:cuda@padded?impl=onehot", device="cpu")
+    onehot.predict_scores(X[:10])
+    assert len(packs) == 1 and onehot.backend._quads is None and seen[-1] is None
