@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--sweep]
+    python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernels-only [--src DIR]
 
 Run from the root of a checkout (it imports ``src/repro_torch``) on a host
@@ -23,7 +23,8 @@ with one CUDA card.  It
   5. times each kernel (L2 flushed before every launch, and warm), its plain
      version and the end-to-end request with CUDA events and the host
      clock; K1 and K2 also at the gateway's small batches (K1 at 1,000
-     rows, K2 at 20), and prints K1's and K2's CTA shape and shared memory,
+     rows, K2 at 20), and prints each kernel's CTA shape and shared memory
+     as its wrapper launched it,
   6. serves a seeded open-loop workload through two ``Gateway``s over one
      ``ModelRegistry`` at once — ``integer:cuda?autotune=true`` (K1, and K2
      under 64 rows) and ``integer:cuda@padded?impl=onehot`` (K3) — with
@@ -32,9 +33,7 @@ with one CUDA card.  It
      holds every response against the reference walk of the version that
      served it.
 
-``--sweep`` adds K1's and K2's times over the walks per thread, CTA shapes
-and the staged and unstaged row tile.  ``--kernels-only`` builds the
-kernels and the model and only checks and times the five kernel cases of
+``--kernels-only`` builds the kernels and the model and only checks and times the five kernel cases of
 step 5, printing them as one JSON line; ``--src`` names another checkout's
 ``src`` to take ``repro_torch`` from (an older tree, for a before/after
 comparison in one process per tree), through entry points both trees have.
@@ -294,72 +293,30 @@ def kernel_cases(ops, tt, ir, keys, dev) -> dict:
     return cases
 
 
-def check_and_time(cases: dict, flush) -> dict:
+def check_and_time(cases: dict, flush, tt) -> dict:
     """Each case against its plain version (tolerance 0: integer sums), then
     its device ms L2-flushed and warm and its plain version's ms; fails on a
-    mismatch."""
+    mismatch.  Each case keeps the CTA shape its kernel was launched at, as
+    ``tt.LAUNCH_SHAPES`` recorded it (None for a tree without the record)."""
     import torch
 
     out = {}
-    for name, (kernel, plain, rows, _) in cases.items():
+    for name, (kernel, plain, rows, impl) in cases.items():
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
+        shape = getattr(tt, "LAUNCH_SHAPES", {}).get(impl)
         err = max_abs_err(got, ref)
         print(f"kernel {name}: {rows} rows, max |kernel - plain| = {err} "
-              "(tolerance 0: integer sums)")
+              f"(tolerance 0: integer sums), launched at {shape}")
         if err != 0:
             fail(f"kernel {name} disagrees with its plain version")
-        out[name] = dict(max_abs_err=err,
+        out[name] = dict(max_abs_err=err, shape=shape,
                          ms=cuda_ms(kernel, KERNEL_TIMING_REPS, flush, lead=True),
                          warm_ms=cuda_ms(kernel, KERNEL_TIMING_REPS, lead=True),
                          plain_ms=cuda_ms(plain, PLAIN_TIMING_REPS, flush, lead=True))
         print(f"kernel {name}: {out[name]['ms']:.4f} ms L2-flushed, "
               f"{out[name]['warm_ms']:.4f} ms warm, plain {out[name]['plain_ms']:.4f} ms")
     return out
-
-
-def sweep(tt, ir, keys, dev, flush, card: str) -> None:
-    """K1's and K2's L2-flushed ms over walks per thread, CTA shapes and the
-    staged and unstaged row tile, at ROWS rows and at the small batches."""
-    import torch
-
-    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    tables = {}
-    for layout in ("leaf_major", "padded"):
-        p = ir.materialize(layout)
-        t = [as_t(a) for a in (p.feature, p.threshold_key, p.left, p.right,
-                               p.leaf_fixed.view(np.int32))]
-        tables[layout] = (t, tt.pack_node_quads(*t[:4]))
-    nint = as_t(ir.materialize("leaf_major").internal_counts.astype(np.int32))
-
-    def run(impl, rows, block_b, block_t, walks, stage_x):
-        x = keys[:rows]
-        t, quads = tables["leaf_major" if impl == "leaf_major" else "padded"]
-        kw = dict(block_b=block_b, block_t=block_t, walks=walks, stage_x=stage_x,
-                  quads=quads)
-        if impl == "leaf_major":
-            return lambda: tt.tree_traverse_leaf_major(x, *t[:4], nint, t[4], **kw)
-        return lambda: tt.tree_traverse_gather(x, *t, depth=ir.max_depth, **kw)
-
-    grid = [(impl, rows, 128, bt, w, True) for impl in ("leaf_major", "gather")
-            for rows, bts in ((ROWS, (16, 24, 32, 64)), (4096, (4, 8, 16)),
-                              (K1_SMALL_ROWS, (2, 4, 8)))
-            for bt in bts for w in tt.WALKS if w <= bt]
-    grid += [(impl, ROWS, 128, 24, w, False) for impl in ("leaf_major", "gather")
-             for w in tt.WALKS]
-    grid += [("gather", K2_SMALL_ROWS, 128, bt, tt.default_walks(bt), st)
-             for bt in (1, 2, 4) for st in (True, False)]
-    for impl, rows, bb, bt, w, st in grid:
-        ms = cuda_ms(run(impl, rows, bb, bt, w, st), KERNEL_TIMING_REPS, flush, lead=True)
-        print(f"{card} | sweep {impl} rows {rows} block_b {bb} block_t {bt} "
-              f"walks {w} stage_x {st}: {ms:.4f} ms L2-flushed")
-    pad, _ = tables["padded"]
-    for bt in (15, 32, 128):
-        fn = lambda: tt.tree_traverse_onehot(keys, *pad, depth=ir.max_depth,
-                                             block_b=128, block_t=bt)
-        ms = cuda_ms(fn, KERNEL_TIMING_REPS, flush, lead=True)
-        print(f"{card} | sweep onehot rows {ROWS} block_b 128 block_t {bt}: "
-              f"{ms:.4f} ms L2-flushed")
 
 
 # ---------------------------------------------------------------------------
@@ -478,8 +435,6 @@ def gateway_phase(forest_v1, forest_v2, seed: int, dev, card: str) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--sweep", action="store_true",
-                        help="also time K1 and K2 over walks, CTA shapes and staging")
     parser.add_argument("--kernels-only", action="store_true",
                         help="only check and time the kernel cases of step 5")
     parser.add_argument("--src", type=Path, default=SRC,
@@ -535,7 +490,7 @@ def main() -> None:
     flush = lambda: flush_buf.fill_(1)
 
     if args.kernels_only:
-        times = check_and_time(kernel_cases(ops, tt, ir, keys, dev), flush)
+        times = check_and_time(kernel_cases(ops, tt, ir, keys, dev), flush, tt)
         print(card)
         print(json.dumps({"kernel_times": times, "src": str(src)}))
         return
@@ -587,17 +542,9 @@ def main() -> None:
     print("  integer:cuda@leaf_major    100 rows: bit-identical to the CPU oracle")
 
     # 4c and 5. each kernel against its plain version at the main path's
-    # shapes, and its times; the CTA shapes the heuristic gives them
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # shapes, its times, and the CTA shape it was launched at
     cases = kernel_cases(ops, tt, ir, keys, dev)
-    for name, (_, _, rows, impl) in cases.items():
-        block_b, block_t = ops.pick_blocks(rows, N_TREES, N_FEATURES, sms)
-        tile = ("" if impl == "onehot" else
-                f", {tt.default_walks(block_t)} walks per thread, row tile in "
-                + (f"shared memory, {tt.tile_bytes(block_b, N_FEATURES)} bytes per CTA"
-                   if tt.stages_x(N_FEATURES) else "global memory"))
-        print(f"kernel {name}: {block_b} rows x {block_t} trees per CTA{tile}")
-    measured = check_and_time(cases, flush)
+    measured = check_and_time(cases, flush, tt)
     # K3's own function: every read outside its table reads 0
     bad = [torch.from_numpy(a).to(dev) for a in malformed_tables(ir.materialize("padded"))]
     depth = ir.max_depth + 2
@@ -610,8 +557,6 @@ def main() -> None:
               f">= F), {bb} rows x {bt} trees per CTA: max |kernel - plain| = {err}")
         if err != 0:
             fail("kernel onehot disagrees with its plain version on a malformed table")
-    if args.sweep:
-        sweep(tt, ir, keys, dev, flush, card)
 
     # the bounds at the main path's shape
     lm_tables = [lm.feature, lm.threshold_key, lm.left, lm.right, lm.leaf_fixed]
@@ -637,18 +582,12 @@ def main() -> None:
         print(f"kernel {name}: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
               f"{n_ops} ops, {steps[name]} walk steps); no single PyTorch call computes "
               "this function, so there is no library time")
-        block_b, block_t = ops.pick_blocks(ROWS, N_TREES, N_FEATURES, sms)
-        shape = dict(block_b=block_b, block_t=block_t)
-        if name != "onehot":
-            shape.update(walks=tt.default_walks(block_t), stage_x=tt.stages_x(N_FEATURES),
-                         smem_bytes=tt.tile_bytes(block_b, N_FEATURES)
-                         if tt.stages_x(N_FEATURES) else 0)
         rows_out[name] = dict(
             name=name, route="cuda", source="src/repro_torch/csrc/tree_traverse.cu",
             replaces=REPLACES[name], max_abs_err=measured[name]["max_abs_err"],
             ms=measured[name]["ms"], warm_ms=measured[name]["warm_ms"],
             plain_ms=measured[name]["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, shape=shape, small_batches=small)
+            library_ms=None, shape=measured[name]["shape"], small_batches=small)
 
     for spec in routes:
         eng = engines[spec]

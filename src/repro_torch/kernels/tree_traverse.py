@@ -19,13 +19,14 @@ kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel, so a run
 can show which kernel the path took; the gateway launches from executor
 threads, so the counts change under a lock.
 
-K1 and K2 read the nodes as quads (:func:`pack_node_quads`, one (T, N, 4)
-int32 table); a caller that serves many requests packs once and passes
-``quads``, else the wrapper packs per call.  They stage each CTA's rows of
-``x_keys`` in shared memory (:func:`tile_bytes`) when a 32-row tile fits
-in a CTA's 227 KB (:func:`stages_x`, by the feature count alone), else read
-``x_keys`` from global memory; a CTA shape whose tile does not fit raises.
-``walks`` trees per thread are walked at once (:func:`default_walks`).
+K1 and K2 take the nodes as quads only (:func:`pack_node_quads`, one
+(T, N, 4) int32 table), so a caller that serves many requests packs once.
+They stage each CTA's rows of ``x_keys`` in shared memory
+(:func:`tile_bytes`) when a 32-row tile fits in a CTA's 227 KB
+(:func:`stages_x`, by the feature count alone), else read ``x_keys`` from
+global memory; a CTA shape whose tile does not fit raises.  Each thread
+walks :func:`default_walks` trees at once.  ``LAUNCH_SHAPES`` holds the CTA
+shape of each kernel's last launch, as launched.
 
 The plain versions keep the reference wrapper's padding semantics: rows pad
 to ``block_b``, trees to ``block_t`` with inert trees (feature -1,
@@ -42,6 +43,9 @@ import torch
 #: kernel launches per kernel since the last reset (the wrapper adds one
 #: where it launches, and nowhere else)
 LAUNCHES = {"leaf_major": 0, "gather": 0, "onehot": 0}
+#: the CTA shape of each kernel's last launch: rows and trees per CTA, and
+#: for K1 and K2 the walks per thread, the staging and its shared memory
+LAUNCH_SHAPES = {"leaf_major": None, "gather": None, "onehot": None}
 _LAUNCHES_LOCK = threading.Lock()
 
 _U32_MASK = 0xFFFFFFFF
@@ -60,6 +64,7 @@ def reset_launches() -> None:
     with _LAUNCHES_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+            LAUNCH_SHAPES[name] = None
 
 
 # ---------------------------------------------------------------------------
@@ -275,77 +280,72 @@ def _launch(kernel: str, x_keys, tables: dict, ints: tuple,
     from repro_torch.kernels._build import load_library
 
     args = _cuda_args(x_keys, tables)
-    b = x_keys.shape[0]
+    b, f = x_keys.shape
     t, n = args["leaf_fixed"].shape[:2]
     c = args["leaf_fixed"].shape[-1]
     if not (1 <= block_b <= 1024 and block_b % 32 == 0) or block_t < 1:
         raise ValueError(f"bad CTA shape: {block_b} rows x {block_t} trees")
-    if x_keys.shape[1] < 1:  # every walk reads x[row, max(f, 0)] at least once
+    if f < 1:  # every walk reads x[row, max(f, 0)] at least once
         raise ValueError("the CUDA tree kernels need rows with at least one feature")
+    shape = dict(block_b=block_b, block_t=block_t)
     if tile:
-        check_tile_shape(block_b, x_keys.shape[1], *tile)
+        walks, stage_x = tile
+        check_tile_shape(block_b, f, walks, stage_x)
+        shape.update(walks=walks, stage_x=stage_x,
+                     smem_bytes=tile_bytes(block_b, f) if stage_x else 0)
     lib = load_library()
     out = torch.zeros((b, c), dtype=torch.int32, device=x_keys.device)
     with torch.cuda.device(x_keys.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"intreeger_{kernel}")(
             *(a.data_ptr() for a in args.values()), out.data_ptr(),
-            b, x_keys.shape[1], t, n, c, *ints, block_b, block_t,
+            b, f, t, n, c, *ints, block_b, block_t,
             *(int(v) for v in tile), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     with _LAUNCHES_LOCK:
         LAUNCHES[kernel] += 1
+        LAUNCH_SHAPES[kernel] = shape
     return out.view(torch.uint32)
 
 
 def _tile(x_keys, block_t: int, walks, stage_x) -> tuple:
-    """K1's and K2's ``(walks, stage_x)``: the caller's, else the defaults
-    by shape."""
+    """K1's and K2's ``(walks, stage_x)``: by shape, unless a test pins them."""
     return (default_walks(block_t) if walks is None else walks,
             stages_x(x_keys.shape[1]) if stage_x is None else bool(stage_x))
 
 
-def tree_traverse_leaf_major(x_keys, feature, threshold_key, left, right,
-                             internal_counts, leaf_fixed, *, block_b: int,
-                             block_t: int, walks=None, stage_x=None,
-                             quads=None) -> torch.Tensor:
+def tree_traverse_leaf_major(x_keys, quads, internal_counts, leaf_fixed, *,
+                             block_b: int, block_t: int, _walks=None,
+                             _stage_x=None) -> torch.Tensor:
     """K1: (B, C) uint32 partials over ``leaf_major`` tables.
 
-    ``block_b`` rows and ``block_t`` trees per CTA on the card (row and tree
-    block of the padding on the CPU).  ``internal_counts`` (T,) int32 is the
-    layout's per-tree internal-prefix length.  On the card, ``quads`` is the
-    tables' :func:`pack_node_quads` (packed here when None), ``walks`` the
-    trees each thread walks at once and ``stage_x`` whether the row tile
-    goes to shared memory (both by shape when None).
+    ``quads`` is the tables' :func:`pack_node_quads`.  ``block_b`` rows and
+    ``block_t`` trees per CTA on the card (row and tree block of the padding
+    on the CPU).  ``internal_counts`` (T,) int32 is the layout's per-tree
+    internal-prefix length.  ``_walks`` and ``_stage_x`` pin the walks per
+    thread and the staging for tests; the kernel takes both by shape.
     """
     if x_keys.device.type == "cpu":
-        return leaf_major_plain(x_keys, feature, threshold_key, left, right,
-                                internal_counts, leaf_fixed,
-                                block_b=block_b, block_t=block_t)
-    if quads is None:
-        quads = pack_node_quads(feature, threshold_key, left, right)
+        return leaf_major_plain(x_keys, *quads.unbind(-1), internal_counts,
+                                leaf_fixed, block_b=block_b, block_t=block_t)
     tables = dict(quads=quads, internal_counts=internal_counts,
                   leaf_fixed=leaf_fixed)
     return _launch("leaf_major", x_keys, tables, (), block_b, block_t,
-                   _tile(x_keys, block_t, walks, stage_x))
+                   _tile(x_keys, block_t, _walks, _stage_x))
 
 
-def tree_traverse_gather(x_keys, feature, threshold_key, left, right,
-                         leaf_fixed, *, depth: int, block_b: int,
-                         block_t: int, walks=None, stage_x=None,
-                         quads=None) -> torch.Tensor:
+def tree_traverse_gather(x_keys, quads, leaf_fixed, *, depth: int,
+                         block_b: int, block_t: int, _walks=None,
+                         _stage_x=None) -> torch.Tensor:
     """K2: (B, C) uint32 partials, ``depth`` gather levels per tree over any
-    node order.  ``walks``, ``stage_x`` and ``quads`` as for K1."""
+    node order.  ``quads``, ``_walks`` and ``_stage_x`` as for K1."""
     if x_keys.device.type == "cpu":
-        return gather_plain(x_keys, feature, threshold_key, left, right,
-                            leaf_fixed, depth=depth, block_b=block_b,
-                            block_t=block_t)
-    if quads is None:
-        quads = pack_node_quads(feature, threshold_key, left, right)
+        return gather_plain(x_keys, *quads.unbind(-1), leaf_fixed, depth=depth,
+                            block_b=block_b, block_t=block_t)
     tables = dict(quads=quads, leaf_fixed=leaf_fixed)
     return _launch("gather", x_keys, tables, (int(depth),), block_b, block_t,
-                   _tile(x_keys, block_t, walks, stage_x))
+                   _tile(x_keys, block_t, _walks, _stage_x))
 
 
 def tree_traverse_onehot(x_keys, feature, threshold_key, left, right,

@@ -65,14 +65,13 @@ def candidate_grid(backend_name: str, artifact, rows: int = _TUNE_ROWS, *,
     backend has no tunable knob."""
     if backend_name != "cuda":
         return []
-    from repro_torch.kernels.ops import _sm_count, pick_blocks_candidates
+    from repro_torch.kernels.ops import _sm_count, pick_blocks_candidates, resolve_impl
 
     sms = _sm_count(torch.device(device if device is not None else "cpu"))
-    staged = False if impl == "onehot" else None
+    kernel = resolve_impl(artifact, impl or "auto")
     return [{"block_b": bb, "block_t": bt}
             for bb, bt in pick_blocks_candidates(rows, artifact.feature.shape[0],
-                                                 artifact.n_features, sms,
-                                                 staged=staged)]
+                                                 artifact.n_features, sms, impl=kernel)]
 
 
 def measure_backend(backend, X, *, rounds: int = _ROUNDS,

@@ -68,6 +68,19 @@ def test_grid_for_backends(forests):
     assert at.config_str({}) == jat.config_str({}) == "-"
 
 
+@pytest.mark.parametrize("impl,kernel", [(None, "leaf_major"), ("gather", "gather"),
+                                         ("onehot", "onehot")])
+def test_grid_follows_the_route_kernel(forests, impl, kernel):
+    """The grid is sized for the kernel the route launches: K3 stages no row
+    tile, so its heuristic is the unstaged rule."""
+    _, v1, _ = forests
+    lm = ForestIR.from_forest(v1).materialize("leaf_major")
+    grid = at.candidate_grid("cuda", lm, 65_536, impl=impl)
+    want = pick_blocks_candidates(65_536, lm.feature.shape[0], lm.n_features, 132,
+                                  impl=kernel)
+    assert [(kw["block_b"], kw["block_t"]) for kw in grid] == want
+
+
 def test_tune_is_deterministic_and_ties_go_to_default(forests):
     _, v1, _ = forests
     lm = ForestIR.from_forest(v1).materialize("leaf_major")

@@ -118,19 +118,25 @@ def test_kernels_match_plain_versions(card, rows, n_trees, depth, n_features, n_
     f, k, l, r, leaf = _on(card, lm)
     nint = torch.from_numpy(lm.internal_counts.astype(np.int32)).to(card)
     pad = _on(card, ir.materialize("padded"))
+    lm_quads, pad_quads = tt.pack_node_quads(f, k, l, r), tt.pack_node_quads(*pad[:4])
     auto_b, auto_t = pick_blocks(rows, n_trees, n_features, 132)
-    assert tt.stages_x(n_features) == (n_features != 2000)
+    staged = tt.stages_x(n_features)
+    assert staged == (n_features != 2000)
     for block_b, block_t, walks in ((auto_b, auto_t, None), (32, 1, 1), (256, n_trees, 4),
                                     (64, 3, 2), (96, 5, 4), (512, n_trees, 2)):
-        tile = dict(block_b=block_b, block_t=block_t, walks=walks)
+        blocks = dict(block_b=block_b, block_t=block_t)
         tt.reset_launches()
-        k1 = tt.tree_traverse_leaf_major(keys, f, k, l, r, nint, leaf, **tile)
-        k2 = tt.tree_traverse_gather(keys, *pad, depth=ir.max_depth, **tile)
-        k3 = tt.tree_traverse_onehot(keys, *pad, depth=ir.max_depth, block_b=block_b,
-                                     block_t=block_t)
+        k1 = tt.tree_traverse_leaf_major(keys, lm_quads, nint, leaf, _walks=walks, **blocks)
+        k2 = tt.tree_traverse_gather(keys, pad_quads, pad[4], depth=ir.max_depth,
+                                     _walks=walks, **blocks)
+        k3 = tt.tree_traverse_onehot(keys, *pad, depth=ir.max_depth, **blocks)
         torch.cuda.synchronize()
         assert tt.LAUNCHES == {"leaf_major": 1, "gather": 1, "onehot": 1}
-        blocks = dict(block_b=block_b, block_t=block_t)
+        tile = dict(walks=tt.default_walks(block_t) if walks is None else walks,
+                    stage_x=staged,
+                    smem_bytes=tt.tile_bytes(block_b, n_features) if staged else 0)
+        assert tt.LAUNCH_SHAPES == {"leaf_major": {**blocks, **tile},
+                                    "gather": {**blocks, **tile}, "onehot": blocks}
         p1 = tt.leaf_major_plain(keys, f, k, l, r, nint, leaf, **blocks)
         p2 = tt.gather_plain(keys, *pad, depth=ir.max_depth, **blocks)
         p3 = tt.onehot_plain(keys, *pad, depth=ir.max_depth, **blocks)
@@ -153,11 +159,12 @@ def test_walks_stay_inside_their_buffers_on_malformed_tables(card):
                                                 else a)).to(card) for a in tables]
     nint = torch.full((on[0].shape[0],), on[0].shape[1] + 5, dtype=torch.int32, device=card)
     nint[0] = -3
+    quads = tt.pack_node_quads(*on[:4])
     for stage_x in (True, False):
         for walks in (1, 4):
-            tile = dict(block_b=64, block_t=2, walks=walks, stage_x=stage_x)
-            k1 = tt.tree_traverse_leaf_major(keys, *on[:4], nint, on[4], **tile)
-            k2 = tt.tree_traverse_gather(keys, *on, depth=depth, **tile)
+            tile = dict(block_b=64, block_t=2, _walks=walks, _stage_x=stage_x)
+            k1 = tt.tree_traverse_leaf_major(keys, quads, nint, on[4], **tile)
+            k2 = tt.tree_traverse_gather(keys, quads, on[4], depth=depth, **tile)
             torch.cuda.synchronize()
             assert k1.shape == k2.shape == (len(x), on[4].shape[-1])
     k3 = tt.tree_traverse_onehot(keys, *on, depth=depth, block_b=64, block_t=2)
@@ -175,11 +182,14 @@ def test_tile_that_does_not_fit_raises_before_launch(card):
     x = np.random.default_rng(0).normal(size=(70, 1000)).astype(np.float32)
     keys = float_to_key(torch.from_numpy(x).to(card))
     pad = _on(card, ir.materialize("padded"))
+    quads = tt.pack_node_quads(*pad[:4])
     tt.reset_launches()
     with pytest.raises(ValueError, match="shared memory"):
-        tt.tree_traverse_gather(keys, *pad, depth=ir.max_depth, block_b=64, block_t=1)
-    assert tt.LAUNCHES["gather"] == 0
-    out = tt.tree_traverse_gather(keys, *pad, depth=ir.max_depth, block_b=32, block_t=1)
+        tt.tree_traverse_gather(keys, quads, pad[4], depth=ir.max_depth, block_b=64,
+                                block_t=1)
+    assert tt.LAUNCHES["gather"] == 0 and tt.LAUNCH_SHAPES["gather"] is None
+    out = tt.tree_traverse_gather(keys, quads, pad[4], depth=ir.max_depth, block_b=32,
+                                  block_t=1)
     np.testing.assert_array_equal(
         out.view(torch.int32).cpu().numpy(),
         tt.gather_plain(keys, *pad, depth=ir.max_depth, block_b=32, block_t=1)

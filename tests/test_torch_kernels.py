@@ -230,8 +230,8 @@ def test_wrappers_take_plain_versions_on_cpu_only():
     keys = float_to_key(torch.from_numpy(X[:50]))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     out = tt.tree_traverse_leaf_major(
-        keys, *(t(a) for a in _tables(lm)[:4]), t(lm.internal_counts),
-        t(lm.leaf_fixed), block_b=128, block_t=2)
+        keys, tt.pack_node_quads(*(t(a) for a in _tables(lm)[:4])),
+        t(lm.internal_counts), t(lm.leaf_fixed), block_b=128, block_t=2)
     assert tt.LAUNCHES == before
     np.testing.assert_array_equal(out.numpy(), _oracles(X[:50], lm))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -254,9 +254,55 @@ def test_h100_block_choice():
     assert pick_blocks(1000, 3, 87, 132) == (128, 3)
     # launches that stage nothing (K3; K1 and K2 on rows too wide to stage)
     # keep the first version's rule: about two waves of 16 CTAs per SM
-    for f, staged in ((87, False), (4000, None)):
-        assert pick_blocks(65_536, 128, f, 132, staged=staged) == (128, 15)
-        assert pick_blocks(1, 128, f, 132, staged=staged) == (128, 1)
+    for f, impl in ((87, "onehot"), (4000, "onehot"), (4000, "gather"),
+                    (4000, "leaf_major")):
+        assert pick_blocks(65_536, 128, f, 132, impl=impl) == (128, 15)
+        assert pick_blocks(1, 128, f, 132, impl=impl) == (128, 1)
+    assert pick_blocks(65_536, 128, 87, 132, impl="leaf_major") == (128, 24)
+    with pytest.raises(ValueError, match="unknown impl"):
+        pick_blocks(65_536, 128, 87, 132, impl="auto")
+
+
+@pytest.mark.parametrize("impl,shape", [("leaf_major", (128, 24)), ("gather", (128, 24)),
+                                        ("onehot", (128, 15))])
+def test_entry_point_launches_each_kernel_at_its_own_shape(monkeypatch, impl, shape):
+    """``tree_predict_integer`` hands each kernel ``pick_blocks``' shape for
+    that kernel: K3 stages nothing, so at the serve_64k batch it takes the
+    unstaged rule (128 x 15), K1 and K2 the staged one (128 x 24)."""
+    from repro_torch.kernels import ops
+
+    seen = {}
+
+    def wrapper(name):
+        def launch(*args, block_b, block_t, **kw):
+            seen[name] = (block_b, block_t)
+            return torch.zeros((args[0].shape[0], 1), dtype=torch.uint32)
+        return launch
+
+    for name in ("leaf_major", "gather", "onehot"):
+        monkeypatch.setattr(ops, f"tree_traverse_{name}", wrapper(name))
+    monkeypatch.setattr(ops, "_sm_count", lambda dev: 132)
+    keys = torch.zeros((65_536, 87), dtype=torch.int32)
+    tables = [torch.zeros((128, 3), dtype=torch.int32) for _ in range(4)]
+    ops.tree_predict_integer(keys, *tables, torch.zeros((128, 3, 1), dtype=torch.int32),
+                             depth=1, impl=impl, device="cpu",
+                             internal_counts=torch.zeros(128, dtype=torch.int32))
+    assert seen == {impl: shape} and shape == pick_blocks(65_536, 128, 87, 132, impl=impl)
+
+
+def test_entry_point_rejects_quads_of_other_tables():
+    """Quads handed to ``tree_predict_integer`` must pack its (T, N) tables."""
+    rf, X = _forest(3, 3, 4, 2)
+    p = ForestIR.from_forest(rf).materialize("padded")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    tables = [t(a) for a in _tables(p)[:4]]
+    keys = float_to_key(torch.from_numpy(X[:8]))
+    with pytest.raises(ValueError, match="do not pack"):
+        tree_predict_integer(keys, *tables, t(p.leaf_fixed), depth=p.max_depth,
+                             device="cpu", quads=tt.pack_node_quads(*tables)[:1])
+    out = tree_predict_integer(keys, *tables, t(p.leaf_fixed), depth=p.max_depth,
+                               device="cpu", quads=tt.pack_node_quads(*tables))
+    np.testing.assert_array_equal(out.numpy(), _oracles(X[:8], p))
 
 
 @pytest.mark.parametrize("n_features", [1, 87, 1815, 1816, 4000])
