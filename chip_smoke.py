@@ -19,12 +19,13 @@ with one CUDA card.  It
   4. holds every result bit for bit against the torch reference walk on the
      card, a 100-row result against the independent CPU oracle, and each
      kernel (K1, K2 and K3, the one-hot walk) against its plain version at
-     the 65,536-row shape, K3 also on a small malformed table,
+     the 65,536-row shape and the gateway's small batches, K3 also on small
+     malformed tables at every walk count and staging,
   5. times each kernel (L2 flushed before every launch, and warm), its plain
      version and the end-to-end request with CUDA events and the host
-     clock; K1 and K2 also at the gateway's small batches (K1 at 1,000
-     rows, K2 at 20), and prints each kernel's CTA shape and shared memory
-     as its wrapper launched it,
+     clock; each kernel also at the gateway's small batches (K1 at 1,000
+     rows, K2 at 20, K3 at both), and prints each kernel's CTA shape and
+     shared memory as its wrapper launched it,
   6. serves a seeded open-loop workload through two ``Gateway``s over one
      ``ModelRegistry`` at once — ``integer:cuda?autotune=true`` (K1, and K2
      under 64 rows) and ``integer:cuda@padded?impl=onehot`` (K3) — with
@@ -33,10 +34,11 @@ with one CUDA card.  It
      holds every response against the reference walk of the version that
      served it.
 
-``--kernels-only`` builds the kernels and the model and only checks and times the five kernel cases of
-step 5, printing them as one JSON line; ``--src`` names another checkout's
-``src`` to take ``repro_torch`` from (an older tree, for a before/after
-comparison in one process per tree), through entry points both trees have.
+``--kernels-only`` builds the kernels and the model and only checks and
+times the seven kernel cases of step 5, printing them as one JSON line;
+``--src`` names another checkout's ``src`` to take ``repro_torch`` from (an
+older tree, for a before/after comparison in one process per tree), through
+entry points both trees have.
 
 Any mismatch, build failure or launch error ends the run with a non-zero
 exit.  On success the lines before the last hold the card's name and power
@@ -80,8 +82,10 @@ REQUEST_TIMING_REPS = 10
 # a millisecond), so the host's launch work before a kernel lies outside the
 # events and the time is the device's alone
 LEAD_SLEEP_CYCLES = 1_000_000
-# the gateway's small batches, at which K1 and K2 are also timed
-K1_SMALL_ROWS, K2_SMALL_ROWS = 1000, 20
+# the gateway's small batches, at which each kernel is also timed: gateway
+# A's batches of 1,000 rows take K1 and those under 64 rows (20) K2;
+# gateway B's take K3 at both
+SMALL_ROWS = {"leaf_major": (1000,), "gather": (20,), "onehot": (1000, 20)}
 
 # the TPU kernels that K1, K2 and K3 replace
 REPLACES = {"leaf_major": "src/repro/kernels/tree_traverse.py:110",
@@ -166,7 +170,9 @@ def build_model(seed: int):
 def malformed_tables(packed):
     """The first three trees of ``packed``'s tables with reads that leave
     them: at the root, a left child >= N, a feature index >= F and a right
-    child < 0.  K3 reads 0 for each."""
+    child < 0.  K3 reads 0 for each: a row that leaves the table at a root
+    goes back to it and out again, so a walk of an odd number of levels ends
+    outside (a zero leaf row), of an even number at the root."""
     tables = [np.ascontiguousarray(a[:3]).copy() for a in
               (packed.feature, packed.threshold_key, packed.left, packed.right,
                packed.leaf_fixed.view(np.int32))]
@@ -251,12 +257,12 @@ def bound(nbytes: int, ops: int):
 
 
 def kernel_cases(ops, tt, ir, keys, dev) -> dict:
-    """The kernel cases of step 5: K1, K2 and K3 at ROWS rows, K1 at
-    K1_SMALL_ROWS and K2 at K2_SMALL_ROWS, each ``name -> (kernel call,
-    plain call, rows, impl)``.  The kernel calls go through
-    ``ops.tree_predict_integer`` with the tables on the card, the node quads
-    packed once where the tree has them, and each tree's own CTA heuristic:
-    entry points that this tree and older ones share."""
+    """The kernel cases of step 5: K1, K2 and K3 at ROWS rows, then each at
+    its SMALL_ROWS, each ``name -> (kernel call, plain call, rows, impl)``.
+    The kernel calls go through ``ops.tree_predict_integer`` with the
+    tables on the card, the node quads packed once (a tree whose K3 takes
+    no quads ignores them), and each tree's own CTA heuristic: entry points
+    that this tree and older ones share."""
     import torch
 
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -285,11 +291,12 @@ def kernel_cases(ops, tt, ir, keys, dev) -> dict:
                                                          **plain_blocks)
         cases[name] = (kernel, plain, rows, impl)
 
-    add("leaf_major", "leaf_major", ROWS, lm, lm_kw)
-    add("gather", "gather", ROWS, pad, pad_kw)
-    add("onehot", "onehot", ROWS, pad, {})
-    add(f"leaf_major@{K1_SMALL_ROWS}", "leaf_major", K1_SMALL_ROWS, lm, lm_kw)
-    add(f"gather@{K2_SMALL_ROWS}", "gather", K2_SMALL_ROWS, pad, pad_kw)
+    inputs = {"leaf_major": (lm, lm_kw), "gather": (pad, pad_kw), "onehot": (pad, pad_kw)}
+    for impl, (tables, kw) in inputs.items():
+        add(impl, impl, ROWS, tables, kw)
+    for impl, (tables, kw) in inputs.items():
+        for rows in SMALL_ROWS[impl]:
+            add(f"{impl}@{rows}", impl, rows, tables, kw)
     return cases
 
 
@@ -545,18 +552,27 @@ def main() -> None:
     # shapes, its times, and the CTA shape it was launched at
     cases = kernel_cases(ops, tt, ir, keys, dev)
     measured = check_and_time(cases, flush, tt)
-    # K3's own function: every read outside its table reads 0
+    # K3's own function: every read outside its table reads 0, on the
+    # walk's every variant (walks per thread, staged or not)
     bad = [torch.from_numpy(a).to(dev) for a in malformed_tables(ir.materialize("padded"))]
-    depth = ir.max_depth + 2
-    for bb, bt in ((128, 1), (64, 3)):
-        out = tt.tree_traverse_onehot(keys[:300], *bad, depth=depth, block_b=bb, block_t=bt)
-        ref = tt.onehot_plain(keys[:300], *bad, depth=depth, block_b=bb, block_t=bt)
-        torch.cuda.synchronize()
-        err = max_abs_err(out, ref)
-        print(f"kernel onehot on a malformed table (child >= N, child < 0, feature "
-              f">= F), {bb} rows x {bt} trees per CTA: max |kernel - plain| = {err}")
-        if err != 0:
-            fail("kernel onehot disagrees with its plain version on a malformed table")
+    bad_quads = tt.pack_node_quads(*bad[:4])
+    errs = {}
+    for depth in (ir.max_depth + 1, ir.max_depth + 2):
+        for bb, bt in ((128, 1), (64, 3)):
+            ref = tt.onehot_plain(keys[:300], *bad, depth=depth, block_b=bb, block_t=bt)
+            for walks in (1, 2, 4):
+                for stage_x in (True, False):
+                    out = tt.tree_traverse_onehot(keys[:300], bad_quads, bad[4], depth=depth,
+                                                  block_b=bb, block_t=bt, _walks=walks,
+                                                  _stage_x=stage_x)
+                    torch.cuda.synchronize()
+                    errs[(depth, bb, bt, walks, stage_x)] = max_abs_err(out, ref)
+    print(f"kernel onehot on malformed tables (child >= N, child < 0, feature >= F), "
+          f"{len(errs)} launches over depths, CTA shapes, walks 1/2/4, staged and not: "
+          f"max |kernel - plain| = {max(errs.values())}")
+    if any(errs.values()):
+        fail("kernel onehot disagrees with its plain version on a malformed table: "
+             + str({k: v for k, v in errs.items() if v}))
 
     # the bounds at the main path's shape
     lm_tables = [lm.feature, lm.threshold_key, lm.left, lm.right, lm.leaf_fixed]
@@ -577,8 +593,7 @@ def main() -> None:
         # (row, tree): one add per class
         n_ops = (5 if name == "onehot" else 3) * steps[name] + ROWS * N_TREES * N_CLASSES
         bound_ms, bound_by = bound(nbytes, n_ops)
-        small = {f"{name}@{r}": measured[f"{name}@{r}"] for r in (K1_SMALL_ROWS, K2_SMALL_ROWS)
-                 if f"{name}@{r}" in measured}
+        small = {f"{name}@{r}": measured[f"{name}@{r}"] for r in SMALL_ROWS[name]}
         print(f"kernel {name}: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
               f"{n_ops} ops, {steps[name]} walk steps); no single PyTorch call computes "
               "this function, so there is no library time")

@@ -5,7 +5,7 @@ accumulators``, ``predict_scores(X) -> (scores, preds)``, declared
 :class:`BackendCapabilities`) behind two implementations:
 
   * ``reference`` — the torch node-table walk (all three modes), any device,
-  * ``cuda``      — the hand-written CUDA walks K1/K2 (flint + integer).
+  * ``cuda``      — the hand-written CUDA walks K1, K2, K3 (flint + integer).
 """
 from repro_torch.backends.base import (
     BackendCapabilities,

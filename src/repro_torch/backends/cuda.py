@@ -2,8 +2,8 @@
 protocol (the counterpart of the JAX package's ``pallas`` backend).
 
 It copies the node tables to the card once, at construction, and packs the
-node quads that K1 and K2 read there once too (``pack_node_quads``), so no
-request repacks them.  Per call it moves the rows over, keys them (FlInt),
+node quads that the kernels read there once too (``pack_node_quads``), so
+no request repacks them.  Per call it moves the rows over, keys them (FlInt),
 launches K1, K2 or K3 through ``kernels.ops.tree_predict_integer`` and
 returns the uint32 partials to the host, where the shared numpy finalize
 runs.  ``flint`` and ``integer`` accumulate the same partials and differ
@@ -74,8 +74,7 @@ class CudaBackend(TreeBackend):
                         as_t(packed.leaf_fixed.view(np.int32)))
         self._internal_counts = (as_t(packed.internal_counts.astype(np.int32))
                                  if scannable else None)
-        self._quads = (None if impl == "onehot"
-                       else pack_node_quads(*self._tables[:4]))
+        self._quads = pack_node_quads(*self._tables[:4])
 
     def predict_partials(self, X):
         X = np.asarray(X)

@@ -12,11 +12,12 @@
 // K3 differs from K2 only on malformed tables: every read outside its table
 // (a node outside [0, N), a feature index outside [0, F)) reads 0.
 //
-// Design of K1 and K2 (`walk_tile`).  A CTA holds `rows_per_cta` rows, one
-// per thread, and one chunk of `trees_per_cta` trees (grid.y); grid.z carries
-// class chunks of up to kClassChunk classes, summed in registers.  Four
-// things answer what bounded the first version, where each level of a walk
-// read four node tables, one row value and, at the end, C single leaf words:
+// Design (`walk_tile`, one body for all three; the walk mode picks the
+// kernel).  A CTA holds `rows_per_cta` rows, one per thread, and one chunk of
+// `trees_per_cta` trees (grid.y); grid.z carries class chunks of up to
+// kClassChunk classes, summed in registers.  Four things answer what bounded
+// the first version, where each level of a walk read four node tables, one
+// row value and, at the end, C single leaf words:
 //   (a) node quads: {feature, key, left, right} of a node are one int4 of a
 //       (T, N, 4) table, so a level reads one 16-byte line through the
 //       read-only path (one sector, not four);
@@ -32,14 +33,11 @@
 //       one at a time;
 //   (d) leaf rows as 16-byte loads where C % 4 == 0 and the table is 16-byte
 //       aligned, single words otherwise.
-// Every index is clamped into its buffer before a read (a node into [0, N),
-// a feature into [0, F), a prefix length into [0, N]), so no read leaves a
-// buffer on any table; K2's function on a malformed table is undefined, as
-// its plain version's is.
-//
-// K3 keeps the first version's body (`walk_rows<true>`): one thread per row,
-// a loop over the CTA's trees, four node tables read one word at a time, x
-// read from global memory.
+// No read leaves a buffer on any table: every index is clamped into its
+// buffer first (a node into [0, N), a feature into [0, F), a prefix length
+// into [0, N]).  K1 and K2 read what the clamped index holds, so their
+// function on a malformed table is undefined, as their plain versions' is;
+// K3 (masked) selects each such read to 0, branch-free.
 //
 // Shared by all three: the TPU kernels carried the output block through a
 // sequential grid; CTAs run in no order here, so the wrapper zeroes the
@@ -54,7 +52,8 @@
 // the kernels are bound by L1/L2 sector traffic and load latency, not by
 // HBM bandwidth or arithmetic: (a) and (d) cut the sectors per walk, (b)
 // takes x off the L1/L2 path, and (c) keeps more of the chain's loads in
-// flight where (b) lowers the rows resident on an SM.
+// flight where (b) lowers the rows resident on an SM.  K3's masks add a
+// compare and a select per read and no load.
 //
 // Each host entry launches on the caller's stream and returns
 // cudaGetLastError(), which the Python wrapper turns into an exception.
@@ -67,38 +66,15 @@
 namespace {
 
 constexpr int kClassChunk = 8;
-// the most rows a K1/K2 CTA takes (registers: 65,536 / 512 = 128 a thread)
+// the most rows a CTA takes (registers: 65,536 / 512 = 128 a thread)
 constexpr int kMaxTileRows = 512;
 // shared memory a CTA may take on sm_90 (227 KB), and what needs opting in
 constexpr size_t kMaxSmemPerCta = 232448;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-// `ok` false adds a zero row (K3's final node outside the table); the row
-// pointer must then still point into the table.
-__device__ __forceinline__ void add_leaf_row(unsigned (&acc)[kClassChunk],
-                                             const unsigned* __restrict__ leaf_row,
-                                             int classes_left, bool ok = true) {
-#pragma unroll
-  for (int c = 0; c < kClassChunk; ++c) {
-    if (c < classes_left) {
-      const unsigned v = __ldg(leaf_row + c);
-      acc[c] += ok ? v : 0u;
-    }
-  }
-}
-
-__device__ __forceinline__ void flush_row(unsigned* __restrict__ out_row,
-                                          const unsigned (&acc)[kClassChunk],
-                                          int classes_left) {
-#pragma unroll
-  for (int c = 0; c < kClassChunk; ++c) {
-    if (c < classes_left) atomicAdd(out_row + c, acc[c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K1 and K2: walk_tile
-// ---------------------------------------------------------------------------
+// The walk of each kernel: K1's prefix-bounded walk, K2's `depth` gather
+// levels, and K3's `depth` levels with every read outside its table read as 0.
+enum class Walk { kBounded, kGather, kMasked };
 
 struct TileArgs {
   const int* x;                 // (B, F) keys
@@ -109,25 +85,40 @@ struct TileArgs {
   int B, F, T, N, C, depth, trees_per_cta;
 };
 
+__device__ __forceinline__ void flush_row(unsigned* __restrict__ out_row,
+                                          const unsigned (&acc)[kClassChunk],
+                                          int classes_left) {
+#pragma unroll
+  for (int c = 0; c < kClassChunk; ++c) {
+    if (c < classes_left) atomicAdd(out_row + c, acc[c]);
+  }
+}
+
 // (d): one leaf row's classes [c0, c0 + classes_left) into acc; `vec` reads
 // them as uint4 (C % 4 == 0 and a 16-byte aligned table, so every row and
-// class chunk starts on 16 bytes and classes_left is a multiple of 4).
+// class chunk starts on 16 bytes and classes_left is a multiple of 4).  `ok`
+// false adds a zero row (K3's final node outside the table); the row pointer
+// must then still point into the table.
 __device__ __forceinline__ void add_leaf(unsigned (&acc)[kClassChunk],
                                          const unsigned* __restrict__ leaf_row,
-                                         int classes_left, bool vec) {
+                                         int classes_left, bool vec, bool ok) {
+  const unsigned keep = ok ? ~0u : 0u;
   if (vec) {
 #pragma unroll
     for (int j = 0; j < kClassChunk / 4; ++j) {
       if (4 * j < classes_left) {
         const uint4 v = __ldg(reinterpret_cast<const uint4*>(leaf_row) + j);
-        acc[4 * j] += v.x;
-        acc[4 * j + 1] += v.y;
-        acc[4 * j + 2] += v.z;
-        acc[4 * j + 3] += v.w;
+        acc[4 * j] += v.x & keep;
+        acc[4 * j + 1] += v.y & keep;
+        acc[4 * j + 2] += v.z & keep;
+        acc[4 * j + 3] += v.w & keep;
       }
     }
   } else {
-    add_leaf_row(acc, leaf_row, classes_left);
+#pragma unroll
+    for (int c = 0; c < kClassChunk; ++c) {
+      if (c < classes_left) acc[c] += __ldg(leaf_row + c) & keep;
+    }
   }
 }
 
@@ -135,14 +126,22 @@ __device__ __forceinline__ int clamp_index(int i, int n) {
   return static_cast<int>(min(static_cast<unsigned>(i), static_cast<unsigned>(n - 1)));
 }
 
+__device__ __forceinline__ bool in_table(int i, int n) {
+  return static_cast<unsigned>(i) < static_cast<unsigned>(n);
+}
+
 // One level: x[row, max(f, 0)] <= key ? left : right.  `xr` is the row in
-// the shared tile (kStaged) or in global memory; f is clamped into [0, F).
-template <bool kStaged>
+// the shared tile (kStaged) or in global memory; the feature index is
+// clamped into [0, F) for the read, and kMasked selects the value to 0 where
+// max(f, 0) >= F.
+template <bool kMasked, bool kStaged>
 __device__ __forceinline__ int next_node(const int4 q, const int* __restrict__ xr,
                                          int F) {
-  const int f = min(max(q.x, 0), F - 1);
-  const int v = kStaged ? xr[f] : __ldg(xr + f);
-  return v <= q.y ? q.z : q.w;
+  const int f = max(q.x, 0);
+  const int fc = min(f, F - 1);
+  const int v = kStaged ? xr[fc] : __ldg(xr + fc);
+  const int xv = kMasked && f >= F ? 0 : v;
+  return xv <= q.y ? q.z : q.w;
 }
 
 // K walks at once: trees t .. t+K-1 for one row, their leaves added to acc.
@@ -151,11 +150,12 @@ __device__ __forceinline__ int next_node(const int4 q, const int* __restrict__ x
 // group are 32-bit (K * N < 2^31: the wrapper caps N), which keeps the walks'
 // addresses out of 64-bit registers.  K is 1, 2 or 4: 8 walks measured no
 // faster than 4 (PERF.md, PR 13).
-template <int K, bool kBounded, bool kStaged>
+template <int K, Walk kWalk, bool kStaged>
 __device__ __forceinline__ void walk_group(const TileArgs& a, const int* __restrict__ xr,
                                            int t, int c0, int classes_left,
                                            bool vec_leaf,
                                            unsigned (&acc)[kClassChunk]) {
+  constexpr bool kMasked = kWalk == Walk::kMasked;
   const int4* __restrict__ tree = a.quads + static_cast<size_t>(t) * a.N;
   int node[K];
   int limit[K];
@@ -163,17 +163,17 @@ __device__ __forceinline__ void walk_group(const TileArgs& a, const int* __restr
   for (int k = 0; k < K; ++k) {
     node[k] = 0;
     // K1: the internal prefix, clamped into [0, N] so its nodes are in range
-    limit[k] = kBounded ? max(min(__ldg(a.internal_counts + t + k), a.N), 0) : 0;
+    limit[k] = kWalk == Walk::kBounded
+                   ? max(min(__ldg(a.internal_counts + t + k), a.N), 0)
+                   : 0;
   }
-  if (kBounded) {
+  if (kWalk == Walk::kBounded) {
     // each walk runs while it is inside its prefix, at most `limit` steps
     for (int step = 0;; ++step) {
       unsigned live = 0;  // bit k: walk k is still inside its prefix
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        live |= static_cast<unsigned>(
-                    step < limit[k] &&
-                    static_cast<unsigned>(node[k]) < static_cast<unsigned>(limit[k]))
+        live |= static_cast<unsigned>(step < limit[k] && in_table(node[k], limit[k]))
                 << k;
       if (live == 0) break;
       int4 q[K];
@@ -182,7 +182,7 @@ __device__ __forceinline__ void walk_group(const TileArgs& a, const int* __restr
         q[k] = __ldg(tree + (k * a.N + ((live >> k) & 1u ? node[k] : 0)));
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int nxt = next_node<kStaged>(q[k], xr, a.F);
+        const int nxt = next_node<false, kStaged>(q[k], xr, a.F);
         node[k] = (live >> k) & 1u ? nxt : node[k];
       }
     }
@@ -192,19 +192,30 @@ __device__ __forceinline__ void walk_group(const TileArgs& a, const int* __restr
 #pragma unroll
       for (int k = 0; k < K; ++k)
         q[k] = __ldg(tree + (k * a.N + clamp_index(node[k], a.N)));
+      if (kMasked) {
+        // a node outside the table reads {0, 0, 0, 0}: the walk compares
+        // x[row, 0] <= 0 and goes to node 0 either way
 #pragma unroll
-      for (int k = 0; k < K; ++k) node[k] = next_node<kStaged>(q[k], xr, a.F);
+        for (int k = 0; k < K; ++k) {
+          const bool in = in_table(node[k], a.N);
+          q[k] = make_int4(in ? q[k].x : 0, in ? q[k].y : 0, in ? q[k].z : 0,
+                           in ? q[k].w : 0);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) node[k] = next_node<kMasked, kStaged>(q[k], xr, a.F);
     }
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const size_t leaf_node =
         static_cast<size_t>(t + k) * a.N + clamp_index(node[k], a.N);
-    add_leaf(acc, a.leaf + leaf_node * a.C + c0, classes_left, vec_leaf);
+    add_leaf(acc, a.leaf + leaf_node * a.C + c0, classes_left, vec_leaf,
+             !kMasked || in_table(node[k], a.N));
   }
 }
 
-// K1 (kBounded) replaces `_kernel_leaf_major` in
+// K1 (Walk::kBounded) replaces `_kernel_leaf_major` in
 // src/repro/kernels/tree_traverse.py, the linear scan over each tree's
 // internal-node prefix.  The contract is the function, not the TPU's scan
 // order: the scan existed to avoid per-row gathers on the TPU's vector
@@ -215,11 +226,20 @@ __device__ __forceinline__ void walk_group(const TileArgs& a, const int* __restr
 // leaf's feature -1.  The step bound also keeps a malformed table from
 // looping.  Trees with no internal node (stumps, inert padding) do no walk.
 //
-// K2 (!kBounded) replaces `_kernel` with impl="gather" there, the per-level
-// gather walk: exactly `depth` levels per tree; leaves self-loop, so rows
-// that arrive early stay.  The feature index is clamped at 0 as the TPU
-// kernel does: without the clamp a row parked on a leaf would read x[row, -1].
-template <int K, bool kBounded, bool kStaged>
+// K2 (Walk::kGather) replaces `_kernel` with impl="gather" there, the
+// per-level gather walk: exactly `depth` levels per tree; leaves self-loop,
+// so rows that arrive early stay.  The feature index is clamped at 0 as the
+// TPU kernel does: without the clamp a row parked on a leaf would read
+// x[row, -1].
+//
+// K3 (Walk::kMasked) replaces `_kernel` with impl="onehot" there, whose
+// `_gather_1d`, `_gather_rows` and `_gather_feature` are compare-iota masked
+// sums: an index that matches no lane sums to 0.  On a TPU that form trades
+// O(N) work per read for using only elementwise ops; here a read is one
+// load, so K3 is K2's walk with each read's index checked against its table
+// and the value selected to 0 outside it: the node's quad, x[row, f], and
+// the final leaf row.
+template <int K, Walk kWalk, bool kStaged>
 __global__ void __launch_bounds__(kMaxTileRows) walk_tile(const TileArgs a) {
   extern __shared__ int tile[];
   const int row0 = blockIdx.x * blockDim.x;
@@ -257,85 +277,10 @@ __global__ void __launch_bounds__(kMaxTileRows) walk_tile(const TileArgs a) {
   unsigned acc[kClassChunk] = {0u};
   int t = t_begin;
   for (; t + K <= t_end; t += K)
-    walk_group<K, kBounded, kStaged>(a, xr, t, c0, classes_left, vec_leaf, acc);
+    walk_group<K, kWalk, kStaged>(a, xr, t, c0, classes_left, vec_leaf, acc);
   for (; t < t_end; ++t)
-    walk_group<1, kBounded, kStaged>(a, xr, t, c0, classes_left, vec_leaf, acc);
+    walk_group<1, kWalk, kStaged>(a, xr, t, c0, classes_left, vec_leaf, acc);
   flush_row(a.out + static_cast<size_t>(row) * a.C + c0, acc, classes_left);
-}
-
-// ---------------------------------------------------------------------------
-// K3: walk_rows<true>
-// ---------------------------------------------------------------------------
-
-// One table read of K3.  kMasked reads 0 outside [0, limit): the address is
-// clamped into the table and the loaded value selected away, so the read is
-// branch-free and never leaves the buffer.
-template <bool kMasked>
-__device__ __forceinline__ int table_read(const int* __restrict__ p, int i,
-                                          int limit) {
-  if (!kMasked) return __ldg(p + i);
-  const bool ok = static_cast<unsigned>(i) < static_cast<unsigned>(limit);
-  const int v = __ldg(p + (ok ? i : 0));
-  return ok ? v : 0;
-}
-
-// The body of K3: exactly `depth` levels per tree, one row per thread, four
-// node tables.  The feature index is clamped at 0 as the TPU kernel does.
-template <bool kMasked>
-__device__ __forceinline__ void walk_rows(const int* __restrict__ x,
-                                          const int* __restrict__ feature,
-                                          const int* __restrict__ key,
-                                          const int* __restrict__ left,
-                                          const int* __restrict__ right,
-                                          const unsigned* __restrict__ leaf,
-                                          unsigned* __restrict__ out, int B,
-                                          int F, int T, int N, int C,
-                                          int depth, int trees_per_cta) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const int t_begin = blockIdx.y * trees_per_cta;
-  const int t_end = min(T, t_begin + trees_per_cta);
-  const int c0 = blockIdx.z * kClassChunk;
-  const int classes_left = C - c0;
-  const int* __restrict__ xr = x + static_cast<size_t>(row) * F;
-  unsigned acc[kClassChunk] = {0u};
-  for (int t = t_begin; t < t_end; ++t) {
-    const size_t base = static_cast<size_t>(t) * N;
-    int node = 0;
-    for (int level = 0; level < depth; ++level) {
-      const int f = max(table_read<kMasked>(feature + base, node, N), 0);
-      const int k = table_read<kMasked>(key + base, node, N);
-      const int v = table_read<kMasked>(xr, f, F);
-      node = (v <= k) ? table_read<kMasked>(left + base, node, N)
-                      : table_read<kMasked>(right + base, node, N);
-    }
-    const bool ok =
-        !kMasked || static_cast<unsigned>(node) < static_cast<unsigned>(N);
-    add_leaf_row(acc, leaf + (base + (ok ? node : 0)) * C + c0, classes_left,
-                 ok);
-  }
-  flush_row(out + static_cast<size_t>(row) * C + c0, acc, classes_left);
-}
-
-// K3: replaces `_kernel` with impl="onehot" in
-// src/repro/kernels/tree_traverse.py, whose `_gather_1d`, `_gather_rows` and
-// `_gather_feature` are compare-iota masked sums: an index that matches no
-// lane sums to 0.  On a TPU that form trades O(N) work per read for using
-// only elementwise ops; here a read is one load, so K3 keeps the first
-// version's geometry and cost and only predicates each read on its index
-// being in range.  What bounds it is the chain of dependent loads per walk,
-// four of them per level; it has not been redesigned as K1 and K2 were.
-__global__ void onehot_kernel(const int* __restrict__ x,
-                              const int* __restrict__ feature,
-                              const int* __restrict__ key,
-                              const int* __restrict__ left,
-                              const int* __restrict__ right,
-                              const unsigned* __restrict__ leaf,
-                              unsigned* __restrict__ out,
-                              int B, int F, int T, int N, int C, int depth,
-                              int trees_per_cta) {
-  walk_rows<true>(x, feature, key, left, right, leaf, out, B, F, T, N, C,
-                  depth, trees_per_cta);
 }
 
 dim3 grid_for(int B, int T, int C, int rows_per_cta, int trees_per_cta) {
@@ -344,10 +289,10 @@ dim3 grid_for(int B, int T, int C, int rows_per_cta, int trees_per_cta) {
               (C + kClassChunk - 1) / kClassChunk);
 }
 
-template <int K, bool kBounded, bool kStaged>
+template <int K, Walk kWalk, bool kStaged>
 int launch_tile_as(const TileArgs& a, dim3 grid, int threads, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = walk_tile<K, kBounded, kStaged>;
+  auto kernel = walk_tile<K, kWalk, kStaged>;
   if (smem > kDefaultSmem) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -357,18 +302,18 @@ int launch_tile_as(const TileArgs& a, dim3 grid, int threads, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBounded, bool kStaged>
+template <Walk kWalk, bool kStaged>
 int launch_tile_k(const TileArgs& a, dim3 grid, int threads, size_t smem,
                   int walks, cudaStream_t stream) {
   switch (walks) {
-    case 1: return launch_tile_as<1, kBounded, kStaged>(a, grid, threads, smem, stream);
-    case 2: return launch_tile_as<2, kBounded, kStaged>(a, grid, threads, smem, stream);
-    case 4: return launch_tile_as<4, kBounded, kStaged>(a, grid, threads, smem, stream);
+    case 1: return launch_tile_as<1, kWalk, kStaged>(a, grid, threads, smem, stream);
+    case 2: return launch_tile_as<2, kWalk, kStaged>(a, grid, threads, smem, stream);
+    case 4: return launch_tile_as<4, kWalk, kStaged>(a, grid, threads, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool kBounded>
+template <Walk kWalk>
 int launch_tile(const TileArgs& a, int rows_per_cta, int trees_per_cta,
                 int walks, int stage_x, void* stream) {
   if (a.B == 0 || a.T == 0 || a.C == 0) return static_cast<int>(cudaSuccess);
@@ -381,8 +326,8 @@ int launch_tile(const TileArgs& a, int rows_per_cta, int trees_per_cta,
   const dim3 grid = grid_for(a.B, a.T, a.C, rows_per_cta, trees_per_cta);
   const auto s = static_cast<cudaStream_t>(stream);
   return stage_x
-             ? launch_tile_k<kBounded, true>(a, grid, rows_per_cta, smem, walks, s)
-             : launch_tile_k<kBounded, false>(a, grid, rows_per_cta, smem, walks, s);
+             ? launch_tile_k<kWalk, true>(a, grid, rows_per_cta, smem, walks, s)
+             : launch_tile_k<kWalk, false>(a, grid, rows_per_cta, smem, walks, s);
 }
 
 TileArgs tile_args(const void* x, const void* quads, const void* internal_counts,
@@ -406,7 +351,7 @@ int intreeger_leaf_major(const void* x, const void* quads,
                          void* out, int B, int F, int T, int N, int C,
                          int rows_per_cta, int trees_per_cta, int walks,
                          int stage_x, void* stream) {
-  return launch_tile<true>(
+  return launch_tile<Walk::kBounded>(
       tile_args(x, quads, internal_counts, leaf, out, B, F, T, N, C, 0,
                 trees_per_cta),
       rows_per_cta, trees_per_cta, walks, stage_x, stream);
@@ -417,25 +362,21 @@ int intreeger_gather(const void* x, const void* quads, const void* leaf,
                      void* out, int B, int F, int T, int N, int C, int depth,
                      int rows_per_cta, int trees_per_cta, int walks,
                      int stage_x, void* stream) {
-  return launch_tile<false>(
+  return launch_tile<Walk::kGather>(
       tile_args(x, quads, nullptr, leaf, out, B, F, T, N, C, depth,
                 trees_per_cta),
       rows_per_cta, trees_per_cta, walks, stage_x, stream);
 }
 
-// `out` must hold B*C zeros; the kernel adds into it.
-int intreeger_onehot(const void* x, const void* feature, const void* key,
-                     const void* left, const void* right, const void* leaf,
+// As intreeger_gather, with every read outside its table reading 0.
+int intreeger_onehot(const void* x, const void* quads, const void* leaf,
                      void* out, int B, int F, int T, int N, int C, int depth,
-                     int rows_per_cta, int trees_per_cta, void* stream) {
-  if (B == 0 || T == 0 || C == 0) return static_cast<int>(cudaSuccess);
-  onehot_kernel<<<grid_for(B, T, C, rows_per_cta, trees_per_cta), rows_per_cta,
-                  0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<const int*>(feature),
-      static_cast<const int*>(key), static_cast<const int*>(left),
-      static_cast<const int*>(right), static_cast<const unsigned*>(leaf),
-      static_cast<unsigned*>(out), B, F, T, N, C, depth, trees_per_cta);
-  return static_cast<int>(cudaGetLastError());
+                     int rows_per_cta, int trees_per_cta, int walks,
+                     int stage_x, void* stream) {
+  return launch_tile<Walk::kMasked>(
+      tile_args(x, quads, nullptr, leaf, out, B, F, T, N, C, depth,
+                trees_per_cta),
+      rows_per_cta, trees_per_cta, walks, stage_x, stream);
 }
 
 }  // extern "C"

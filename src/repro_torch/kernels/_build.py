@@ -37,9 +37,8 @@ _SIGNATURES = {
     # x, quads, leaf, out,
     # B, F, T, N, C, depth, rows_per_cta, trees_per_cta, walks, stage_x, stream
     "intreeger_gather": [_PTR] * 4 + [_INT] * 10 + [_PTR],
-    # x, feature, key, left, right, leaf, out,
-    # B, F, T, N, C, depth, rows_per_cta, trees_per_cta, stream
-    "intreeger_onehot": [_PTR] * 7 + [_INT] * 8 + [_PTR],
+    # as intreeger_gather
+    "intreeger_onehot": [_PTR] * 4 + [_INT] * 10 + [_PTR],
 }
 
 _lock = threading.Lock()

@@ -1,26 +1,26 @@
 """Host wrapper around the tree-traversal kernels: block choice, impl
 resolution, the ensemble-level entry points.
 
-Block choice for the H100.  K1 and K2 stage each CTA's rows of ``x_keys``
-in shared memory (``kernels/tree_traverse.py::stages_x``: while a 32-row
-tile of F features fits in 227 KB), so the tile bounds the rows an SM
-holds: 128 rows of the 87-feature model take 44,544 bytes, and five such
-CTAs (640 rows) share an SM's 228 KB.  A CTA keeps ``ROWS_PER_CTA = 128``
-rows where the tile fits, else the most rows, in multiples of 32, that fit.
+Block choice for the H100.  The kernels (K1, K2 and K3, one CUDA body)
+stage each CTA's rows of ``x_keys`` in shared memory
+(``kernels/tree_traverse.py::stages_x``: while a 32-row tile of F
+features fits in 227 KB), so the tile bounds the rows an SM holds: 128
+rows of the 87-feature model take 44,544 bytes, and five such CTAs (640
+rows) share an SM's 228 KB.  A CTA keeps ``ROWS_PER_CTA = 128`` rows
+where the tile fits, else the most rows, in multiples of 32, that fit.
 Each thread walks several trees at once (``tree_traverse.py::
-default_walks``), which keeps more loads in flight than the resident rows
-alone would.  The tree axis is split into chunks for about four waves of
-resident CTAs, with at least one group of walks (4 trees) per CTA and
-chunks rounded up to whole groups: a 65,536-row batch (512 row blocks)
-gets 6 chunks of 24 trees (3,072 CTAs), a batch of 1,000 or 20 rows chunks
-of 4.  Each chunk copies its rows once more, which is what the floor of 4
-trees pays for at small batches.  Launches that stage nothing (K3, and K1
-and K2 on rows too wide to stage) keep the first version's rule: about two
-waves of 16 CTAs of 128 threads per SM, 9 chunks of 15 trees at 65,536
-rows.  So ``pick_blocks`` takes the kernel (``impl``), whose launch decides
-whether it stages (:func:`stages`).  ``PERF.md`` has the sweep behind these
-constants.  Partials of the chunks meet through uint32 atomics, which are
-exact in any order.
+default_walks``), which keeps more loads in flight than the resident
+rows alone would.  The tree axis is split into chunks for about four
+waves of resident CTAs, with at least one group of walks (4 trees) per
+CTA and chunks rounded up to whole groups: a 65,536-row batch (512 row
+blocks) gets 6 chunks of 24 trees (3,072 CTAs), a batch of 1,000 or 20
+rows chunks of 4.  Each chunk copies its rows once more, which is what
+the floor of 4 trees pays for at small batches.  Launches that stage
+nothing (rows too wide to stage) keep the first version's rule: about
+two waves of 16 CTAs of 128 threads per SM, 9 chunks of 15 trees at
+65,536 rows.  All three kernels stage alike, so the choice depends on the
+shapes alone, not on the kernel.  ``PERF.md`` has the sweep behind these constants.  Partials of the chunks
+meet through uint32 atomics, which are exact in any order.
 
 The TPU's VMEM budget and tiny-batch clamp do not carry over: they were
 facts of the TPU.
@@ -65,18 +65,10 @@ def check_impl(impl: str) -> None:
         raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
 
 
-def stages(impl: str, n_features: int) -> bool:
-    """Whether a launch of ``impl`` stages its row tile: K1 and K2 where
-    :func:`stages_x`, K3 never."""
-    check_impl(impl)
-    return impl != "onehot" and stages_x(n_features)
-
-
-def fits(block_b: int, n_features: int, impl: str = "gather") -> bool:
-    """Whether ``impl``'s kernel takes ``block_b`` rows per CTA at F
-    features."""
+def fits(block_b: int, n_features: int) -> bool:
+    """Whether the kernels take ``block_b`` rows per CTA at F features."""
     return (32 <= block_b <= MAX_TILE_ROWS and block_b % 32 == 0
-            and (not stages(impl, n_features)
+            and (not stages_x(n_features)
                  or tile_bytes(block_b, n_features) <= SMEM_PER_CTA))
 
 
@@ -91,18 +83,16 @@ def resident_ctas(block_b: int, n_features=None) -> int:
     return ctas
 
 
-def pick_blocks(b: int, t: int, n_features: int, sm_count: int = _H100_SMS, *,
-                impl: str = "gather"):
+def pick_blocks(b: int, t: int, n_features: int, sm_count: int = _H100_SMS):
     """(rows per CTA, trees per CTA) for a (b rows, t trees, F features)
-    launch of ``impl``'s kernel, which decides whether the launch stages its
-    row tile (:func:`stages`).
+    launch, staged where :func:`stages_x`.
 
     Staged: ``ROWS_PER_CTA`` rows or the most whose tile fits; tree chunks
     for about ``_STAGED_WAVES`` waves of resident CTAs, at least
     ``DEFAULT_WALKS`` trees per CTA, rounded up to whole groups of walks.
     Unstaged: 128 rows and about ``_UNSTAGED_WAVES`` waves of 16 CTAs per
     SM, the first version's rule."""
-    staged = stages(impl, n_features)
+    staged = stages_x(n_features)
     rows = ROWS_PER_CTA
     while staged and tile_bytes(rows, n_features) > SMEM_PER_CTA:
         rows -= 32  # stages_x guarantees that 32 rows fit
@@ -119,18 +109,17 @@ def pick_blocks(b: int, t: int, n_features: int, sm_count: int = _H100_SMS, *,
 
 
 def pick_blocks_candidates(b: int, t: int, n_features: int,
-                           sm_count: int = _H100_SMS, *,
-                           impl: str = "gather") -> list:
-    """The measured-autotune grid for ``impl``: :func:`pick_blocks`'s
+                           sm_count: int = _H100_SMS) -> list:
+    """The measured-autotune grid: :func:`pick_blocks`'s
     choice first (ties resolve to it), then its neighbours with rows per CTA
     halved and doubled and trees per CTA halved and doubled (1 to ``t``),
     each only if the kernel takes it (:func:`fits`).  Every entry gives the
     same partials."""
-    auto_b, auto_t = pick_blocks(b, t, n_features, sm_count, impl=impl)
+    auto_b, auto_t = pick_blocks(b, t, n_features, sm_count)
     cands = [(auto_b, auto_t)]
     for bb, bt in ((auto_b // 2, auto_t), (auto_b * 2, auto_t),
                    (auto_b, auto_t // 2), (auto_b, min(t, auto_t * 2))):
-        if fits(bb, n_features, impl) and bt >= 1 and (bb, bt) not in cands:
+        if fits(bb, n_features) and bt >= 1 and (bb, bt) not in cands:
             cands.append((bb, bt))
     return cands
 
@@ -147,11 +136,11 @@ def tree_predict_integer(x_keys, feature, threshold_key, left, right,
                          quads=None, device=None) -> torch.Tensor:
     """Integer ensemble inference through K1 (``impl="leaf_major"``), K2
     (``impl="gather"``) or K3 (``impl="onehot"``), any B and T.  Inputs are
-    moved to ``device`` (``cuda`` unless ``device="cpu"``).  K1 and K2 read
+    moved to ``device`` (``cuda`` unless ``device="cpu"``).  The kernels read
     the node quads: ``quads`` where the caller packed them once
     (``pack_node_quads`` of these four tables, as ``CudaBackend`` does),
-    else packed here per call.  The CTA shape is :func:`pick_blocks`' for
-    ``impl`` unless given.  Returns (B, C) uint32 partials, bit-identical to
+    else packed here per call.  The CTA shape is :func:`pick_blocks`'
+    unless given.  Returns (B, C) uint32 partials, bit-identical to
     ``ref.tree_predict_integer_ref`` (for K3, on tables whose every index
     lies inside its table)."""
     check_impl(impl)
@@ -170,11 +159,8 @@ def tree_predict_integer(x_keys, feature, threshold_key, left, right,
     x_keys, feature, threshold_key, left, right, leaf_fixed = (
         on_dev(a) for a in (x_keys, feature, threshold_key, left, right, leaf_fixed))
     auto_b, auto_t = pick_blocks(x_keys.shape[0], feature.shape[0],
-                                 x_keys.shape[1], _sm_count(dev), impl=impl)
+                                 x_keys.shape[1], _sm_count(dev))
     blocks = dict(block_b=block_b or auto_b, block_t=block_t or auto_t)
-    if impl == "onehot":
-        return tree_traverse_onehot(x_keys, feature, threshold_key, left, right,
-                                    leaf_fixed, depth=depth, **blocks)
     if quads is None:
         quads = pack_node_quads(feature, threshold_key, left, right)
     quads = on_dev(quads)
@@ -185,7 +171,8 @@ def tree_predict_integer(x_keys, feature, threshold_key, left, right,
         return tree_traverse_leaf_major(
             x_keys, quads, on_dev(internal_counts).to(torch.int32), leaf_fixed,
             **blocks)
-    return tree_traverse_gather(x_keys, quads, leaf_fixed, depth=depth, **blocks)
+    walk = tree_traverse_onehot if impl == "onehot" else tree_traverse_gather
+    return walk(x_keys, quads, leaf_fixed, depth=depth, **blocks)
 
 
 def resolve_impl(packed, impl: str) -> str:

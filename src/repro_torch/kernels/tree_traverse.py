@@ -1,16 +1,16 @@
 """The tree-traversal kernels K1, K2 and K3, each beside its plain version.
 
   * K1 ``tree_traverse_leaf_major``: the bounded walk over ``leaf_major``
-    tables (CUDA kernel ``walk_tile<K, true, ...>``; replaces the TPU's
-    ``_kernel_leaf_major`` linear scan).
+    tables (CUDA kernel ``walk_tile<K, Walk::kBounded, ...>``; replaces the
+    TPU's ``_kernel_leaf_major`` linear scan).
   * K2 ``tree_traverse_gather``: the per-level gather walk over any node
-    order (CUDA kernel ``walk_tile<K, false, ...>``; replaces ``_kernel``
-    with ``impl="gather"``).
+    order (CUDA kernel ``walk_tile<K, Walk::kGather, ...>``; replaces
+    ``_kernel`` with ``impl="gather"``).
   * K3 ``tree_traverse_onehot``: K2's walk with every table read masked
-    (CUDA kernel ``onehot_kernel``; replaces ``_kernel`` with
-    ``impl="onehot"``).  The TPU kernel reads through compare-iota masked
-    sums, so an index outside its table matches no lane and reads 0; on
-    well-formed tables K3 and K2 give the same bits.
+    (CUDA kernel ``walk_tile<K, Walk::kMasked, ...>``; replaces ``_kernel``
+    with ``impl="onehot"``).  The TPU kernel reads through compare-iota
+    masked sums, so an index outside its table matches no lane and reads 0;
+    on well-formed tables K3 and K2 give the same bits.
 
 All three return (B, C) uint32 partials that wrap mod 2^32.  The CUDA
 sources are in ``repro_torch/csrc/tree_traverse.cu``.  A wrapper takes its
@@ -19,7 +19,7 @@ kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel, so a run
 can show which kernel the path took; the gateway launches from executor
 threads, so the counts change under a lock.
 
-K1 and K2 take the nodes as quads only (:func:`pack_node_quads`, one
+All three take the nodes as quads only (:func:`pack_node_quads`, one
 (T, N, 4) int32 table), so a caller that serves many requests packs once.
 They stage each CTA's rows of ``x_keys`` in shared memory
 (:func:`tile_bytes`) when a 32-row tile fits in a CTA's 227 KB
@@ -43,15 +43,15 @@ import torch
 #: kernel launches per kernel since the last reset (the wrapper adds one
 #: where it launches, and nowhere else)
 LAUNCHES = {"leaf_major": 0, "gather": 0, "onehot": 0}
-#: the CTA shape of each kernel's last launch: rows and trees per CTA, and
-#: for K1 and K2 the walks per thread, the staging and its shared memory
+#: the CTA shape of each kernel's last launch: rows and trees per CTA, the
+#: walks per thread, the staging and its shared memory
 LAUNCH_SHAPES = {"leaf_major": None, "gather": None, "onehot": None}
 _LAUNCHES_LOCK = threading.Lock()
 
 _U32_MASK = 0xFFFFFFFF
 
-#: shared memory one CTA may take on the H100 (227 KB), the most rows a K1/K2
-#: CTA takes (the kernels' launch bound), and the walks a thread may carry
+#: shared memory one CTA may take on the H100 (227 KB), the most rows a CTA
+#: takes (the kernels' launch bound), and the walks a thread may carry
 SMEM_PER_CTA = 232_448
 MAX_TILE_ROWS = 512
 WALKS = (1, 2, 4)
@@ -186,11 +186,11 @@ def onehot_plain(x_keys, feature, threshold_key, left, right, leaf_fixed, *,
 
 
 # ---------------------------------------------------------------------------
-# node quads and CTA shapes of K1 and K2
+# node quads and CTA shapes
 # ---------------------------------------------------------------------------
 
 def pack_node_quads(feature, threshold_key, left, right) -> torch.Tensor:
-    """The (T, N, 4) int32 node table K1 and K2 read, one 16-byte
+    """The (T, N, 4) int32 node table the kernels read, one 16-byte
     ``{feature, threshold_key, left, right}`` per node."""
     return torch.stack((feature, threshold_key, left, right), dim=-1).contiguous()
 
@@ -207,7 +207,7 @@ def tile_bytes(block_b: int, n_features: int) -> int:
 
 
 def stages_x(n_features: int) -> bool:
-    """Whether K1 and K2 stage ``x_keys`` in shared memory: when a 32-row
+    """Whether the kernels stage ``x_keys`` in shared memory: when a 32-row
     tile fits in a CTA (F <= 1,815); above that they read it from global
     memory.  Chosen by shape, never on a failure."""
     return tile_bytes(32, n_features) <= SMEM_PER_CTA
@@ -221,9 +221,9 @@ def default_walks(block_t: int) -> int:
 
 def check_tile_shape(block_b: int, n_features: int, walks: int,
                      stage_x: bool) -> None:
-    """Raise on a K1/K2 CTA shape the kernels do not take; never shrink it."""
+    """Raise on a CTA shape the kernels do not take; never shrink it."""
     if not (32 <= block_b <= MAX_TILE_ROWS and block_b % 32 == 0):
-        raise ValueError(f"K1 and K2 take 32 to {MAX_TILE_ROWS} rows per CTA in "
+        raise ValueError(f"the kernels take 32 to {MAX_TILE_ROWS} rows per CTA in "
                          f"multiples of 32, got {block_b}")
     if walks not in WALKS:
         raise ValueError(f"walks must be one of {WALKS}, got {walks}")
@@ -244,10 +244,8 @@ def _cuda_args(x_keys, tables: dict):
     if dev.type != "cuda":
         raise ValueError(f"the CUDA tree kernels take CUDA tensors, got {dev}")
     b, f = x_keys.shape
-    t, n = (tables["quads"] if "quads" in tables else tables["feature"]).shape[:2]
-    shapes = {"x_keys": (b, f), "feature": (t, n), "threshold_key": (t, n),
-              "left": (t, n), "right": (t, n), "quads": (t, n, 4),
-              "internal_counts": (t,)}
+    t, n = tables["quads"].shape[:2]
+    shapes = {"x_keys": (b, f), "quads": (t, n, 4), "internal_counts": (t,)}
     out = {}
     for name, a in (("x_keys", x_keys), *tables.items()):
         if a.device != dev:
@@ -264,55 +262,47 @@ def _cuda_args(x_keys, tables: dict):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         out[name] = a
-    if "quads" in out and out["quads"].data_ptr() % 16:
+    if out["quads"].data_ptr() % 16:
         raise ValueError("quads must be 16-byte aligned")
     if t > 65535:
         raise ValueError(f"{t} trees exceed the kernels' grid.y limit")
-    if not 1 <= n <= 2 ** 28:  # K1 and K2 index a group of 4 trees in 32 bits
+    if not 1 <= n <= 2 ** 28:  # the kernels index a group of 4 trees in 32 bits
         raise ValueError(f"the node tables need 1 to 2**28 nodes per tree, got {n}")
     return out
 
 
-def _launch(kernel: str, x_keys, tables: dict, ints: tuple,
-            block_b: int, block_t: int, tile: tuple = ()) -> torch.Tensor:
-    """Launch ``intreeger_<kernel>``; ``tile`` is K1's and K2's
-    ``(walks, stage_x)``."""
+def _launch(kernel: str, x_keys, tables: dict, ints: tuple, block_b: int,
+            block_t: int, walks, stage_x) -> torch.Tensor:
+    """Launch ``intreeger_<kernel>``; ``walks`` and ``stage_x`` are taken by
+    shape where None (tests pin them)."""
     from repro_torch.kernels._build import load_library
 
     args = _cuda_args(x_keys, tables)
     b, f = x_keys.shape
     t, n = args["leaf_fixed"].shape[:2]
     c = args["leaf_fixed"].shape[-1]
-    if not (1 <= block_b <= 1024 and block_b % 32 == 0) or block_t < 1:
+    if block_t < 1:  # rows per CTA: check_tile_shape below
         raise ValueError(f"bad CTA shape: {block_b} rows x {block_t} trees")
     if f < 1:  # every walk reads x[row, max(f, 0)] at least once
         raise ValueError("the CUDA tree kernels need rows with at least one feature")
-    shape = dict(block_b=block_b, block_t=block_t)
-    if tile:
-        walks, stage_x = tile
-        check_tile_shape(block_b, f, walks, stage_x)
-        shape.update(walks=walks, stage_x=stage_x,
-                     smem_bytes=tile_bytes(block_b, f) if stage_x else 0)
+    walks = default_walks(block_t) if walks is None else walks
+    stage_x = stages_x(f) if stage_x is None else bool(stage_x)
+    check_tile_shape(block_b, f, walks, stage_x)
+    shape = dict(block_b=block_b, block_t=block_t, walks=walks, stage_x=stage_x,
+                 smem_bytes=tile_bytes(block_b, f) if stage_x else 0)
     lib = load_library()
     out = torch.zeros((b, c), dtype=torch.int32, device=x_keys.device)
     with torch.cuda.device(x_keys.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"intreeger_{kernel}")(
             *(a.data_ptr() for a in args.values()), out.data_ptr(),
-            b, f, t, n, c, *ints, block_b, block_t,
-            *(int(v) for v in tile), stream)
+            b, f, t, n, c, *ints, block_b, block_t, walks, int(stage_x), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     with _LAUNCHES_LOCK:
         LAUNCHES[kernel] += 1
         LAUNCH_SHAPES[kernel] = shape
     return out.view(torch.uint32)
-
-
-def _tile(x_keys, block_t: int, walks, stage_x) -> tuple:
-    """K1's and K2's ``(walks, stage_x)``: by shape, unless a test pins them."""
-    return (default_walks(block_t) if walks is None else walks,
-            stages_x(x_keys.shape[1]) if stage_x is None else bool(stage_x))
 
 
 def tree_traverse_leaf_major(x_keys, quads, internal_counts, leaf_fixed, *,
@@ -331,8 +321,8 @@ def tree_traverse_leaf_major(x_keys, quads, internal_counts, leaf_fixed, *,
                                 leaf_fixed, block_b=block_b, block_t=block_t)
     tables = dict(quads=quads, internal_counts=internal_counts,
                   leaf_fixed=leaf_fixed)
-    return _launch("leaf_major", x_keys, tables, (), block_b, block_t,
-                   _tile(x_keys, block_t, _walks, _stage_x))
+    return _launch("leaf_major", x_keys, tables, (), block_b, block_t, _walks,
+                   _stage_x)
 
 
 def tree_traverse_gather(x_keys, quads, leaf_fixed, *, depth: int,
@@ -345,18 +335,20 @@ def tree_traverse_gather(x_keys, quads, leaf_fixed, *, depth: int,
                             block_b=block_b, block_t=block_t)
     tables = dict(quads=quads, leaf_fixed=leaf_fixed)
     return _launch("gather", x_keys, tables, (int(depth),), block_b, block_t,
-                   _tile(x_keys, block_t, _walks, _stage_x))
+                   _walks, _stage_x)
 
 
-def tree_traverse_onehot(x_keys, feature, threshold_key, left, right,
-                         leaf_fixed, *, depth: int, block_b: int,
-                         block_t: int) -> torch.Tensor:
-    """K3: (B, C) uint32 partials, ``depth`` levels per tree with every
-    table read outside its table reading 0."""
+def tree_traverse_onehot(x_keys, quads, leaf_fixed, *, depth: int,
+                         block_b: int, block_t: int, _walks=None,
+                         _stage_x=None) -> torch.Tensor:
+    """K3: (B, C) uint32 partials, ``depth`` levels per tree as K2 walks
+    them, with every read outside its table reading 0: a node outside
+    [0, N) reads its quad as zeros, a feature index ``max(f, 0) >= F`` reads
+    x as 0, and a walk that ends outside [0, N) adds a zero leaf row.
+    ``quads``, ``_walks`` and ``_stage_x`` as for K1."""
     if x_keys.device.type == "cpu":
-        return onehot_plain(x_keys, feature, threshold_key, left, right,
-                            leaf_fixed, depth=depth, block_b=block_b,
-                            block_t=block_t)
-    tables = dict(feature=feature, threshold_key=threshold_key, left=left,
-                  right=right, leaf_fixed=leaf_fixed)
-    return _launch("onehot", x_keys, tables, (int(depth),), block_b, block_t)
+        return onehot_plain(x_keys, *quads.unbind(-1), leaf_fixed, depth=depth,
+                            block_b=block_b, block_t=block_t)
+    tables = dict(quads=quads, leaf_fixed=leaf_fixed)
+    return _launch("onehot", x_keys, tables, (int(depth),), block_b, block_t,
+                   _walks, _stage_x)

@@ -58,20 +58,19 @@ def config_str(kwargs: dict) -> str:
 
 
 def candidate_grid(backend_name: str, artifact, rows: int = _TUNE_ROWS, *,
-                   device=None, impl=None) -> list:
+                   device=None) -> list:
     """The candidate ``backend_kwargs`` grid for one backend, the heuristic
-    FIRST (ties resolve to it), sized for ``device``'s SM count and for the
-    route's ``impl`` (K3, ``onehot``, stages no row tile).  Empty when the
-    backend has no tunable knob."""
+    FIRST (ties resolve to it), sized for ``device``'s SM count; the same
+    for every kernel (``impl``), since all three stage alike.  Empty when
+    the backend has no tunable knob."""
     if backend_name != "cuda":
         return []
-    from repro_torch.kernels.ops import _sm_count, pick_blocks_candidates, resolve_impl
+    from repro_torch.kernels.ops import _sm_count, pick_blocks_candidates
 
     sms = _sm_count(torch.device(device if device is not None else "cpu"))
-    kernel = resolve_impl(artifact, impl or "auto")
     return [{"block_b": bb, "block_t": bt}
             for bb, bt in pick_blocks_candidates(rows, artifact.feature.shape[0],
-                                                 artifact.n_features, sms, impl=kernel)]
+                                                 artifact.n_features, sms)]
 
 
 def measure_backend(backend, X, *, rounds: int = _ROUNDS,
@@ -111,8 +110,7 @@ def tune_backend(backend_name: str, artifact, mode: str, *,
 
     # resolve the default at call time so tests can monkeypatch the module
     measure = measure if measure is not None else measure_backend
-    grid = candidate_grid(backend_name, artifact, rows, device=device,
-                          impl=(backend_kwargs or {}).get("impl"))
+    grid = candidate_grid(backend_name, artifact, rows, device=device)
     if len(grid) < 2:
         return None, None, []
     rng = np.random.default_rng(0)

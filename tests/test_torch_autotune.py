@@ -71,14 +71,24 @@ def test_grid_for_backends(forests):
 @pytest.mark.parametrize("impl,kernel", [(None, "leaf_major"), ("gather", "gather"),
                                          ("onehot", "onehot")])
 def test_grid_follows_the_route_kernel(forests, impl, kernel):
-    """The grid is sized for the kernel the route launches: K3 stages no row
-    tile, so its heuristic is the unstaged rule."""
+    """Every route's kernel is tuned over the same grid, the staged one, since
+    all three stage their row tile alike; every candidate launches the
+    route's own kernel."""
     _, v1, _ = forests
     lm = ForestIR.from_forest(v1).materialize("leaf_major")
-    grid = at.candidate_grid("cuda", lm, 65_536, impl=impl)
-    want = pick_blocks_candidates(65_536, lm.feature.shape[0], lm.n_features, 132,
-                                  impl=kernel)
-    assert [(kw["block_b"], kw["block_t"]) for kw in grid] == want
+    kernels = []
+
+    def measure(backend, X):
+        kernels.append(backend.impl)
+        return 1.0
+
+    _, winner, report = at.tune_backend("cuda", lm, "integer", rows=256, measure=measure,
+                                        backend_kwargs={"impl": impl} if impl else None,
+                                        device="cpu")
+    want = pick_blocks_candidates(256, lm.feature.shape[0], lm.n_features, 132)
+    assert [(kw["block_b"], kw["block_t"]) for kw, _ in report] == want
+    assert want[0] == (128, 4)  # staged: a group of 4 walks per CTA (unstaged: 1 tree)
+    assert winner.impl == kernel and set(kernels) == {kernel}
 
 
 def test_tune_is_deterministic_and_ties_go_to_default(forests):
@@ -169,11 +179,11 @@ def test_escape_hatches(forests, monkeypatch):
     assert pinned.tuned_config is None and pinned.backend._blocks["block_b"] == 32
     untunable = TreeEngine(ir, spec="integer:reference?autotune=true", device="cpu")
     assert not untunable._pending_tune
-    monkeypatch.setattr(at, "measure_backend", _ranked(64, 1))  # K3's grid
+    monkeypatch.setattr(at, "measure_backend", _ranked(128, 2))  # in K3's grid
     onehot = TreeEngine(ir, spec="integer:cuda@padded?autotune=true,impl=onehot",
                         device="cpu")
     onehot.warm(16)
-    assert onehot.tuned_config == "block_b=64,block_t=1"
+    assert onehot.tuned_config == "block_b=128,block_t=2"
     assert onehot.backend.impl == "onehot"
 
 
@@ -181,18 +191,18 @@ def test_routes_differing_only_in_impl_tune_independently(forests, monkeypatch):
     X, v1, _ = forests
     reg = ModelRegistry()
     mv = reg.register_forest("m", v1)
-    monkeypatch.setattr(at, "measure_backend", _ranked(64, 1))  # K3's grid
+    monkeypatch.setattr(at, "measure_backend", _ranked(128, 2))  # in K3's grid
     k3 = mv.engine("integer:cuda@padded?autotune=true,impl=onehot", device="cpu")
     k3.warm(16)
     monkeypatch.setattr(at, "measure_backend", _ranked(256, 4))
     k2 = mv.engine("integer:cuda@padded?autotune=true", device="cpu")
     assert k2 is not k3 and k2._pending_tune  # K3's winner is not reused
     k2.warm(16)
-    assert k3.tuned_config == "block_b=64,block_t=1"
+    assert k3.tuned_config == "block_b=128,block_t=2"
     assert k2.tuned_config == "block_b=256,block_t=4"
     assert (k3.backend.impl, k2.backend.impl) == ("onehot", "gather")
     assert sorted(mv._tuned.values(), key=lambda w: w["block_b"]) == [
-        {"block_b": 64, "block_t": 1}, {"block_b": 256, "block_t": 4}]
+        {"block_b": 128, "block_t": 2}, {"block_b": 256, "block_t": 4}]
     for b in (1, 20, 100):
         np.testing.assert_array_equal(k3.predict_scores(X[:b])[0],
                                       k2.predict_scores(X[:b])[0])

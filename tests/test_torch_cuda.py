@@ -1,11 +1,12 @@
 """Card-only tests of the CUDA kernels K1, K2 and K3: each against its plain
 version on the same CUDA tensors, bit for bit, with the launch counters
-showing the kernel ran, at shapes that reach each edge of K1's and K2's
+showing the kernel ran, at shapes that reach each edge of their shared
 design (odd and even feature counts, rows too wide to stage, class counts
 that take the scalar leaf path and several class chunks, tree chunks that
 the walks per thread do not divide, rows past the last full CTA); K3 also
-on a malformed table, where K1 and K2 must stay inside their buffers; and
-two gateways on two routes serving at once from executor threads.  Marked ``cuda``; each
+on malformed tables at every walk count and staging, where K1 and K2 must
+stay inside their buffers; and two gateways on two routes serving at once
+from executor threads.  Marked ``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
 on a machine with a card::
 
@@ -80,12 +81,13 @@ def _on(dev, packed):
             t(packed.right), t(packed.leaf_fixed.view(np.int32)))
 
 
-def malformed_case():
+def malformed_case(n_classes=3):
     """(rows, node tables, depth) where reads leave their tables: the padded
-    tables of a small random forest with, at the first internal node of
-    three trees, a left child >= N, a feature index >= F and a right child
-    < 0.  K3 reads 0 for each; K2's gather would read out of bounds."""
-    ir = _forest(3, 5, 4, 6, 3)
+    tables of a small random forest of ``n_classes`` classes with, at the
+    first internal node of three trees, a left child >= N, a feature index
+    >= F and a right child < 0.  K3 reads 0 for each; K2's gather would
+    read out of bounds."""
+    ir = _forest(3, 5, 4, 6, n_classes)
     p = ir.materialize("padded")
     feature, key, left, right = (a.copy() for a in (p.feature, p.threshold_key,
                                                     p.left, p.right))
@@ -98,6 +100,33 @@ def malformed_case():
     right[trees[2], first[2]] = -2
     x = np.random.default_rng(4).normal(size=(300, f)).astype(np.float32)
     return x, (feature, key, left, right, p.leaf_fixed), ir.max_depth + 2
+
+
+def root_exit_case(n_classes, depth=1):
+    """(rows, node tables, depth) where walks end outside the table:
+    :func:`malformed_case`'s tables with every root's left child >= N.
+    Walked one level, each row that goes left at a root ends there (and
+    each that goes right at the root whose right child is < 0); K3 adds a
+    zero leaf row for each, on the scalar leaf path at C = 3 and on the
+    16-byte one at C = 8.  Walked deeper, such a row bounces between the
+    root and outside, since a node outside reads as zeros and leads to node
+    0; the clamped index N - 1 is a real leaf of the largest tree, so a walk
+    that read the clamped node instead would add its row."""
+    x, (feature, key, left, right, leaf), _ = malformed_case(n_classes)
+    left[:, 0] = left.shape[1] + 1
+    return x, (feature, key, left, right, leaf), depth
+
+
+def malformed_cases():
+    """Every malformed case the K3 tests walk, by name."""
+    return {"malformed, C=3": malformed_case(), "malformed, C=8": malformed_case(8),
+            "root exit, C=3": root_exit_case(3), "root exit, C=8": root_exit_case(8),
+            "root bounce, C=8": root_exit_case(8, depth=4)}
+
+
+def _on_card(tables, dev):
+    return [torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32
+                                                  else a)).to(dev) for a in tables]
 
 
 @pytest.mark.cuda
@@ -129,14 +158,14 @@ def test_kernels_match_plain_versions(card, rows, n_trees, depth, n_features, n_
         k1 = tt.tree_traverse_leaf_major(keys, lm_quads, nint, leaf, _walks=walks, **blocks)
         k2 = tt.tree_traverse_gather(keys, pad_quads, pad[4], depth=ir.max_depth,
                                      _walks=walks, **blocks)
-        k3 = tt.tree_traverse_onehot(keys, *pad, depth=ir.max_depth, **blocks)
+        k3 = tt.tree_traverse_onehot(keys, pad_quads, pad[4], depth=ir.max_depth,
+                                     _walks=walks, **blocks)
         torch.cuda.synchronize()
         assert tt.LAUNCHES == {"leaf_major": 1, "gather": 1, "onehot": 1}
         tile = dict(walks=tt.default_walks(block_t) if walks is None else walks,
                     stage_x=staged,
                     smem_bytes=tt.tile_bytes(block_b, n_features) if staged else 0)
-        assert tt.LAUNCH_SHAPES == {"leaf_major": {**blocks, **tile},
-                                    "gather": {**blocks, **tile}, "onehot": blocks}
+        assert tt.LAUNCH_SHAPES == {name: {**blocks, **tile} for name in tt.LAUNCHES}
         p1 = tt.leaf_major_plain(keys, f, k, l, r, nint, leaf, **blocks)
         p2 = tt.gather_plain(keys, *pad, depth=ir.max_depth, **blocks)
         p3 = tt.onehot_plain(keys, *pad, depth=ir.max_depth, **blocks)
@@ -148,30 +177,28 @@ def test_kernels_match_plain_versions(card, rows, n_trees, depth, n_features, n_
 
 @pytest.mark.cuda
 def test_walks_stay_inside_their_buffers_on_malformed_tables(card):
-    """K1 and K2 clamp every index into its buffer: on a table with a child
-    >= N, a child < 0, a feature >= F and prefix lengths past N, both run
-    to the end without a fault, staged and not (their function there is
-    undefined, so only the run is checked); K3 still equals its plain
-    version on the same table."""
+    """The kernels clamp every index into its buffer: on a table with a
+    child >= N, a child < 0, a feature >= F and prefix lengths past N, K1
+    and K2 run to the end without a fault, staged and not, at 1, 2 and 4
+    walks (their function there is undefined, so only the run is checked);
+    K3 equals its plain version on the same table at each."""
     x, tables, depth = malformed_case()
     keys = float_to_key(torch.from_numpy(x).to(card))
-    on = [torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32
-                                                else a)).to(card) for a in tables]
+    on = _on_card(tables, card)
     nint = torch.full((on[0].shape[0],), on[0].shape[1] + 5, dtype=torch.int32, device=card)
     nint[0] = -3
     quads = tt.pack_node_quads(*on[:4])
+    ref = tt.onehot_plain(keys, *on, depth=depth, block_b=64, block_t=2)
     for stage_x in (True, False):
-        for walks in (1, 4):
+        for walks in (1, 2, 4):
             tile = dict(block_b=64, block_t=2, _walks=walks, _stage_x=stage_x)
             k1 = tt.tree_traverse_leaf_major(keys, quads, nint, on[4], **tile)
             k2 = tt.tree_traverse_gather(keys, quads, on[4], depth=depth, **tile)
+            k3 = tt.tree_traverse_onehot(keys, quads, on[4], depth=depth, **tile)
             torch.cuda.synchronize()
             assert k1.shape == k2.shape == (len(x), on[4].shape[-1])
-    k3 = tt.tree_traverse_onehot(keys, *on, depth=depth, block_b=64, block_t=2)
-    np.testing.assert_array_equal(
-        k3.view(torch.int32).cpu().numpy(),
-        tt.onehot_plain(keys, *on, depth=depth, block_b=64, block_t=2)
-        .view(torch.int32).cpu().numpy())
+            np.testing.assert_array_equal(k3.view(torch.int32).cpu().numpy(),
+                                          ref.view(torch.int32).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -198,18 +225,29 @@ def test_tile_that_does_not_fit_raises_before_launch(card):
 
 @pytest.mark.cuda
 def test_onehot_kernel_on_a_malformed_table(card):
-    x, tables, depth = malformed_case()
-    keys = float_to_key(torch.from_numpy(x).to(card))
-    on = [torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32
-                                                else a)).to(card) for a in tables]
-    for block_b, block_t in ((128, 1), (64, 2), (256, len(tables[0]))):
-        tt.reset_launches()
-        out = tt.tree_traverse_onehot(keys, *on, depth=depth, block_b=block_b, block_t=block_t)
-        torch.cuda.synchronize()
-        assert tt.LAUNCHES["onehot"] == 1
-        ref = tt.onehot_plain(keys, *on, depth=depth, block_b=block_b, block_t=block_t)
-        np.testing.assert_array_equal(out.view(torch.int32).cpu().numpy(),
-                                      ref.view(torch.int32).cpu().numpy())
+    """K3 equals its plain version where reads leave the tables and where
+    walks end outside them, on both leaf paths, at each CTA shape, walk
+    count and staging."""
+    for name, (x, tables, depth) in malformed_cases().items():
+        keys = float_to_key(torch.from_numpy(x).to(card))
+        on = _on_card(tables, card)
+        quads = tt.pack_node_quads(*on[:4])
+        for block_b, block_t in ((128, 1), (64, 2), (256, len(tables[0]))):
+            ref = tt.onehot_plain(keys, *on, depth=depth, block_b=block_b, block_t=block_t)
+            for walks in (1, 2, 4):
+                for stage_x in (True, False):
+                    tt.reset_launches()
+                    out = tt.tree_traverse_onehot(keys, quads, on[4], depth=depth,
+                                                  block_b=block_b, block_t=block_t,
+                                                  _walks=walks, _stage_x=stage_x)
+                    torch.cuda.synchronize()
+                    assert tt.LAUNCHES["onehot"] == 1
+                    assert tt.LAUNCH_SHAPES["onehot"]["stage_x"] == stage_x
+                    np.testing.assert_array_equal(
+                        out.view(torch.int32).cpu().numpy(),
+                        ref.view(torch.int32).cpu().numpy(),
+                        err_msg=f"{name}, {block_b} x {block_t}, {walks} walks, "
+                                f"staged {stage_x}")
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 walk over leaf_major tables), K2 (per-level gather walk) and K3 (the
 masked one-hot walk) against the JAX package's Pallas kernels (interpret
 mode) and both oracles — bit-identical uint32 partials, including row and
-tree padding, degenerate forests, and for K3 a malformed table.
+tree padding, degenerate forests, and for K3 malformed tables.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``test_torch_cuda.py`` and ``chip_smoke.py``."""
 import jax.numpy as jnp
@@ -31,7 +31,7 @@ from repro_torch.kernels.ops import (
     tree_predict_integer,
 )
 from repro_torch.kernels.ref import tree_predict_integer_ref
-from test_torch_cuda import malformed_case
+from test_torch_cuda import malformed_case, malformed_cases
 
 
 def _forest(n_trees, depth, n_features, n_classes, seed=0, n=1500):
@@ -221,6 +221,25 @@ def test_gather_and_onehot_differ_on_a_malformed_table():
                              impl="gather", device="cpu", **blocks)
 
 
+@pytest.mark.parametrize("case", sorted(malformed_cases()))
+@pytest.mark.parametrize("blocks", [dict(block_b=64, block_t=1), dict(block_b=128, block_t=2)])
+def test_onehot_wrapper_takes_quads_of_malformed_tables(case, blocks):
+    """K3's wrapper on the CPU, handed the node quads of a malformed table
+    (reads that leave the tables; walks that end outside them at C = 3 and
+    C = 8), equals the JAX kernel with ``impl="onehot"`` bit for bit."""
+    x, tables, depth = malformed_cases()[case]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    quads = tt.pack_node_quads(*(t(a) for a in tables[:4]))
+    before = dict(tt.LAUNCHES)
+    out = tt.tree_traverse_onehot(float_to_key(t(x)), quads, t(tables[4]), depth=depth,
+                                  **blocks)
+    assert tt.LAUNCHES == before and out.dtype == torch.uint32
+    jax_out = np.asarray(jax_tree_predict_integer(
+        jax_float_to_key(jnp.asarray(x)), *(jnp.asarray(a) for a in tables), depth=depth,
+        impl="onehot", **blocks))
+    np.testing.assert_array_equal(out.numpy(), jax_out)
+
+
 def test_wrappers_take_plain_versions_on_cpu_only():
     """CPU tensors go to the plain versions and launch nothing."""
     rf, X = _forest(3, 3, 4, 2)
@@ -252,23 +271,18 @@ def test_h100_block_choice():
     assert pick_blocks(1, 128, 87, 132) == (128, 4)
     assert pick_blocks(1000, 1, 87, 132) == (128, 1)
     assert pick_blocks(1000, 3, 87, 132) == (128, 3)
-    # launches that stage nothing (K3; K1 and K2 on rows too wide to stage)
-    # keep the first version's rule: about two waves of 16 CTAs per SM
-    for f, impl in ((87, "onehot"), (4000, "onehot"), (4000, "gather"),
-                    (4000, "leaf_major")):
-        assert pick_blocks(65_536, 128, f, 132, impl=impl) == (128, 15)
-        assert pick_blocks(1, 128, f, 132, impl=impl) == (128, 1)
-    assert pick_blocks(65_536, 128, 87, 132, impl="leaf_major") == (128, 24)
-    with pytest.raises(ValueError, match="unknown impl"):
-        pick_blocks(65_536, 128, 87, 132, impl="auto")
+    # launches that stage nothing (rows too wide to stage) keep the first
+    # version's rule: about two waves of 16 CTAs per SM
+    assert pick_blocks(65_536, 128, 4000, 132) == (128, 15)
+    assert pick_blocks(1, 128, 4000, 132) == (128, 1)
 
 
 @pytest.mark.parametrize("impl,shape", [("leaf_major", (128, 24)), ("gather", (128, 24)),
-                                        ("onehot", (128, 15))])
+                                        ("onehot", (128, 24))])
 def test_entry_point_launches_each_kernel_at_its_own_shape(monkeypatch, impl, shape):
-    """``tree_predict_integer`` hands each kernel ``pick_blocks``' shape for
-    that kernel: K3 stages nothing, so at the serve_64k batch it takes the
-    unstaged rule (128 x 15), K1 and K2 the staged one (128 x 24)."""
+    """``tree_predict_integer`` hands each kernel ``pick_blocks``' shape:
+    all three stage their row tile at 87 features, so at the serve_64k
+    batch each takes the staged rule (128 x 24), K3 too."""
     from repro_torch.kernels import ops
 
     seen = {}
@@ -287,7 +301,7 @@ def test_entry_point_launches_each_kernel_at_its_own_shape(monkeypatch, impl, sh
     ops.tree_predict_integer(keys, *tables, torch.zeros((128, 3, 1), dtype=torch.int32),
                              depth=1, impl=impl, device="cpu",
                              internal_counts=torch.zeros(128, dtype=torch.int32))
-    assert seen == {impl: shape} and shape == pick_blocks(65_536, 128, 87, 132, impl=impl)
+    assert seen == {impl: shape} and shape == pick_blocks(65_536, 128, 87, 132)
 
 
 def test_entry_point_rejects_quads_of_other_tables():
@@ -368,7 +382,7 @@ def test_pack_node_quads_equals_the_stacked_tables(layout):
 
 def test_cuda_backend_packs_quads_once(monkeypatch):
     """The engine path packs the node quads once per backend and hands the
-    same tensor to every request; the one-hot route packs none."""
+    same tensor to every request, the one-hot route (K3) too."""
     from repro_torch.backends import cuda as cuda_backend
     from repro_torch.serve import TreeEngine
 
@@ -397,5 +411,11 @@ def test_cuda_backend_packs_quads_once(monkeypatch):
         np.stack([getattr(ir.materialize("leaf_major"), k) for k in
                   ("feature", "threshold_key", "left", "right")], -1))
     onehot = TreeEngine(ir, spec="integer:cuda@padded?impl=onehot", device="cpu")
-    onehot.predict_scores(X[:10])
-    assert len(packs) == 1 and onehot.backend._quads is None and seen[-1] is None
+    for b in (10, 100):
+        onehot.predict_scores(X[:b])
+    assert len(packs) == 2 and len(seen) == 6
+    assert all(q is onehot.backend._quads for q in seen[4:])
+    np.testing.assert_array_equal(
+        onehot.backend._quads.numpy(),
+        np.stack([getattr(ir.materialize("padded"), k) for k in
+                  ("feature", "threshold_key", "left", "right")], -1))
