@@ -7,35 +7,46 @@
 Run from the root of a checkout (it imports ``src/repro_torch``) on a host
 with one CUDA card.  It
 
-  1. builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``,
+  1. builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
+     (one ``nvcc`` per source, started together),
   2. builds the full-width ``intreeger-rf`` model (128 complete trees of
      depth 10, 87 features, 8 classes) from the seed, thresholds drawn from
      the rows' own quantiles and leaves from a Dirichlet, and quantizes it
      through ``ForestIR.from_forest``,
   3. serves requests of 65,536, 1,000, 100, 20 and 1 rows through
      ``TreeEngine(ir, spec="integer:cuda@leaf_major")``, and 65,536 rows each
-     through ``flint:cuda@leaf_major`` and ``integer:cuda@padded``, with the
-     kernels' launch counters set to 0 just before and read just after,
+     through ``flint:cuda@leaf_major`` and ``integer:cuda@padded``; requests
+     of 65,536, 1,000, 20 and 1 rows through ``integer:bitvector`` (K5, the
+     QuickScorer scorer) and 65,536 through ``flint:bitvector``; and 65,536
+     rows through each sharded plan route, ``integer:cuda+tree_parallel:2``,
+     ``integer:cuda|bitvector+tree_parallel:2`` (half the trees on K1, half
+     on K5) and ``integer:cuda+row_parallel:2``; with the kernels' launch
+     counters set to 0 just before and read just after,
   4. holds every result bit for bit against the torch reference walk on the
      card, a 100-row result against the independent CPU oracle, and each
-     kernel (K1, K2 and K3, the one-hot walk) against its plain version at
-     the 65,536-row shape and the gateway's small batches, K3 also on small
-     malformed tables at every walk count and staging,
+     kernel (K1, K2, K3, the one-hot walk, and K5) against its plain version
+     at the 65,536-row shape and the gateway's small batches, K3 also on
+     small malformed tables at every walk count and staging, K5 also on a
+     small forest whose bitvectors span 36 words,
   5. times each kernel (L2 flushed before every launch, and warm), its plain
-     version and the end-to-end request with CUDA events and the host
-     clock; each kernel also at the gateway's small batches (K1 at 1,000
-     rows, K2 at 20, K3 at both), and prints each kernel's CTA shape and
-     shared memory as its wrapper launched it,
+     version and the end-to-end request of every route with CUDA events and
+     the host clock; each kernel also at the gateway's small batches (K1 at
+     1,000 rows, K2 at 20, K3 and K5 at both), and prints each kernel's CTA
+     shape and shared memory as its wrapper launched it,
   6. serves a seeded open-loop workload through two ``Gateway``s over one
      ``ModelRegistry`` at once — ``integer:cuda?autotune=true`` (K1, and K2
      under 64 rows) and ``integer:cuda@padded?impl=onehot`` (K3) — with
      repeated rows for the cache and a hot swap to a second forest halfway,
      with the launch counters set to 0 just before and read just after, and
      holds every response against the reference walk of the version that
-     served it.
+     served it,
+  7. serves a shorter seeded workload through a gateway on the
+     heterogeneous plan route ``integer:cuda|bitvector+tree_parallel:2``,
+     with the launch counters read around it, holds every response against
+     the reference walk, and checks that its stats show both shard labels.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
-times the seven kernel cases of step 5, printing them as one JSON line;
+times the kernel cases of step 5, printing them as one JSON line;
 ``--src`` names another checkout's ``src`` to take ``repro_torch`` from (an
 older tree, for a before/after comparison in one process per tree), through
 entry points both trees have.
@@ -49,6 +60,8 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -85,12 +98,30 @@ LEAD_SLEEP_CYCLES = 1_000_000
 # the gateway's small batches, at which each kernel is also timed: gateway
 # A's batches of 1,000 rows take K1 and those under 64 rows (20) K2;
 # gateway B's take K3 at both
-SMALL_ROWS = {"leaf_major": (1000,), "gather": (20,), "onehot": (1000, 20)}
+SMALL_ROWS = {"leaf_major": (1000,), "gather": (20,), "onehot": (1000, 20),
+              "bitvector": (1000, 20)}
 
-# the TPU kernels that K1, K2 and K3 replace
+# the TPU kernels that K1, K2 and K3 replace, and the jnp function K5 does
 REPLACES = {"leaf_major": "src/repro/kernels/tree_traverse.py:110",
             "gather": "src/repro/kernels/tree_traverse.py:80",
-            "onehot": "src/repro/kernels/tree_traverse.py:80"}
+            "onehot": "src/repro/kernels/tree_traverse.py:80",
+            "bitvector": "src/repro/kernels/bitvector.py:83"}
+SOURCES = {"leaf_major": "src/repro_torch/csrc/tree_traverse.cu",
+           "gather": "src/repro_torch/csrc/tree_traverse.cu",
+           "onehot": "src/repro_torch/csrc/tree_traverse.cu",
+           "bitvector": "src/repro_torch/csrc/bitvector.cu"}
+
+# the QuickScorer route's requests, and the sharded plan routes (each at
+# ROWS rows); the plan gateway's workload is GATEWAY_* with fewer requests
+BITVECTOR_REQUESTS = (ROWS, 1000, 20, 1)
+PLAN_ROUTES = ("integer:cuda+tree_parallel:2", "integer:cuda|bitvector+tree_parallel:2",
+               "integer:cuda+row_parallel:2")
+PLAN_GATEWAY_ROUTE = "integer:cuda|bitvector+tree_parallel:2"
+PLAN_GATEWAY_REQUESTS = 60
+# the small forest whose bitvectors span 36 uint32 words: chains of these
+# depths (a chain of d splits has d + 1 leaves) beside random trees
+WIDE_CHAINS = (1100, 70)
+WIDE_ROWS = 2000
 
 # the gateway phase: request sizes and their shares, the share of requests
 # that repeat an earlier request's rows, the open-loop arrival rate
@@ -165,6 +196,42 @@ def build_model(seed: int):
         trees_=[complete_tree(rng, sample, TreeArrays) for _ in range(N_TREES)],
         n_classes_=N_CLASSES, n_features_=N_FEATURES)
     return forest, ForestIR.from_forest(forest), X
+
+
+def chain_tree(depth: int, tree_arrays_cls):
+    """A right-leaning chain of ``depth`` splits on feature 0 (``depth + 1``
+    leaves), thresholds ``k - depth / 2``: rows spread over that range exit
+    at every leaf, the highest bits of a wide bitvector included."""
+    n = 2 * depth + 1
+    feature = np.full(n, -1, np.int32)
+    threshold = np.zeros(n, np.float32)
+    left = np.arange(n, dtype=np.int32)
+    right = left.copy()
+    probs = np.zeros((n, N_CLASSES), np.float64)
+    for k in range(depth):
+        feature[2 * k] = 0
+        threshold[2 * k] = k - depth / 2.0
+        left[2 * k], right[2 * k] = 2 * k + 1, 2 * k + 2
+        probs[2 * k + 1, k % N_CLASSES] = 1.0
+    probs[n - 1, (depth + 1) % N_CLASSES] = 1.0
+    return tree_arrays_cls(feature=feature, threshold=threshold, left=left,
+                           right=right, leaf_probs=probs, depth=depth)
+
+
+def wide_forest(seed: int):
+    """(ForestIR, WIDE_ROWS rows): the chains of WIDE_CHAINS, whose longest
+    makes every bitvector 36 uint32 words (more than K5's 32-word register
+    chunk), and rows whose feature 0 spans the chains' thresholds."""
+    from repro_torch.ir import ForestIR
+    from repro_torch.trees import TreeArrays
+
+    forest = SimpleNamespace(trees_=[chain_tree(d, TreeArrays) for d in WIDE_CHAINS],
+                             n_classes_=N_CLASSES, n_features_=N_FEATURES)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 1.0, (WIDE_ROWS, N_FEATURES)).astype(np.float32)
+    half = max(WIDE_CHAINS) / 2.0 + 4.0
+    x[:, 0] = rng.uniform(-half, half, WIDE_ROWS)
+    return ForestIR.from_forest(forest), x
 
 
 def malformed_tables(packed):
@@ -256,9 +323,17 @@ def bound(nbytes: int, ops: int):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
+def bitvector_tables(kbv, ir, dev) -> list:
+    """K5's tables of ``ir`` on the card, in the wrapper's order."""
+    arrays = kbv.bitvector_device_arrays(ir.materialize("bitvector"), dev)
+    return [arrays[k] for k in ("entry_feat", "entry_key", "inv_mask", "init_mask",
+                                "leaf_off", "leaf_fixed")]
+
+
 def kernel_cases(ops, tt, ir, keys, dev) -> dict:
     """The kernel cases of step 5: K1, K2 and K3 at ROWS rows, then each at
-    its SMALL_ROWS, each ``name -> (kernel call, plain call, rows, impl)``.
+    its SMALL_ROWS, then K5 (where the tree has it) at ROWS and its
+    SMALL_ROWS, each ``name -> (kernel call, plain call, rows, impl)``.
     The kernel calls go through ``ops.tree_predict_integer`` with the
     tables on the card, the node quads packed once (a tree whose K3 takes
     no quads ignores them), and each tree's own CTA heuristic: entry points
@@ -297,7 +372,41 @@ def kernel_cases(ops, tt, ir, keys, dev) -> dict:
     for impl, (tables, kw) in inputs.items():
         for rows in SMALL_ROWS[impl]:
             add(f"{impl}@{rows}", impl, rows, tables, kw)
+    if importlib.util.find_spec("repro_torch.kernels.bitvector") is not None:
+        kbv = importlib.import_module("repro_torch.kernels.bitvector")
+        bv_tables = bitvector_tables(kbv, ir, dev)
+        for rows in (ROWS, *SMALL_ROWS["bitvector"]):
+            x = keys[:rows]
+            cases["bitvector" if rows == ROWS else f"bitvector@{rows}"] = (
+                lambda x=x: kbv.tree_bitvector(x, *bv_tables),
+                lambda x=x: kbv.bitvector_plain(x, *bv_tables), rows, "bitvector")
     return cases
+
+
+def bitvector_work(ir, keys) -> tuple:
+    """(bytes, operations) of K5 on this run's rows: each input byte read
+    once and the partials written once; a compare per (row, entry), an OR
+    of W32 words per (row, entry) whose compare is false, counted from the
+    data (each feature's keys sorted once), and an add per (row, tree,
+    class)."""
+    import torch
+
+    bv = ir.materialize("bitvector")
+    b, w32 = keys.shape[0], 2 * bv.words
+    cols = torch.sort(keys.t().contiguous(), dim=1).values
+    applied = 0
+    for f in range(bv.n_features):
+        lo, hi = int(bv.feat_offsets[f]), int(bv.feat_offsets[f + 1])
+        if hi > lo:
+            thr = torch.from_numpy(bv.thr_key[lo:hi]).to(keys.device)
+            below = torch.searchsorted(cols[f], thr, right=True)
+            applied += int((b - below).sum())
+    m = int(np.bincount(bv.thr_tree, minlength=bv.n_trees).max()) if bv.total_entries else 0
+    table_bytes = 4 * (2 * bv.n_trees * m + bv.n_trees * m * w32 + bv.n_trees * w32
+                       + bv.n_trees + bv.leaf_fixed.size)
+    nbytes = keys.numel() * 4 + table_bytes + b * bv.n_classes * 4
+    ops = b * bv.total_entries + applied * w32 + b * bv.n_trees * bv.n_classes
+    return nbytes, ops, applied
 
 
 def check_and_time(cases: dict, flush, tt) -> dict:
@@ -330,19 +439,19 @@ def check_and_time(cases: dict, flush, tt) -> dict:
 # the gateway path
 # ---------------------------------------------------------------------------
 
-def gateway_workload(seed: int):
+def gateway_workload(seed: int, n_requests: int = GATEWAY_REQUESTS):
     """(request rows, arrival seconds): sizes drawn from GATEWAY_ROWS, a
     GATEWAY_REPEAT_SHARE of requests repeating an earlier request's rows,
     Poisson arrivals at GATEWAY_RATE_PER_S."""
     rng = np.random.default_rng(seed)
-    sizes = rng.choice(GATEWAY_ROWS, GATEWAY_REQUESTS, p=GATEWAY_ROW_SHARES)
+    sizes = rng.choice(GATEWAY_ROWS, n_requests, p=GATEWAY_ROW_SHARES)
     reqs = []
     for i, n in enumerate(sizes):
         if i and rng.random() < GATEWAY_REPEAT_SHARE:
             reqs.append(reqs[int(rng.integers(i))])
         else:
             reqs.append(rng.normal(0.0, 1.0, (int(n), N_FEATURES)).astype(np.float32))
-    arrivals = np.cumsum(rng.exponential(1.0 / GATEWAY_RATE_PER_S, GATEWAY_REQUESTS))
+    arrivals = np.cumsum(rng.exponential(1.0 / GATEWAY_RATE_PER_S, n_requests))
     return reqs, arrivals
 
 
@@ -435,6 +544,67 @@ def gateway_phase(forest_v1, forest_v2, seed: int, dev, card: str) -> dict:
     return gw_launches
 
 
+def plan_gateway_phase(forest, seed: int, dev, card: str) -> dict:
+    """Serve PLAN_GATEWAY_REQUESTS seeded requests through one gateway on
+    PLAN_GATEWAY_ROUTE, hold every response against the reference walk,
+    check that the stats carry one label per shard, print the gateway's
+    metrics, and return the kernel launches of the run."""
+    import asyncio
+
+    import torch
+    from repro_torch.kernels import tree_traverse as tt
+    from repro_torch.serve import Gateway, ModelRegistry, TreeEngine
+
+    reg = ModelRegistry()
+    mv = reg.register_forest(MODEL_ID, forest)
+    gw = Gateway(reg, PLAN_GATEWAY_ROUTE, max_batch_rows=GATEWAY_MAX_BATCH_ROWS,
+                 max_delay_ms=2.0, max_queue_rows=1 << 22, cache_rows=1 << 20, device=dev)
+    t0 = time.perf_counter()
+    mv.engine(gw.spec, device=dev).warm(GATEWAY_MAX_BATCH_ROWS)
+    torch.cuda.synchronize()
+    print(f"plan gateway: warmed {PLAN_GATEWAY_ROUTE} in {time.perf_counter() - t0:.2f} s")
+    reqs, arrivals = gateway_workload(seed + 3, PLAN_GATEWAY_REQUESTS)
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        start = loop.time()
+
+        async def client(i):
+            await asyncio.sleep(max(0.0, start + arrivals[i] - loop.time()))
+            return await gw.submit(MODEL_ID, reqs[i])
+
+        results = await asyncio.gather(*[client(i) for i in range(len(reqs))])
+        await gw.close()
+        return results, loop.time() - start
+
+    tt.reset_launches()
+    results, seconds = asyncio.run(run())
+    torch.cuda.synchronize()
+    launches = dict(tt.LAUNCHES)
+    rows = sum(len(x) for x in reqs)
+    print(f"plan gateway path: {len(reqs)} requests ({rows} rows) in {seconds:.3f} s, "
+          f"kernel launches {launches}")
+    all_rows = np.concatenate(reqs)
+    offsets = np.cumsum([0] + [len(x) for x in reqs])
+    want = TreeEngine(mv.packed, spec="integer:reference", device=dev).predict_scores(all_rows)
+    for i, (scores, preds) in enumerate(results):
+        lo, hi = offsets[i], offsets[i + 1]
+        if not (np.array_equal(scores, want[0][lo:hi]) and np.array_equal(preds, want[1][lo:hi])):
+            fail(f"plan gateway request {i} ({hi - lo} rows) differs from the reference walk")
+    print(f"plan gateway responses bit-identical to the reference walk: {len(reqs)}")
+    st = gw.stats()["per_model"][MODEL_ID]
+    if len(st["shards"]) != 2:
+        fail(f"plan gateway stats show shard labels {sorted(st['shards'])}, not two")
+    stage_ms = {k: h["mean"] for k, h in st["stages"].items()}
+    shard_ms = {k: round(v["ms_per_call"], 4) for k, v in st["shards"].items()}
+    print(f"{card} | plan gateway {PLAN_GATEWAY_ROUTE}: p50 {st['p50_ms']:.3f} ms, "
+          f"p99 {st['p99_ms']:.3f} ms, {st['rows_per_s']:.0f} rows/s, cache hit rate "
+          f"{st['cache_hit_rate']:.4f}, batches {st['batches']}, occupancy "
+          f"{st['batch_occupancy']:.1f} rows, shard ms per call {json.dumps(shard_ms)}, "
+          "stage ms means " + json.dumps({k: round(v, 4) for k, v in sorted(stage_ms.items())}))
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
@@ -504,19 +674,29 @@ def main() -> None:
 
     # 3. the main path, with the launch counters read around it
     routes = ("integer:cuda@leaf_major", "flint:cuda@leaf_major",
-              "integer:cuda@padded")
+              "integer:cuda@padded", "integer:bitvector", "flint:bitvector",
+              *PLAN_ROUTES)
+    t0 = time.perf_counter()
     engines = {spec: TreeEngine(ir, spec=spec) for spec in routes}
+    print(f"engines of {len(routes)} routes built in {time.perf_counter() - t0:.2f} s "
+          "(the bitvector tables materialized from the IR)")
     requests = [("integer:cuda@leaf_major", X)]
     requests += [("integer:cuda@leaf_major", X[:n]) for n in SMALL_REQUESTS]
     requests += [("flint:cuda@leaf_major", X), ("integer:cuda@padded", X)]
+    requests += [("integer:bitvector", X[:n]) for n in BITVECTOR_REQUESTS]
+    requests += [("flint:bitvector", X)] + [(spec, X) for spec in PLAN_ROUTES]
     tt.reset_launches()
     results = [engines[spec].predict_scores(rows) for spec, rows in requests]
     torch.cuda.synchronize()
     launches = dict(tt.LAUNCHES)
     print(f"main path: {len(requests)} requests, kernel launches {launches}")
-    for name in ("leaf_major", "gather"):
+    for name in ("leaf_major", "gather", "bitvector"):
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
+    for spec in PLAN_ROUTES:
+        plan = engines[spec].plan
+        print(f"  {spec}: plan {plan.name}, shards "
+              f"{[b.name for b in plan.backends]} over {plan.describe()['shards']}")
 
     # 4a. every result against the torch reference walk on the card
     refs = {mode: TreeEngine(ir, spec=f"{mode}:reference", device=dev)
@@ -533,7 +713,7 @@ def main() -> None:
             total = scores.astype(np.float64).sum(axis=1)
             if not np.all(np.isfinite(scores)) or np.abs(total - 1.0).max() > 1e-5:
                 fail("flint probabilities do not sum to 1")
-        print(f"  {spec:<24} {len(rows):>6} rows: bit-identical to {mode}:reference")
+        print(f"  {spec:<40} {len(rows):>6} rows: bit-identical to {mode}:reference")
 
     # 4b. a small request against the independent oracle on the CPU
     lm = ir.materialize("leaf_major")
@@ -573,6 +753,20 @@ def main() -> None:
     if any(errs.values()):
         fail("kernel onehot disagrees with its plain version on a malformed table: "
              + str({k: v for k, v in errs.items() if v}))
+    # K5 on a forest whose bitvectors are wider than its register chunk
+    kbv = importlib.import_module("repro_torch.kernels.bitvector")
+    wide_ir, wide_x = wide_forest(args.seed + 4)
+    wide_keys = float_to_key(torch.from_numpy(wide_x).to(dev))
+    wide_tables = bitvector_tables(kbv, wide_ir, dev)
+    wide_out = kbv.tree_bitvector(wide_keys, *wide_tables)
+    torch.cuda.synchronize()
+    wide_shape = tt.LAUNCH_SHAPES["bitvector"]
+    wide_err = max_abs_err(wide_out, kbv.bitvector_plain(wide_keys, *wide_tables))
+    print(f"kernel bitvector on a multi-word forest (chains of {WIDE_CHAINS} splits, "
+          f"W32 = {2 * wide_ir.materialize('bitvector').words}), {WIDE_ROWS} rows: "
+          f"max |kernel - plain| = {wide_err}, launched at {wide_shape}")
+    if wide_err:
+        fail("kernel bitvector disagrees with its plain version on the multi-word forest")
 
     # the bounds at the main path's shape
     lm_tables = [lm.feature, lm.threshold_key, lm.left, lm.right, lm.leaf_fixed]
@@ -586,7 +780,7 @@ def main() -> None:
         "onehot": ROWS * N_TREES * ir.max_depth,
     }
     rows_out = {}
-    for name in REPLACES:
+    for name in ("leaf_major", "gather", "onehot"):
         nbytes = table_bytes + io_bytes + (N_TREES * 4 if name == "leaf_major" else 0)
         # per walk step: the key compare, the child select and the loop's
         # own compare (K3 adds its node and feature range checks); per
@@ -598,17 +792,32 @@ def main() -> None:
               f"{n_ops} ops, {steps[name]} walk steps); no single PyTorch call computes "
               "this function, so there is no library time")
         rows_out[name] = dict(
-            name=name, route="cuda", source="src/repro_torch/csrc/tree_traverse.cu",
+            name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], max_abs_err=measured[name]["max_abs_err"],
             ms=measured[name]["ms"], warm_ms=measured[name]["warm_ms"],
             plain_ms=measured[name]["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, shape=measured[name]["shape"], small_batches=small)
+    nbytes, n_ops, applied = bitvector_work(ir, keys)
+    bound_ms, bound_by = bound(nbytes, n_ops)
+    print(f"kernel bitvector: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
+          f"{n_ops} ops, {applied} false (row, entry) pairs of "
+          f"{ROWS * ir.materialize('bitvector').total_entries}); no single PyTorch call "
+          "computes this function, so there is no library time")
+    rows_out["bitvector"] = dict(
+        name="bitvector", route="cuda", source=SOURCES["bitvector"],
+        replaces=REPLACES["bitvector"], max_abs_err=measured["bitvector"]["max_abs_err"],
+        ms=measured["bitvector"]["ms"], warm_ms=measured["bitvector"]["warm_ms"],
+        plain_ms=measured["bitvector"]["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, shape=measured["bitvector"]["shape"],
+        small_batches={f"bitvector@{r}": measured[f"bitvector@{r}"]
+                       for r in SMALL_ROWS["bitvector"]},
+        multi_word=dict(max_abs_err=wide_err, shape=wide_shape))
 
     for spec in routes:
         eng = engines[spec]
         ms = host_ms(lambda: eng.predict_scores(X), REQUEST_TIMING_REPS)
-        print(f"request {spec}: {ROWS} rows end to end (H2D, keys, kernel, D2H, "
-              f"finalize) {ms:.3f} ms median, host clock")
+        print(f"{card} | request {spec}: {ROWS} rows end to end (H2D, keys, kernels, "
+              f"D2H, merge, finalize) {ms:.3f} ms median, host clock")
 
     # the integer:cuda@leaf_major request's steps, each timed on its own
     x_dev = torch.from_numpy(X).to(dev)
@@ -625,6 +834,8 @@ def main() -> None:
     }
     print("request integer:cuda@leaf_major steps, ms median: " + ", ".join(
         f"{k} {v:.4f}" for k, v in steps_ms.items()))
+    for eng in (*engines.values(), *refs.values()):  # the plans' shard pools too
+        eng.close()
 
     # 6. the gateway path, with the launch counters read around it
     t0 = time.perf_counter()
@@ -636,9 +847,15 @@ def main() -> None:
         if gw_launches[name] == 0:
             fail(f"kernel {name} was not launched on the gateway path")
 
-    kernels_out = [dict(rows_out[name], launches=launches[name] + gw_launches[name],
-                        launches_by_path={"engine": launches[name],
-                                          "gateway": gw_launches[name]})
+    # 7. the plan gateway, with the launch counters read around it
+    plan_launches = plan_gateway_phase(forest, args.seed, dev, card)
+    if plan_launches["bitvector"] == 0 or \
+            plan_launches["leaf_major"] + plan_launches["gather"] == 0:
+        fail("the plan gateway did not launch both of its shards' kernels")
+
+    paths = {"engine": launches, "gateway": gw_launches, "plan_gateway": plan_launches}
+    kernels_out = [dict(rows_out[name], launches=sum(p[name] for p in paths.values()),
+                        launches_by_path={k: p[name] for k, p in paths.items()})
                    for name in REPLACES]
     print(card)
     print(json.dumps({"kernels": kernels_out}))

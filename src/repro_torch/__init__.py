@@ -6,9 +6,12 @@ layouts`` is the counterpart of ``repro.ir.layouts``) and imports nothing of
 it, nor JAX.  The serving path is
 
     float32 rows -> FlInt int32 keys (core.flint)
-      -> ForestIR quantized once (ir.forest_ir) -> leaf_major / padded tables
-      -> TreeEngine (serve.engine) -> single plan -> cuda backend
-      -> hand-written CUDA tree walks (kernels/, csrc/) -> uint32 partials
+      -> ForestIR quantized once (ir.forest_ir) -> leaf_major / padded /
+         bitvector tables
+      -> TreeEngine (serve.engine) -> single, tree_parallel or row_parallel
+         plan -> cuda or bitvector backend (one per tree shard)
+      -> hand-written CUDA kernels (kernels/, csrc/): the tree walks K1, K2,
+         K3 and the QuickScorer scorer K5 -> uint32 partials (merged)
       -> numpy finalize (core.ensemble.finalize_partials) -> (scores, preds)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with

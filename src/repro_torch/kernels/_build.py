@@ -1,11 +1,12 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles ``repro_torch/csrc/tree_traverse.cu`` into a shared
-library with a plain C interface, under ``build/repro_torch/`` in the
-checkout, named by a hash of the source and the flags so an edit rebuilds.
-Nothing here runs at import: the library is built and loaded by the first
-kernel launch.  A failed build raises ``BackendUnavailable`` with the
-compiler's output; nothing falls back.
+``nvcc`` compiles each source of ``repro_torch/csrc`` (``tree_traverse.cu``:
+K1, K2, K3; ``bitvector.cu``: K5) into a shared library with a plain C
+interface, under ``build/repro_torch/`` in the checkout, named by a hash of
+the source and the flags so an edit rebuilds.  The first kernel launch
+starts one ``nvcc`` per missing library, all at once, and loads every
+library; nothing here runs at import.  A failed build raises
+``BackendUnavailable`` with the compiler's output; nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,7 +21,10 @@ from pathlib import Path
 
 from repro_torch.backends.base import BackendUnavailable
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tree_traverse.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+#: library name -> its CUDA source
+SOURCES = {"tree_traverse": CSRC / "tree_traverse.cu",
+           "bitvector": CSRC / "bitvector.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -30,6 +34,8 @@ NVCC_FLAGS = (
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+#: the C entries and their argument types, by name; each library binds those
+#: it defines
 _SIGNATURES = {
     # x, quads, internal_counts, leaf, out,
     # B, F, T, N, C, rows_per_cta, trees_per_cta, walks, stage_x, stream
@@ -39,11 +45,16 @@ _SIGNATURES = {
     "intreeger_gather": [_PTR] * 4 + [_INT] * 10 + [_PTR],
     # as intreeger_gather
     "intreeger_onehot": [_PTR] * 4 + [_INT] * 10 + [_PTR],
+    # x, entry_feat, entry_key, inv_mask, init_mask, leaf_off, leaf, out,
+    # B, F, T, M, W32, L, C, rows_per_cta, trees_per_cta, words, stage_x, stream
+    "intreeger_bitvector": [_PTR] * 8 + [_INT] * 11 + [_PTR],
 }
 
 _lock = threading.Lock()
-_lib = None
-#: what the build that produced the loaded library printed, and its seconds
+_libs: dict = {}
+#: what the build that produced the loaded libraries printed: the wall
+#: seconds of the parallel build, every library's log (each headed by its
+#: source) and commands, and per library its own seconds
 BUILD_INFO: dict = {}
 
 
@@ -60,43 +71,59 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"tree_traverse-{digest.hexdigest()[:16]}.so"
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of this source already exists."""
-    target = library_path()
-    if target.exists():
+def build() -> dict:
+    """Compile every library whose source has none yet, one ``nvcc`` per
+    source, all started together; return ``{name: path}``."""
+    targets = {name: library_path(name) for name in SOURCES}
+    missing = {name: path for name, path in targets.items() if not path.exists()}
+    if not missing:
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO.setdefault("log", "(cached)")
-        return target
-    target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        return targets
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BackendUnavailable(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
-    BUILD_INFO.update(seconds=seconds, log=log, command=" ".join(cmd))
-    return target
+    jobs = {}
+    for name, target in missing.items():
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs[name] = (proc, tmp, cmd)
+    logs, failed, per_lib = [], [], {}
+    for name, (proc, tmp, cmd) in jobs.items():
+        out, _ = proc.communicate()
+        per_lib[name] = time.perf_counter() - t0
+        logs.append(f"== {SOURCES[name].name}: {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, targets[name])  # atomic: no one sees half a file
+    if failed:
+        raise BackendUnavailable("\n".join(failed))
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log="\n".join(logs),
+                      command="\n".join(" ".join(c) for _, _, c in jobs.values()),
+                      libraries=per_lib)
+    return targets
 
 
-def load_library() -> ctypes.CDLL:
-    """The bound kernel library, built on first call."""
-    global _lib
+def load_library(name: str = "tree_traverse") -> ctypes.CDLL:
+    """The bound kernel library ``name``; the first call builds and loads
+    them all."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if not _libs:
+            for lib_name, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                for fn_name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, fn_name, None)
+                    if fn is not None:
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                _libs[lib_name] = lib
+        return _libs[name]

@@ -41,11 +41,14 @@ import threading
 import torch
 
 #: kernel launches per kernel since the last reset (the wrapper adds one
-#: where it launches, and nowhere else)
-LAUNCHES = {"leaf_major": 0, "gather": 0, "onehot": 0}
+#: where it launches, and nowhere else); ``bitvector`` is K5, whose wrapper
+#: is ``kernels/bitvector.py::tree_bitvector``
+LAUNCHES = {"leaf_major": 0, "gather": 0, "onehot": 0, "bitvector": 0}
 #: the CTA shape of each kernel's last launch: rows and trees per CTA, the
-#: walks per thread, the staging and its shared memory
-LAUNCH_SHAPES = {"leaf_major": None, "gather": None, "onehot": None}
+#: walks per thread (K5: the words per chunk), the staging and its shared
+#: memory
+LAUNCH_SHAPES = {"leaf_major": None, "gather": None, "onehot": None,
+                 "bitvector": None}
 _LAUNCHES_LOCK = threading.Lock()
 
 _U32_MASK = 0xFFFFFFFF

@@ -1,9 +1,16 @@
 """Execution plans: engine -> plan -> backend partials -> merge -> finalize.
 
-Only the ``single`` plan is ported so far.
+The integer-only accumulation makes ensemble aggregation an exact,
+associative uint32 sum, so a forest can be split across backends and the
+partial scores merged with no loss.  Plans carve the forest
+(``ForestIR.subset`` tree shards, ``tree_parallel``) or the batch (row
+shards, ``row_parallel``), drive ``TreeBackend.predict_partials`` on each
+piece, merge, and run the finalize step once.  Every plan is bit-identical
+to the ``single`` plan in the deterministic modes.
 """
 from repro_torch.plan.base import (
     ExecutionPlan,
+    as_ir,
     available_plans,
     build_backend,
     create_plan,
@@ -11,15 +18,26 @@ from repro_torch.plan.base import (
     register_plan,
     select_plan,
 )
+from repro_torch.plan.row_parallel import RowParallelPlan
 from repro_torch.plan.single import SingleShardPlan
+from repro_torch.plan.tree_parallel import (
+    TreeParallelPlan,
+    thread_shard_cap,
+    tree_ranges,
+)
 
 __all__ = [
     "ExecutionPlan",
+    "RowParallelPlan",
     "SingleShardPlan",
+    "TreeParallelPlan",
+    "as_ir",
     "available_plans",
     "build_backend",
     "create_plan",
     "plan_class",
     "register_plan",
     "select_plan",
+    "thread_shard_cap",
+    "tree_ranges",
 ]

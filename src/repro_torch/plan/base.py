@@ -5,10 +5,22 @@ one logical forest is carved across executors:
 
     engine -> ExecutionPlan -> backend.predict_partials -> merge -> finalize
 
-Finalize (``core.ensemble.finalize_partials``) runs exactly once, on the
-merged uint32 accumulator.  The port registers the ``single`` plan; the
-sharded plans are still to be ported, and naming one fails in
-:func:`plan_class` as an unknown plan.
+The integer-only accumulation is what makes the split sound: the
+deterministic modes (flint/integer) accumulate exact uint32 partials, and
+uint32 addition is associative, so a forest cut into tree-contiguous
+sub-forests (``ForestIR.subset``) and merged gives the single plan's bits,
+whichever backend computed each shard.  Finalize
+(``core.ensemble.finalize_partials``) runs exactly once, on the merged
+uint32 accumulator.
+
+Three registered plans:
+  * ``single``        — one backend, the whole forest.
+  * ``tree_parallel`` — tree shards, one backend each (possibly different
+                        backends), run on a thread pool; uint32 merge.
+  * ``row_parallel``  — batch shards over one backend; bit-exact for every
+                        mode, float included.
+Plans that only serve exact-integer partial modes set
+``deterministic_only = True`` so the gateway rejects the route up front.
 
 Tracing is duck-typed: a tracer is any object with
 ``record(name, t0_ns, t1_ns, parent=..., **attrs)``.
@@ -49,10 +61,30 @@ def build_backend(backend, model, mode: str, layout: Optional[str],
     return backend
 
 
+def as_ir(model):
+    """The canonical ForestIR behind ``model`` (IR or any layout artifact)."""
+    from repro_torch.ir import ForestIR
+
+    if isinstance(model, ForestIR):
+        return model
+    ir = getattr(model, "ir", None)
+    if ir is not None:
+        return ir
+    if hasattr(model, "to_ir"):
+        return model.to_ir()
+    raise ValueError(
+        f"cannot shard a {type(model).__name__!r} artifact: no ForestIR "
+        "back-reference to carve sub-forests from"
+    )
+
+
 class ExecutionPlan(abc.ABC):
     """How one logical forest is executed: shards, merge, finalize."""
 
     name: ClassVar[str]
+    #: True for plans that only serve exact-integer partial modes (the
+    #: gateway validates the route against this before building engines)
+    deterministic_only: ClassVar[bool] = False
 
     def __init__(self, model, *, mode: str = "integer"):
         self.mode = mode
@@ -165,7 +197,7 @@ class ExecutionPlan(abc.ABC):
             self._timings[label] = (ms + seconds * 1e3, calls + 1)
 
     def _record_stage(self, stage: str, seconds: float) -> None:
-        """Accumulate one pipeline-stage sample (pad/finalize)."""
+        """Accumulate one pipeline-stage sample (pad/merge/finalize)."""
         with self._timings_lock:
             ms, calls = self._stages.get(stage, (0.0, 0))
             self._stages[stage] = (ms + seconds * 1e3, calls + 1)
@@ -173,7 +205,9 @@ class ExecutionPlan(abc.ABC):
     def _timed(self, label: str, fn, *args, span_parent=None):
         """Run ``fn`` timing it into the shard ledger (and a span when
         traced).  Backends return host arrays, so the wall time includes
-        the device work."""
+        the device work.  Shard pool threads receive the parent span
+        explicitly (captured by the dispatching thread), never via the
+        thread-local."""
         t0 = time.perf_counter_ns()
         out = fn(*args)
         t1 = time.perf_counter_ns()
@@ -199,7 +233,8 @@ class ExecutionPlan(abc.ABC):
         return {}
 
     def close(self) -> None:
-        """Release executors the plan owns (none for the single plan)."""
+        """Release executors the plan owns (the sharded plans' thread
+        pools); implementations drain in-flight work first."""
 
 
 _REGISTRY: dict = {}
@@ -228,10 +263,14 @@ def plan_class(name: str):
 
 def select_plan(plan: Optional[str], *, mode: str, backend, shards=None,
                 model=None) -> str:
-    """Capability-driven auto-selection (``plan in (None, "auto")``): one
-    shard is the single plan; several pick tree-parallel for integer
-    partials with trees to carve, else row-parallel (not ported yet, so
-    :func:`create_plan` then fails as an unknown plan)."""
+    """Capability-driven auto-selection (``plan in (None, "auto")``).
+
+    A sequence of backend names means heterogeneous tree-parallel.  One
+    shard (or none requested) is the single plan.  Several shards pick
+    tree-parallel when the mode accumulates exact integer partials and the
+    forest has trees to carve; otherwise row-parallel, which is bit-exact
+    for any mode because rows are independent.
+    """
     if plan not in (None, "auto"):
         plan_class(plan)  # fail fast on unknown names
         return plan

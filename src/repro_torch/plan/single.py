@@ -17,7 +17,7 @@ class SingleShardPlan(ExecutionPlan):
         if shards not in (None, 1):
             raise ValueError(
                 f"the single plan runs exactly one shard, got shards={shards}; "
-                "the sharded plans are not ported yet"
+                "use plan='tree_parallel' or 'row_parallel' to shard"
             )
         self.backend = build_backend(backend, model, mode, layout,
                                      backend_kwargs, device)

@@ -4,7 +4,8 @@ Request path:  client → Gateway.submit → QuantizedKeyCache (per-row probe)
              → MicroBatcher (coalesce to block-shaped batches under a
                latency deadline, admission-controlled) → ModelRegistry
                (versioned, hot-swappable) → TreeEngine (shape-bucketed)
-             → ExecutionPlan (single) → TreeBackend (cuda kernels or the
+             → ExecutionPlan (single, tree_parallel, row_parallel)
+             → TreeBackend (the cuda walks, the bitvector scorer, or the
                torch reference walk) → cache fill → response.
 """
 from repro_torch.serve.cache import QuantizedKeyCache, row_keys

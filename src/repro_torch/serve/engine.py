@@ -209,8 +209,12 @@ class TreeEngine:
     def warm(self, max_rows: int) -> None:
         """Run every bucket any batch of 1..``max_rows`` rows can map to: the
         power-of-two buckets below ``max_bucket`` and the ``max_bucket``
-        multiples at or above it.  When autotuning is armed, the candidate
-        sweep runs first, and the buckets warm whatever won."""
+        multiples at or above it.  Warming goes through the plan, so every
+        shard of a sharded plan sees the shapes real predicts hand it (row
+        chunks for row-parallel, whole buckets per tree shard), and every
+        shard's kernels are built before the first request.  When
+        autotuning is armed, the candidate sweep runs first, and the buckets
+        warm whatever won."""
         if self._pending_tune:
             self._run_autotune(max_rows)
         zeros = lambda nb: np.zeros((nb, self.packed.n_features), np.float32)

@@ -56,7 +56,9 @@ class Gateway:
     def __init__(self, registry: ModelRegistry, spec=None, *,
                  max_batch_rows: int = 256,
                  max_delay_ms: float = 2.0, max_queue_rows: int = 4096,
-                 cache_rows: int = 65536, tracer=None, device=None):
+                 cache_rows: int = 65536, tracer=None, device=None,
+                 plan_kwargs: dict = None):
+        from repro_torch.core.ensemble import mode_spec
         from repro_torch.plan import plan_class, select_plan
         from repro_torch.serve.spec import EngineSpec
 
@@ -74,29 +76,46 @@ class Gateway:
         self.mode = spec.mode
         self.backend = spec.backend
         self.layout = spec.layout  # None -> backend's preferred ForestIR layout
-        # resolve the plan once here so an impossible route (a sharded plan,
-        # which the port does not have yet) fails at construction like any
-        # other bad route, not on the first request's lazy engine build
-        plan_class(select_plan(spec.plan, mode=spec.mode, backend=spec.backend,
-                               shards=spec.shards))
+        # deployment knobs for the plan (``device_parallel``,
+        # ``clamp_shards``), forwarded to every engine this gateway builds
+        self.plan_kwargs = plan_kwargs
+        # resolve the plan once here so an impossible route (an unknown
+        # plan, or a partial-merging plan in float mode) fails at
+        # construction like any other bad route, not on the first request's
+        # lazy engine build
+        resolved_plan = select_plan(spec.plan, mode=spec.mode,
+                                    backend=spec.backend, shards=spec.shards)
+        if plan_class(resolved_plan).deterministic_only \
+                and not mode_spec(spec.mode).deterministic:
+            raise ValueError(
+                f"plan {resolved_plan!r} needs exact integer partials; mode "
+                f"{spec.mode!r} accumulates floats — use 'row_parallel' to "
+                f"shard"
+            )
         self.metrics = MetricsRegistry()
         # every engine this gateway built, so close() can release them
         self._engines: dict = {}
-        # validate the route up front and let the backend's declared
-        # capabilities decide cacheability: the cache is only sound when the
-        # backend promises bit-deterministic outputs for this mode
-        caps = backend_class(self.backend).capabilities
-        if self.mode not in caps.modes:
-            raise ValueError(
-                f"backend {self.backend!r} does not implement mode {self.mode!r}; "
-                f"supported modes: {caps.modes}"
-            )
-        if self.layout is not None:
-            caps.require_layout(self.layout, self.backend)
-        deterministic = self.mode in caps.deterministic_modes
+        # validate the route up front and let the backends' declared
+        # capabilities decide cacheability: the cache is only sound when
+        # every shard backend promises bit-deterministic outputs for this
+        # mode.  ``backend`` may be a sequence of names (heterogeneous
+        # tree-parallel shards): all of them must agree.
+        names = [self.backend] if isinstance(self.backend, str) \
+            else list(self.backend)
+        deterministic = True
+        for name in names:
+            caps = backend_class(name).capabilities
+            if self.mode not in caps.modes:
+                raise ValueError(
+                    f"backend {name!r} does not implement mode {self.mode!r}; "
+                    f"supported modes: {caps.modes}"
+                )
+            if self.layout is not None:
+                caps.require_layout(self.layout, name)
+            deterministic &= self.mode in caps.deterministic_modes
         # cache keys stay (model, version, mode, row-key): deterministic-mode
-        # scores are bit-identical across layouts and backends, so entries
-        # are shared no matter which route computed them
+        # scores are bit-identical across layouts, backends and plans, so
+        # entries are shared no matter which route computed them
         self.cache = QuantizedKeyCache(cache_rows if deterministic else 0)
         self.batcher = MicroBatcher(
             self._execute,
@@ -116,7 +135,7 @@ class Gateway:
 
     # ----------------------------------------------------------- execution
     def _engine(self, mv):
-        eng = mv.engine(self.spec, device=self.device)
+        eng = mv.engine(self.spec, device=self.device, plan_kwargs=self.plan_kwargs)
         # memoized per route inside the ModelVersion, so this dict stays
         # small: one entry per (version, route) this gateway ever dispatched.
         # Engines the registry's retention policy closed (released versions)

@@ -17,8 +17,10 @@ shard execute), ``merge`` (partial sum), ``finalize`` (reciprocal-multiply +
 argmax), ``stitch`` (response reassembly) — drained from the execution plan
 after every batch (``TreeEngine.drain_stage_timings``) and surfaced as the
 ``*_ms`` columns.  Shard timings come per label (``s0:cuda`` for the single
-plan): cumulative wall-ms and call counts — the observable that will show
-whether a sharded plan balances its shards once one is ported.
+plan, ``s0:cuda[0:64]`` and ``s1:bitvector[64:128]`` for the tree shards of
+``tree_parallel``, ``r0/2`` and ``r1/2`` for the row chunks of
+``row_parallel``): cumulative wall-ms and call counts, which show whether a
+sharded plan balances its shards.
 ``compile_ms_by_bucket`` tracks the one-time compile/warm cost of each
 padded row bucket (``TreeEngine.drain_compile_timings``).
 """

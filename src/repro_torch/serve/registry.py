@@ -35,6 +35,17 @@ from repro_torch.core.packing import PackedEnsemble, pack_forest
 from repro_torch.serve.engine import TreeEngine
 from repro_torch.trees.io import forest_from_json
 
+
+def _freeze(obj):
+    """Nested dict/list -> hashable tuples (the plan_kwargs memo-key leg)."""
+    if isinstance(obj, dict):
+        return tuple(sorted(((k, _freeze(v)) for k, v in obj.items()),
+                            key=lambda kv: kv[0]))
+    if isinstance(obj, (list, tuple)):
+        return tuple(_freeze(v) for v in obj)
+    return obj
+
+
 _ITRF_NOT_PORTED = ("the ITRF artifact is not ported yet (ROADMAP.md Queue 1 "
                     "item 8); register a forest, its JSON, or a packed artifact")
 
@@ -56,7 +67,8 @@ class ModelVersion:
     _tuned: dict = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
-    def engine(self, spec=None, *, device=None) -> TreeEngine:
+    def engine(self, spec=None, *, device=None,
+               plan_kwargs: dict = None) -> TreeEngine:
         """The memoized TreeEngine for one route on ``device`` (``cuda``
         unless ``device="cpu"`` is passed).
 
@@ -69,7 +81,11 @@ class ModelVersion:
         only in a kernel knob (``impl=onehot``) get engines of their own.
         ``autotune`` arms warm-time measured tuning (memoized separately, so
         tuned and untuned routes never alias); winners land in this
-        version's ``_tuned`` cache and survive hot-swaps.
+        version's ``_tuned`` cache and survive hot-swaps.  A sequence of
+        backend names (heterogeneous tree-parallel, ``cuda|bitvector``)
+        memoizes under the tuple, each shard on its backend's preferred
+        layout unless the spec pins one.  ``plan_kwargs`` carries plan knobs
+        (``device_parallel``, ``clamp_shards``) and is part of the memo key.
         """
         from repro_torch.backends import backend_class
         from repro_torch.device import resolve_device
@@ -78,8 +94,11 @@ class ModelVersion:
 
         spec = EngineSpec.coerce(spec, caller="ModelVersion.engine")
         dev = resolve_device(device)
-        resolved = spec.layout or \
-            backend_class(spec.backend).capabilities.preferred_layout
+        if isinstance(spec.backend, str):
+            resolved = spec.layout or \
+                backend_class(spec.backend).capabilities.preferred_layout
+        else:  # heterogeneous shard spec: memoize under the name tuple
+            resolved = spec.layout
         # memoize under the *resolved* plan so plan=None / "auto" / "single"
         # share one engine instead of building the same route per alias
         resolved_plan = select_plan(spec.plan, mode=spec.mode,
@@ -88,7 +107,7 @@ class ModelVersion:
         key = (spec.mode, spec.backend, resolved, resolved_plan,
                None if resolved_plan == "single" else spec.shards,
                bool(spec.autotune), tuple(sorted((spec.backend_kwargs or {}).items())),
-               str(dev))
+               str(dev), _freeze(plan_kwargs))
         with self._lock:
             if self.released:
                 raise RuntimeError(
@@ -100,10 +119,13 @@ class ModelVersion:
                 t0 = time.perf_counter()
                 self._engines[key] = TreeEngine(
                     self.packed, spec.replace(layout=resolved),
+                    plan_kwargs=dict(plan_kwargs) if plan_kwargs else None,
                     tuned_store=self._tuned, device=dev,
                 )
-                route = "/".join(str(p) for p in (spec.mode, spec.backend,
-                                                  resolved, resolved_plan, dev))
+                backend = spec.backend if isinstance(spec.backend, str) \
+                    else "|".join(spec.backend)
+                route = "/".join(str(p) for p in (spec.mode, backend, resolved,
+                                                  resolved_plan, dev))
                 self._build_ms[route] = (time.perf_counter() - t0) * 1e3
             return self._engines[key]
 

@@ -1,12 +1,16 @@
-"""Card-only tests of the CUDA kernels K1, K2 and K3: each against its plain
-version on the same CUDA tensors, bit for bit, with the launch counters
-showing the kernel ran, at shapes that reach each edge of their shared
+"""Card-only tests of the CUDA kernels K1, K2, K3 and K5: each against its
+plain version on the same CUDA tensors, bit for bit, with the launch
+counters showing the kernel ran, at shapes that reach each edge of their
 design (odd and even feature counts, rows too wide to stage, class counts
 that take the scalar leaf path and several class chunks, tree chunks that
-the walks per thread do not divide, rows past the last full CTA); K3 also
-on malformed tables at every walk count and staging, where K1 and K2 must
-stay inside their buffers; and two gateways on two routes serving at once
-from executor threads.  Marked ``cuda``; each
+the walks per thread do not divide, rows past the last full CTA; for K5
+bitvectors of 2, 8, 32 and 36 words, the last wider than its register
+chunk, and an all-stump forest); K3 also on malformed tables at every walk
+count and staging, where K1 and K2 must stay inside their buffers; two
+gateways on two routes serving at once from executor threads; and the
+sharded plans (``tree_parallel`` over ``cuda`` shards and over
+``cuda|bitvector``, ``row_parallel``) equal to the single plan, two threads
+serving one plan route at once.  Marked ``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
 on a machine with a card::
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.core.flint import float_to_key
 from repro_torch.ir import ForestIR
+from repro_torch.kernels import bitvector as kbv
 from repro_torch.kernels import tree_traverse as tt
 from repro_torch.kernels.ops import pick_blocks
 from repro_torch.serve import Gateway, ModelRegistry, TreeEngine
@@ -161,11 +166,13 @@ def test_kernels_match_plain_versions(card, rows, n_trees, depth, n_features, n_
         k3 = tt.tree_traverse_onehot(keys, pad_quads, pad[4], depth=ir.max_depth,
                                      _walks=walks, **blocks)
         torch.cuda.synchronize()
-        assert tt.LAUNCHES == {"leaf_major": 1, "gather": 1, "onehot": 1}
+        assert tt.LAUNCHES == {"leaf_major": 1, "gather": 1, "onehot": 1, "bitvector": 0}
         tile = dict(walks=tt.default_walks(block_t) if walks is None else walks,
                     stage_x=staged,
                     smem_bytes=tt.tile_bytes(block_b, n_features) if staged else 0)
-        assert tt.LAUNCH_SHAPES == {name: {**blocks, **tile} for name in tt.LAUNCHES}
+        assert tt.LAUNCH_SHAPES == {**{name: {**blocks, **tile}
+                                       for name in ("leaf_major", "gather", "onehot")},
+                                    "bitvector": None}
         p1 = tt.leaf_major_plain(keys, f, k, l, r, nint, leaf, **blocks)
         p2 = tt.gather_plain(keys, *pad, depth=ir.max_depth, **blocks)
         p3 = tt.onehot_plain(keys, *pad, depth=ir.max_depth, **blocks)
@@ -324,3 +331,164 @@ def test_two_gateways_serve_from_threads_at_once(card):
     assert tt.LAUNCHES["onehot"] > 0 and tt.LAUNCHES["leaf_major"] > 0
     assert tt.LAUNCHES["gather"] > 0
     assert sum(tt.LAUNCHES.values()) == batches
+
+
+# ---------------------------------------------------------------------------
+# K5 and the sharded plans
+# ---------------------------------------------------------------------------
+
+def _chain_tree(depth, n_classes):
+    """A right-leaning chain on feature 0 (``depth + 1`` leaves), thresholds
+    ``k - depth / 2``: rows spread over that range exit at every leaf."""
+    n = 2 * depth + 1
+    feature = np.full(n, -1, np.int32)
+    threshold = np.zeros(n, np.float32)
+    left = np.arange(n, dtype=np.int32)
+    right = left.copy()
+    probs = np.zeros((n, n_classes))
+    for k in range(depth):
+        feature[2 * k] = 0
+        threshold[2 * k] = k - depth / 2.0
+        left[2 * k], right[2 * k] = 2 * k + 1, 2 * k + 2
+        probs[2 * k + 1, k % n_classes] = 1.0
+    probs[n - 1, (depth + 1) % n_classes] = 1.0
+    return TreeArrays(feature=feature, threshold=threshold, left=left, right=right,
+                      leaf_probs=probs, depth=depth)
+
+
+def _stump(n_classes, seed):
+    probs = np.random.default_rng(seed).dirichlet(np.ones(n_classes))[None]
+    return TreeArrays(feature=np.array([-1], np.int32), threshold=np.zeros(1, np.float32),
+                      left=np.zeros(1, np.int32), right=np.zeros(1, np.int32),
+                      leaf_probs=probs, depth=0)
+
+
+#: name -> (chain depths, random trees, classes, features); the longest
+#: chain sets the bitvector's width: W32 = 2 * ceil((depth + 1) / 64)
+BITVECTOR_CASES = {
+    "W32=2, C=3": ((), 7, 3, 9),
+    "W32=8, C=8": ((200,), 4, 8, 9),
+    "W32=32, C=1": ((1000,), 3, 1, 9),
+    "W32=36, C=3": ((1100, 9), 0, 3, 9),
+    "all stumps, C=8": (None, 0, 8, 9),
+    "W32=8, C=3, unstaged": ((200,), 2, 3, 2000),
+}
+
+
+def _bitvector_case(name, rows):
+    from types import SimpleNamespace
+
+    chains, n_random, n_classes, n_features = BITVECTOR_CASES[name]
+    rng = np.random.default_rng(len(name))
+    if chains is None:
+        trees = [_stump(n_classes, s) for s in range(3)]
+    else:
+        trees = [_chain_tree(d, n_classes) for d in chains]
+        trees += [_random_tree(rng, 6, n_features, n_classes) for _ in range(n_random)]
+    ir = ForestIR.from_forest(SimpleNamespace(trees_=trees, n_classes_=n_classes,
+                                              n_features_=n_features))
+    spread = max(chains or (0,)) / 2.0 + 4.0
+    x = rng.uniform(-spread, spread, (rows, n_features)).astype(np.float32)
+    return ir, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 20, 1000])
+@pytest.mark.parametrize("name", sorted(BITVECTOR_CASES))
+def test_bitvector_kernel_matches_plain_version(card, name, rows):
+    """K5 equals its plain version (max |kernel - plain| = 0) at each width,
+    class count and row count, at its own CTA shape and pinned ones, and
+    counts one launch per call."""
+    ir, x = _bitvector_case(name, rows)
+    bv = ir.materialize("bitvector")
+    arrays = kbv.bitvector_device_arrays(bv, card)
+    arrays.pop("n_entry_slots")
+    tables = [arrays[k] for k in ("entry_feat", "entry_key", "inv_mask", "init_mask",
+                                  "leaf_off", "leaf_fixed")]
+    w32 = 2 * bv.words
+    assert w32 == {"W32=2": 2, "W32=8": 8, "W32=32": 32, "W32=36": 36,
+                   "all stumps": 2}[name.split(",")[0]]
+    keys = float_to_key(torch.from_numpy(x).to(card))
+    ref = kbv.bitvector_plain(keys, *tables)
+    for blocks in ({}, dict(block_b=32, block_t=1), dict(block_b=64, block_t=3),
+                   dict(block_b=512, block_t=ir.n_trees)):
+        tt.reset_launches()
+        out = kbv.tree_bitvector(keys, *tables, **blocks)
+        torch.cuda.synchronize()
+        assert tt.LAUNCHES == {"leaf_major": 0, "gather": 0, "onehot": 0, "bitvector": 1}
+        shape = tt.LAUNCH_SHAPES["bitvector"]
+        assert shape["words"] == kbv.chunk_words(w32)
+        assert shape["word_chunks"] == -(-w32 // shape["words"])
+        assert shape["stage_x"] == tt.stages_x(ir.n_features)
+        assert out.dtype == torch.uint32 and out.shape == (rows, ir.n_classes)
+        np.testing.assert_array_equal(out.view(torch.int32).cpu().numpy(),
+                                      ref.view(torch.int32).cpu().numpy(),
+                                      err_msg=f"{name}, {rows} rows, {blocks}")
+
+
+@pytest.mark.cuda
+def test_bitvector_engine_on_card_matches_reference_on_cpu(card):
+    ir, x = _bitvector_case("W32=8, C=8", 300)
+    for spec in ("integer:bitvector", "flint:bitvector"):
+        tt.reset_launches()
+        eng = TreeEngine(ir, spec=spec)
+        cpu = TreeEngine(ir, spec=spec.split(":")[0] + ":reference", device="cpu")
+        for b in (1, 20, 37, 300):
+            s, p = eng.predict_scores(x[:b])
+            s_ref, p_ref = cpu.predict_scores(x[:b])
+            np.testing.assert_array_equal(s, s_ref)
+            np.testing.assert_array_equal(p, p_ref)
+        assert tt.LAUNCHES["bitvector"] == 4
+
+
+@pytest.mark.cuda
+def test_sharded_plans_on_card_match_the_single_plan(card):
+    """``tree_parallel`` over threaded ``cuda`` shards and over
+    ``cuda|bitvector``, and ``row_parallel``, equal the single plan on the
+    card; each shard launches its own kernels."""
+    ir = _forest(21, 24, 7, 9, 4)
+    x = np.random.default_rng(6).normal(size=(700, 9)).astype(np.float32)
+    single = TreeEngine(ir, spec="integer:cuda")
+    for spec, kernels in (("integer:cuda+tree_parallel:2", {"leaf_major"}),
+                          ("integer:cuda|bitvector+tree_parallel:2",
+                           {"leaf_major", "bitvector"}),
+                          ("integer:cuda+row_parallel:2", {"leaf_major"}),
+                          ("flint:cuda|bitvector", {"leaf_major", "bitvector"})):
+        eng = TreeEngine(ir, spec=spec)
+        ref = single if spec.startswith("integer") else TreeEngine(ir, spec="flint:cuda")
+        tt.reset_launches()
+        for b in (300, 700):
+            s, p = eng.predict_scores(x[:b])
+            s_ref, p_ref = ref.predict_scores(x[:b])
+            np.testing.assert_array_equal(s, s_ref, err_msg=spec)
+            np.testing.assert_array_equal(p, p_ref, err_msg=spec)
+        assert {k for k, v in tt.LAUNCHES.items() if v} == kernels, spec
+        assert all(b.device.type == "cuda" for b in eng.plan.backends)
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_two_threads_serve_a_plan_route_at_once(card):
+    """Two threads call one ``cuda|bitvector`` tree-parallel engine at once
+    (so four shard threads launch K1 and K5 together); every answer equals
+    the CPU reference."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    ir = _forest(22, 16, 7, 9, 4)
+    eng = TreeEngine(ir, spec="integer:cuda|bitvector+tree_parallel:2")
+    ref = TreeEngine(ir, spec="integer:reference", device="cpu")
+    rng = np.random.default_rng(7)
+    reqs = [rng.normal(size=(int(rng.choice([1, 20, 300])), 9)).astype(np.float32)
+            for _ in range(40)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            outs = list(pool.map(eng.predict_scores, reqs))
+    finally:
+        sys.setswitchinterval(old)
+    for x, (s, p) in zip(reqs, outs):
+        s_ref, p_ref = ref.predict_scores(x)
+        np.testing.assert_array_equal(s, s_ref)
+        np.testing.assert_array_equal(p, p_ref)
+    eng.close()

@@ -148,12 +148,18 @@ def test_cuda_spec_renames_pallas_only(mode, layout):
 
 
 def test_spec_validates_against_the_ports_registries():
+    """Names the port does not register fail to parse; the QuickScorer
+    layout and backend and the sharded plans are registered now."""
     with pytest.raises(ValueError, match="backend"):
         EngineSpec.parse("integer:pallas")
     with pytest.raises(ValueError, match="layout"):
-        EngineSpec.parse("integer:reference@bitvector")
+        EngineSpec.parse("integer:reference@packed_leaf")
     with pytest.raises(ValueError, match="plan"):
-        EngineSpec.parse("integer:reference+tree_parallel:2")
+        EngineSpec.parse("integer:reference+remote_tree_parallel:2")
+    for text in ("integer:bitvector@bitvector", "integer:reference+tree_parallel:2",
+                 "float:reference+row_parallel:3", "integer:cuda|bitvector"):
+        assert EngineSpec.parse(text).canonical() == JEngineSpec.parse(
+            text.replace("cuda", "pallas")).canonical().replace("pallas", "cuda")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, trained):
@@ -173,9 +179,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, trained):
 
 
 def test_unported_routes_fail_loudly(trained):
-    """Sharded plans and float on the kernels still fail loudly; the
-    autotuned route and the one-hot walk (K3) now build and equal the JAX
-    engines."""
+    """Float on the kernels and plans the port does not register still fail
+    loudly; the autotuned route, the one-hot walk (K3) and the sharded plans
+    now build and equal the JAX engines."""
     ir = ForestIR.from_forest(trained)
     jir = JForestIR.from_forest(trained)
     x = np.random.default_rng(8).normal(0.0, 2.0, (45, ir.n_features)).astype(np.float32)
@@ -188,11 +194,18 @@ def test_unported_routes_fail_loudly(trained):
         np.testing.assert_array_equal(s, np.asarray(s_ref))
         np.testing.assert_array_equal(p, np.asarray(p_ref))
     assert eng.backend.impl == "onehot"
+    for spec in (EngineSpec(backend="cuda", plan="tree_parallel", shards=2),
+                 EngineSpec(backend="cuda", shards=2)):
+        eng = TreeEngine(ir, spec=spec, device="cpu")
+        assert eng.plan_name == "tree_parallel" and eng.n_shards == 2
+        s, p = eng.predict_scores(x)
+        s_ref, p_ref = JTreeEngine(jir, spec=spec.replace(backend="pallas")
+                                   .canonical()).predict_scores(x)
+        np.testing.assert_array_equal(s, np.asarray(s_ref))
+        np.testing.assert_array_equal(p, np.asarray(p_ref))
     with pytest.raises(KeyError, match="unknown plan"):
-        TreeEngine(ir, spec=EngineSpec(backend="cuda", plan="tree_parallel", shards=2),
-                   device="cpu")
-    with pytest.raises(KeyError, match="unknown plan"):
-        TreeEngine(ir, spec=EngineSpec(backend="cuda", shards=2), device="cpu")
+        TreeEngine(ir, spec=EngineSpec(backend="cuda", plan="remote_tree_parallel",
+                                       shards=2), device="cpu")
     with pytest.raises(ValueError, match="mode"):
         TreeEngine(ir, spec="float:cuda", device="cpu")
 

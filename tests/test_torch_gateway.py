@@ -265,9 +265,10 @@ def test_gateway_rejects_bad_routes_and_rows(data):
     reg = ModelRegistry()
     reg.register_forest("m", v1)
     with pytest.raises(ValueError, match="unknown plan"):
-        Gateway(reg, "integer:cuda+tree_parallel:2", device="cpu")
-    with pytest.raises(KeyError, match="unknown plan"):  # shards=2 picks a sharded plan
-        Gateway(reg, EngineSpec(backend="cuda", shards=2), device="cpu")
+        Gateway(reg, "integer:cuda+remote_tree_parallel:2", device="cpu")
+    with pytest.raises(ValueError, match="partials"):  # shards=2 picks tree_parallel
+        Gateway(reg, EngineSpec(mode="float", backend="reference", shards=2,
+                                plan="tree_parallel"), device="cpu")
     with pytest.raises(ValueError, match="mode"):
         Gateway(reg, "float:cuda", device="cpu")
     with pytest.raises(ValueError, match="layout"):

@@ -1,6 +1,7 @@
 """Import hygiene: the port and ``chip_smoke.py`` import neither JAX nor any
 module of the JAX package.  Every module of the port is imported, and the
-gateway slice's modules must be among them."""
+modules of the gateway slice and of the QuickScorer and sharded-plan slice
+must be among them."""
 import os
 import subprocess
 import sys
@@ -29,11 +30,16 @@ GATEWAY_SLICE = [f"repro_torch.{m}" for m in (
     "serve.metrics", "serve.cache", "serve.queue", "serve.registry",
     "serve.gateway", "serve.autotune", "trees.cart", "trees.forest", "trees.io",
 )]
+QUICKSCORER_AND_PLANS_SLICE = [f"repro_torch.{m}" for m in (
+    "ir.bitvector", "kernels.bitvector", "backends.bitvector",
+    "plan.tree_parallel", "plan.row_parallel",
+)]
 
 
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT),
-                           ",".join(GATEWAY_SLICE)], env=env,
+                           ",".join(GATEWAY_SLICE + QUICKSCORER_AND_PLANS_SLICE)],
+                          env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
