@@ -384,29 +384,33 @@ def kernel_cases(ops, tt, ir, keys, dev) -> dict:
 
 
 def bitvector_work(ir, keys) -> tuple:
-    """(bytes, operations) of K5 on this run's rows: each input byte read
-    once and the partials written once; a compare per (row, entry), an OR
-    of W32 words per (row, entry) whose compare is false, counted from the
-    data (each feature's keys sorted once), and an add per (row, tree,
-    class)."""
+    """(bytes, operations, false pairs, ORs) of K5 on this run's rows: each
+    input byte read once and the partials written once; a compare per (row,
+    entry); for each (row, entry) whose compare is false, an OR of each
+    nonzero word of the entry's clear set (a clear set is one leaf range, so
+    most span one word); and an add per (row, tree, class).  The false pairs
+    are counted from the data, each feature's keys sorted once."""
     import torch
 
     bv = ir.materialize("bitvector")
     b, w32 = keys.shape[0], 2 * bv.words
     cols = torch.sort(keys.t().contiguous(), dim=1).values
-    applied = 0
+    nonzero_words = torch.from_numpy(
+        ((~bv.thr_mask).view(np.uint32).reshape(-1, w32) != 0).sum(1)).to(keys.device)
+    applied = ors = 0
     for f in range(bv.n_features):
         lo, hi = int(bv.feat_offsets[f]), int(bv.feat_offsets[f + 1])
         if hi > lo:
             thr = torch.from_numpy(bv.thr_key[lo:hi]).to(keys.device)
-            below = torch.searchsorted(cols[f], thr, right=True)
-            applied += int((b - below).sum())
+            false_rows = b - torch.searchsorted(cols[f], thr, right=True)
+            applied += int(false_rows.sum())
+            ors += int((false_rows * nonzero_words[lo:hi]).sum())
     m = int(np.bincount(bv.thr_tree, minlength=bv.n_trees).max()) if bv.total_entries else 0
     table_bytes = 4 * (2 * bv.n_trees * m + bv.n_trees * m * w32 + bv.n_trees * w32
                        + bv.n_trees + bv.leaf_fixed.size)
     nbytes = keys.numel() * 4 + table_bytes + b * bv.n_classes * 4
-    ops = b * bv.total_entries + applied * w32 + b * bv.n_trees * bv.n_classes
-    return nbytes, ops, applied
+    ops = b * bv.total_entries + ors + b * bv.n_trees * bv.n_classes
+    return nbytes, ops, applied, ors
 
 
 def check_and_time(cases: dict, flush, tt) -> dict:
@@ -797,11 +801,12 @@ def main() -> None:
             ms=measured[name]["ms"], warm_ms=measured[name]["warm_ms"],
             plain_ms=measured[name]["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, shape=measured[name]["shape"], small_batches=small)
-    nbytes, n_ops, applied = bitvector_work(ir, keys)
+    nbytes, n_ops, applied, ors = bitvector_work(ir, keys)
     bound_ms, bound_by = bound(nbytes, n_ops)
     print(f"kernel bitvector: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
-          f"{n_ops} ops, {applied} false (row, entry) pairs of "
-          f"{ROWS * ir.materialize('bitvector').total_entries}); no single PyTorch call "
+          f"{n_ops} ops: {ors} ORs of nonzero mask words over {applied} false "
+          f"(row, entry) pairs of {ROWS * ir.materialize('bitvector').total_entries}); "
+          "no single PyTorch call "
           "computes this function, so there is no library time")
     rows_out["bitvector"] = dict(
         name="bitvector", route="cuda", source=SOURCES["bitvector"],

@@ -20,15 +20,15 @@
 // (B, T, W32) cleared-bit tensor in device memory (1.07 GB at 65,536 rows of
 // the full-width model) and rewrites it at every one of the M = 1,023 steps.
 //
-// Design (`bitvector_tile<kW, kStaged>`).  One thread per (row, tree chunk):
+// Design (`bitvector_tile<kStaged>`).  One thread per (row, tree chunk):
 // a CTA holds `rows_per_cta` rows, one per thread, and one chunk of
 // `trees_per_cta` trees (grid.y); grid.z carries class chunks of up to
 // kClassChunk classes, summed in registers.
-//   (a) the cleared-bit set lives in registers: kW words, a template
-//       argument, fully unrolled; a bitvector wider than kW = 32 words is
-//       scored in chunks of 32 words, lowest first, each chunk re-reading
-//       the tree's entries, until a chunk holds a surviving bit (no width is
-//       refused);
+//   (a) the cleared-bit set lives in registers: kW = 32 words, fully
+//       unrolled, each word guarded by the width, so every W32 runs on the
+//       one body; a bitvector wider than 32 words is scored in chunks of 32
+//       words, lowest first, each chunk re-reading the tree's entries, until
+//       a chunk holds a surviving bit (no width is refused);
 //   (b) every thread of a CTA scores the same tree at the same slot, so the
 //       entry's feature, key and mask words are warp-uniform loads: one
 //       broadcast per warp, 16-byte loads where W32 % 4 == 0;
@@ -45,16 +45,20 @@
 // leaf row into [0, L).  Where no bit survives (never on a layout of real
 // trees) the leaf is 32, as _bitvector_partials computes it.
 //
-// What bounds it.  Per (row, tree) it compares at every one of the tree's
-// entries and ORs W32 words for each false one, whatever path the row takes:
-// 1,023 compares and about 16,000 ORs at depth 10 and W32 = 32, against 10
-// steps of a walk.  At 65,536 rows of the full-width model that is about
-// 1.4e11 operations (2 ms at the H100's 67 TOP/s) against about 47 MB that
+// What bounds it.  Per (row, tree) the function needs a compare at every one
+// of the tree's entries and, for each false one, an OR of the nonzero words
+// of its clear set.  A clear set is one contiguous leaf range, so in a
+// complete tree of depth 10 (W32 = 32) all but the 15 nodes of the top four
+// levels clear 32 leaves or fewer: about one nonzero word per mask, not 32.
+// At 65,536 rows of the full-width model that is about 8.6e9 compares and
+// 4.5e9 ORs, about 1.3e10 operations (about 0.2 ms at the H100's 67 TOP/s;
+// chip_smoke.py counts it from each run's data) against about 47 MB that
 // must move (keys 22.8 MB, masks 16.8 MB, leaves 4.2 MB, partials 2.1 MB:
-// 0.014 ms at 3.35 TB/s), so K5 is bound by operations: the instruction rate
-// and the uniform loads of the mask words, which stay in the 50 MB L2.
-// QuickScorer's per-feature early exit, and range masks in place of
-// 128-byte masks, are the levers for a later version.
+// 0.014 ms at 3.35 TB/s), so the bound is set by operations.  This body ORs
+// all 32 words of every applied mask and loads them as warp-uniform reads,
+// about 30 times the ORs the data needs; QuickScorer's per-feature early
+// exit, and range masks (a first word and a word count) in place of 128-byte
+// masks, are the levers for a later version.
 //
 // The host entry launches on the caller's stream and returns
 // cudaGetLastError(), which the Python wrapper turns into an exception.
@@ -67,6 +71,8 @@
 namespace {
 
 constexpr int kClassChunk = 8;
+// the words of the cleared-bit set kept in registers
+constexpr int kW = 32;
 constexpr int kMaxTileRows = 512;
 constexpr size_t kMaxSmemPerCta = 232448;
 constexpr size_t kDefaultSmem = 48 * 1024;
@@ -89,24 +95,21 @@ struct BvArgs {
 // mw points at word w0 of an entry's clear set.  W32 is even and w0 a
 // multiple of kW, so the uint2 reads are 8-byte aligned, and with vec4
 // (W32 % 4 == 0, a 16-byte aligned table) the uint4 reads 16-byte aligned.
-template <int kW>
 __device__ __forceinline__ void or_mask(unsigned (&cleared)[kW],
                                         const unsigned* __restrict__ mw,
                                         int words_left, unsigned sel, bool vec4) {
-  if constexpr (kW >= 4) {
-    if (vec4) {
+  if (vec4) {
 #pragma unroll
-      for (int j = 0; j < kW / 4; ++j) {
-        if (4 * j < words_left) {
-          const uint4 v = __ldg(reinterpret_cast<const uint4*>(mw) + j);
-          cleared[4 * j] |= v.x & sel;
-          cleared[4 * j + 1] |= v.y & sel;
-          cleared[4 * j + 2] |= v.z & sel;
-          cleared[4 * j + 3] |= v.w & sel;
-        }
+    for (int j = 0; j < kW / 4; ++j) {
+      if (4 * j < words_left) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(mw) + j);
+        cleared[4 * j] |= v.x & sel;
+        cleared[4 * j + 1] |= v.y & sel;
+        cleared[4 * j + 2] |= v.z & sel;
+        cleared[4 * j + 3] |= v.w & sel;
       }
-      return;
     }
+    return;
   }
 #pragma unroll
   for (int j = 0; j < kW / 2; ++j) {
@@ -119,7 +122,7 @@ __device__ __forceinline__ void or_mask(unsigned (&cleared)[kW],
 }
 
 // (a), (b), (e): tree t's exit leaf for the row whose keys `xr` points at.
-template <int kW, bool kStaged>
+template <bool kStaged>
 __device__ __forceinline__ int exit_leaf(const BvArgs& a, const int* __restrict__ xr,
                                          int t, bool vec4) {
   const size_t slot0 = static_cast<size_t>(t) * a.M;
@@ -137,7 +140,7 @@ __device__ __forceinline__ int exit_leaf(const BvArgs& a, const int* __restrict_
       const int f = min(max(__ldg(feat + m), 0), a.F - 1);
       const int xv = kStaged ? xr[f] : __ldg(xr + f);
       const unsigned sel = xv > __ldg(key + m) ? ~0u : 0u;
-      or_mask<kW>(cleared, inv + static_cast<size_t>(m) * a.W32 + w0, words_left, sel,
+      or_mask(cleared, inv + static_cast<size_t>(m) * a.W32 + w0, words_left, sel,
                   vec4);
     }
     // the lowest surviving bit of the chunk: scan its words high to low and
@@ -179,7 +182,7 @@ __device__ __forceinline__ void add_leaf(unsigned (&acc)[kClassChunk],
   }
 }
 
-template <int kW, bool kStaged>
+template <bool kStaged>
 __global__ void __launch_bounds__(kMaxTileRows) bitvector_tile(const BvArgs a) {
   extern __shared__ int tile[];
   const int row0 = blockIdx.x * blockDim.x;
@@ -217,7 +220,7 @@ __global__ void __launch_bounds__(kMaxTileRows) bitvector_tile(const BvArgs a) {
       a.W32 % 4 == 0 && (reinterpret_cast<uintptr_t>(a.inv_mask) & 15) == 0;
   unsigned acc[kClassChunk] = {0u};
   for (int t = t_begin; t < t_end; ++t) {
-    const int leaf = exit_leaf<kW, kStaged>(a, xr, t, vec_mask);
+    const int leaf = exit_leaf<kStaged>(a, xr, t, vec_mask);
     const long long at = static_cast<long long>(__ldg(a.leaf_off + t)) + leaf;
     const long long idx = at < 0 ? 0 : (at >= a.L ? a.L - 1 : at);
     add_leaf(acc, a.leaf + static_cast<size_t>(idx) * a.C + c0, classes_left, vec_leaf);
@@ -229,32 +232,17 @@ __global__ void __launch_bounds__(kMaxTileRows) bitvector_tile(const BvArgs a) {
   }
 }
 
-template <int kW>
-int launch_as(const BvArgs& a, dim3 grid, int threads, size_t smem, bool staged,
-              cudaStream_t stream) {
-  auto kernel = staged ? bitvector_tile<kW, true> : bitvector_tile<kW, false>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-// `out` must hold B*C zeros; the kernel adds into it.  `words` is the chunk
-// of the bitvector kept in registers (2, 4, 8, 16 or 32; W32 > words is
-// scored in chunks); `stage_x` stages the row tile in shared memory
-// (rows_per_cta * (F | 1) * 4 bytes).
+// `out` must hold B*C zeros; the kernel adds into it.  `stage_x` stages the
+// row tile in shared memory (rows_per_cta * (F | 1) * 4 bytes).
 int intreeger_bitvector(const void* x, const void* entry_feat, const void* entry_key,
                         const void* inv_mask, const void* init_mask,
                         const void* leaf_off, const void* leaf, void* out, int B,
                         int F, int T, int M, int W32, int L, int C, int rows_per_cta,
-                        int trees_per_cta, int words, int stage_x, void* stream) {
+                        int trees_per_cta, int stage_x, void* stream) {
   if (B == 0 || T == 0 || C == 0) return static_cast<int>(cudaSuccess);
   if (rows_per_cta < 32 || rows_per_cta > kMaxTileRows || rows_per_cta % 32 != 0 ||
       trees_per_cta < 1 || F < 1 || L < 1 || M < 0 || W32 < 2 || W32 % 2 != 0)
@@ -274,16 +262,14 @@ int intreeger_bitvector(const void* x, const void* entry_feat, const void* entry
   const dim3 grid((B + rows_per_cta - 1) / rows_per_cta,
                   (T + trees_per_cta - 1) / trees_per_cta,
                   (C + kClassChunk - 1) / kClassChunk);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool staged = stage_x != 0;
-  switch (words) {
-    case 2: return launch_as<2>(a, grid, rows_per_cta, smem, staged, s);
-    case 4: return launch_as<4>(a, grid, rows_per_cta, smem, staged, s);
-    case 8: return launch_as<8>(a, grid, rows_per_cta, smem, staged, s);
-    case 16: return launch_as<16>(a, grid, rows_per_cta, smem, staged, s);
-    case 32: return launch_as<32>(a, grid, rows_per_cta, smem, staged, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = stage_x ? bitvector_tile<true> : bitvector_tile<false>;
+  if (smem > kDefaultSmem) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
+  kernel<<<grid, rows_per_cta, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

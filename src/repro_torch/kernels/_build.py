@@ -1,12 +1,13 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles each source of ``repro_torch/csrc`` (``tree_traverse.cu``:
-K1, K2, K3; ``bitvector.cu``: K5) into a shared library with a plain C
+``nvcc`` compiles every source of ``repro_torch/csrc`` (``tree_traverse.cu``:
+K1, K2, K3; ``bitvector.cu``: K5) into one shared library with a plain C
 interface, under ``build/repro_torch/`` in the checkout, named by a hash of
-the source and the flags so an edit rebuilds.  The first kernel launch
-starts one ``nvcc`` per missing library, all at once, and loads every
-library; nothing here runs at import.  A failed build raises
-``BackendUnavailable`` with the compiler's output; nothing falls back.
+the sources and the flags so an edit rebuilds.  The sources compile side by
+side, one ``nvcc`` each, all started together, and one more ``nvcc`` links
+them.  Nothing here runs at import: the library is built and loaded by the
+first kernel launch.  A failed build raises ``BackendUnavailable`` with the
+compiler's output; nothing falls back.
 """
 from __future__ import annotations
 
@@ -22,20 +23,14 @@ from pathlib import Path
 from repro_torch.backends.base import BackendUnavailable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-#: library name -> its CUDA source
-SOURCES = {"tree_traverse": CSRC / "tree_traverse.cu",
-           "bitvector": CSRC / "bitvector.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-#: the C entries and their argument types, by name; each library binds those
-#: it defines
 _SIGNATURES = {
     # x, quads, internal_counts, leaf, out,
     # B, F, T, N, C, rows_per_cta, trees_per_cta, walks, stage_x, stream
@@ -46,15 +41,13 @@ _SIGNATURES = {
     # as intreeger_gather
     "intreeger_onehot": [_PTR] * 4 + [_INT] * 10 + [_PTR],
     # x, entry_feat, entry_key, inv_mask, init_mask, leaf_off, leaf, out,
-    # B, F, T, M, W32, L, C, rows_per_cta, trees_per_cta, words, stage_x, stream
-    "intreeger_bitvector": [_PTR] * 8 + [_INT] * 11 + [_PTR],
+    # B, F, T, M, W32, L, C, rows_per_cta, trees_per_cta, stage_x, stream
+    "intreeger_bitvector": [_PTR] * 8 + [_INT] * 10 + [_PTR],
 }
 
 _lock = threading.Lock()
-_libs: dict = {}
-#: what the build that produced the loaded libraries printed: the wall
-#: seconds of the parallel build, every library's log (each headed by its
-#: source) and commands, and per library its own seconds
+_lib = None
+#: what the build that produced the loaded library printed, and its seconds
 BUILD_INFO: dict = {}
 
 
@@ -71,59 +64,69 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
 
 
-def build() -> dict:
-    """Compile every library whose source has none yet, one ``nvcc`` per
-    source, all started together; return ``{name: path}``."""
-    targets = {name: library_path(name) for name in SOURCES}
-    missing = {name: path for name, path in targets.items() if not path.exists()}
-    if not missing:
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"intreeger-{digest.hexdigest()[:16]}.so"
+
+
+def _run(cmds: list) -> list:
+    """Start every command at once; wait for all; (cmd, exit code, output)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    return [(cmd, proc.returncode, out) for cmd, proc, out in zip(cmds, procs, outs)]
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of these sources already exists."""
+    target = library_path()
+    if target.exists():
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO.setdefault("log", "(cached)")
-        return targets
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return target
+    target.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+    compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources(), objs)]
+    link_cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    jobs = {}
-    for name, target in missing.items():
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        jobs[name] = (proc, tmp, cmd)
-    logs, failed, per_lib = [], [], {}
-    for name, (proc, tmp, cmd) in jobs.items():
-        out, _ = proc.communicate()
-        per_lib[name] = time.perf_counter() - t0
-        logs.append(f"== {SOURCES[name].name}: {' '.join(cmd)}\n{out}")
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
-        else:
-            os.replace(tmp, targets[name])  # atomic: no one sees half a file
+    try:
+        results = _run(compile_cmds)
+        if all(rc == 0 for _, rc, _ in results):
+            results += _run([link_cmd])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    log = "\n".join(f"== {' '.join(cmd)}\n{out}" for cmd, _, out in results)
+    failed = [(cmd, rc) for cmd, rc, _ in results if rc != 0]
     if failed:
-        raise BackendUnavailable("\n".join(failed))
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log="\n".join(logs),
-                      command="\n".join(" ".join(c) for _, _, c in jobs.values()),
-                      libraries=per_lib)
-    return targets
+        tmp.unlink(missing_ok=True)
+        cmd, rc = failed[0]
+        raise BackendUnavailable(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    BUILD_INFO.update(seconds=seconds, log=log,
+                      command="\n".join(" ".join(cmd) for cmd, _, _ in results))
+    return target
 
 
-def load_library(name: str = "tree_traverse") -> ctypes.CDLL:
-    """The bound kernel library ``name``; the first call builds and loads
-    them all."""
+def load_library() -> ctypes.CDLL:
+    """The bound kernel library, built on first call."""
+    global _lib
     with _lock:
-        if not _libs:
-            for lib_name, path in build().items():
-                lib = ctypes.CDLL(str(path))
-                for fn_name, argtypes in _SIGNATURES.items():
-                    fn = getattr(lib, fn_name, None)
-                    if fn is not None:
-                        fn.argtypes = argtypes
-                        fn.restype = ctypes.c_int
-                _libs[lib_name] = lib
-        return _libs[name]
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

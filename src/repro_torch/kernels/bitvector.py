@@ -1,6 +1,6 @@
 """K5, the QuickScorer scorer, beside its plain version.
 
-  * K5 ``tree_bitvector``: the CUDA kernel ``bitvector_tile<kW, staged>`` in
+  * K5 ``tree_bitvector``: the CUDA kernel ``bitvector_tile<staged>`` in
     ``repro_torch/csrc/bitvector.cu``.  It replaces the JAX package's
     ``kernels/bitvector.py::_bitvector_partials``, which is jnp, not Pallas:
     XLA scores every entry slot of every tree over a (B, T, W32) cleared-bit
@@ -40,9 +40,9 @@ _U32_MASK = 0xFFFFFFFF
 #: the plain version's (rows, T, W32) int32 cleared-bit tensor per chunk of
 #: rows: 64 MiB, 4,096 rows of the full-width model
 _PLAIN_CHUNK_BYTES = 64 << 20
-#: the word chunks K5 is built for; a bitvector wider than the last is
-#: scored in chunks of that many words, lowest first
-CHUNK_WORDS = (2, 4, 8, 16, 32)
+#: the words of the cleared-bit set K5 keeps in registers; a wider
+#: bitvector is scored in chunks of that many words, lowest first
+CHUNK_WORDS = 32
 
 
 def bitvector_device_arrays(bv, device=None) -> dict:
@@ -150,13 +150,6 @@ def bitvector_plain(x_keys, entry_feat, entry_key, inv_mask, init_mask,
 # CTA shape and the kernel wrapper
 # ---------------------------------------------------------------------------
 
-def chunk_words(w32: int) -> int:
-    """The word chunk K5 is launched at for a W32-word bitvector: the
-    smallest of :data:`CHUNK_WORDS` that holds it, else the largest (the
-    bitvector is then scored chunk by chunk)."""
-    return next((w for w in CHUNK_WORDS if w >= w32), CHUNK_WORDS[-1])
-
-
 def pick_blocks(b: int, t: int, n_features: int, sm_count: int = None):
     """(rows per CTA, trees per CTA) for K5: the walks' rows per CTA
     (``ops.ROWS_PER_CTA``, or the most whose staged tile fits) and tree
@@ -215,19 +208,17 @@ def _check(x_keys, tables: dict):
 
 
 def tree_bitvector(x_keys, entry_feat, entry_key, inv_mask, init_mask,
-                   leaf_off, leaf_fixed, *, block_b=None, block_t=None,
-                   chunk_rows=None) -> torch.Tensor:
+                   leaf_off, leaf_fixed, *, block_b=None, block_t=None) -> torch.Tensor:
     """K5: (B, C) uint32 partials of the QuickScorer tables of
     :func:`bitvector_device_arrays`.
 
     On the card: ``block_b`` rows and ``block_t`` trees per CTA
     (:func:`pick_blocks` where None), the bitvector scored in chunks of
-    :func:`chunk_words` words.  On the CPU: :func:`bitvector_plain`, with
-    ``chunk_rows`` rows per chunk.
+    :data:`CHUNK_WORDS` words.  On the CPU: :func:`bitvector_plain`.
     """
     if x_keys.device.type == "cpu":
         return bitvector_plain(x_keys, entry_feat, entry_key, inv_mask, init_mask,
-                               leaf_off, leaf_fixed, chunk_rows=chunk_rows)
+                               leaf_off, leaf_fixed)
     from repro_torch.kernels import ops
     from repro_torch.kernels._build import load_library
 
@@ -247,18 +238,16 @@ def tree_bitvector(x_keys, entry_feat, entry_key, inv_mask, init_mask,
         raise ValueError(
             f"a {block_b}-row tile of {f} features takes {tt.tile_bytes(block_b, f)} "
             f"bytes of shared memory, over the {tt.SMEM_PER_CTA} a CTA may take")
-    words = chunk_words(w32)
-    shape = dict(block_b=block_b, block_t=block_t, words=words,
-                 word_chunks=-(-w32 // words), stage_x=stage_x,
+    shape = dict(block_b=block_b, block_t=block_t,
+                 word_chunks=-(-w32 // CHUNK_WORDS), stage_x=stage_x,
                  smem_bytes=tt.tile_bytes(block_b, f) if stage_x else 0)
-    lib = load_library("bitvector")
+    lib = load_library()
     out = torch.zeros((b, c), dtype=torch.int32, device=x_keys.device)
     with torch.cuda.device(x_keys.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.intreeger_bitvector(
             *(a.data_ptr() for a in args.values()), out.data_ptr(),
-            b, f, t, m, w32, n_leaves, c, block_b, block_t, words, int(stage_x),
-            stream)
+            b, f, t, m, w32, n_leaves, c, block_b, block_t, int(stage_x), stream)
     if rc != 0:
         raise RuntimeError(f"bitvector kernel launch failed: cudaError {rc}")
     with tt._LAUNCHES_LOCK:
