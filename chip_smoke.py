@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernels-only [--src DIR]
+    python3 chip_smoke.py --sweep-k5
 
 Run from the root of a checkout (it imports ``src/repro_torch``) on a host
 with one CUDA card.  It
@@ -27,7 +28,10 @@ with one CUDA card.  It
      kernel (K1, K2, K3, the one-hot walk, and K5) against its plain version
      at the 65,536-row shape and the gateway's small batches, K3 also on
      small malformed tables at every walk count and staging, K5 also on a
-     small forest whose bitvectors span 36 words,
+     small forest whose bitvectors span 36 words and on random clear sets
+     that are no leaf range (multi-word spans with zero words inside) at
+     pinned CTA shapes, and prints K5's packed table bytes beside the
+     dense slot grid's,
   5. times each kernel (L2 flushed before every launch, and warm), its plain
      version and the end-to-end request of every route with CUDA events and
      the host clock; each kernel also at the gateway's small batches (K1 at
@@ -45,7 +49,11 @@ with one CUDA card.  It
      with the launch counters read around it, holds every response against
      the reference walk, and checks that its stats show both shard labels.
 
-``--kernels-only`` builds the kernels and the model and only checks and
+``--sweep-k5`` builds the kernels and the model and times K5 over the grid
+of CTA shapes behind ``kernels/bitvector.py::pick_blocks`` (SWEEP_K5) at
+ROWS, 1,000 and 20 rows, each launch checked against the plain version,
+printing one JSON line.  ``--kernels-only`` builds the kernels and the
+model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
 ``--src`` names another checkout's ``src`` to take ``repro_torch`` from (an
 older tree, for a before/after comparison in one process per tree), through
@@ -111,6 +119,17 @@ SOURCES = {"leaf_major": "src/repro_torch/csrc/tree_traverse.cu",
            "onehot": "src/repro_torch/csrc/tree_traverse.cu",
            "bitvector": "src/repro_torch/csrc/bitvector.cu"}
 
+# K5's sweep: batch rows -> (rows per thread, rows, splits, trees, records
+# staged) per CTA
+SWEEP_K5 = {
+    ROWS: [(2, b, s, t, g) for b in (64, 128) for s in (4, 8, 16) for t in (8, 16, 43)
+           for g in (True, False)] + [(1, 64, 8, 43, g) for g in (True, False)],
+    1000: [(2, b, s, t, g) for b in (64, 128) for s in (4, 8, 16) for t in (1, 2, 4)
+           for g in (True, False)],
+    20: [(1, 32, s, t, g) for s in (8, 16, 32) for t in (1, 2) for g in (True, False)]
+        + [(2, 64, s, 1, g) for s in (16, 32) for g in (True, False)],
+}
+
 # the QuickScorer route's requests, and the sharded plan routes (each at
 # ROWS rows); the plan gateway's workload is GATEWAY_* with fewer requests
 BITVECTOR_REQUESTS = (ROWS, 1000, 20, 1)
@@ -122,6 +141,14 @@ PLAN_GATEWAY_REQUESTS = 60
 # depths (a chain of d splits has d + 1 leaves) beside random trees
 WIDE_CHAINS = (1100, 70)
 WIDE_ROWS = 2000
+# K5 on random clear sets that are no leaf range: the widths, the tables'
+# size, and the CTA shapes pinned beside K5's own (rows, trees, splits; the
+# last reads its records from the table)
+SPAN_WIDTHS = (2, 8, 36)
+SPAN_TREES, SPAN_SLOTS, SPAN_FEATURES, SPAN_ROWS = 24, 300, 87, 1000
+SPAN_SHAPES = ({}, dict(block_b=32, block_t=1, splits=16), dict(block_b=64, block_t=5, splits=3),
+               dict(block_b=128, block_t=24, splits=1), dict(block_b=256, block_t=2, splits=2),
+               dict(block_b=128, block_t=3, splits=4, _stage_records=False))
 
 # the gateway phase: request sizes and their shares, the share of requests
 # that repeat an earlier request's rows, the open-loop arrival rate
@@ -220,8 +247,8 @@ def chain_tree(depth: int, tree_arrays_cls):
 
 def wide_forest(seed: int):
     """(ForestIR, WIDE_ROWS rows): the chains of WIDE_CHAINS, whose longest
-    makes every bitvector 36 uint32 words (more than K5's 32-word register
-    chunk), and rows whose feature 0 spans the chains' thresholds."""
+    makes every bitvector 36 uint32 words (wider than a depth-10 tree's 32),
+    and rows whose feature 0 spans the chains' thresholds."""
     from repro_torch.ir import ForestIR
     from repro_torch.trees import TreeArrays
 
@@ -375,12 +402,51 @@ def kernel_cases(ops, tt, ir, keys, dev) -> dict:
     if importlib.util.find_spec("repro_torch.kernels.bitvector") is not None:
         kbv = importlib.import_module("repro_torch.kernels.bitvector")
         bv_tables = bitvector_tables(kbv, ir, dev)
+        # K5 reads its tables packed once where this tree packs them
+        k5_tables = [kbv.pack_bitvector_tables(*bv_tables, device=dev)] \
+            if hasattr(kbv, "pack_bitvector_tables") else bv_tables
         for rows in (ROWS, *SMALL_ROWS["bitvector"]):
             x = keys[:rows]
             cases["bitvector" if rows == ROWS else f"bitvector@{rows}"] = (
-                lambda x=x: kbv.tree_bitvector(x, *bv_tables),
+                lambda x=x: kbv.tree_bitvector(x, *k5_tables),
                 lambda x=x: kbv.bitvector_plain(x, *bv_tables), rows, "bitvector")
     return cases
+
+
+def random_span_tables(seed: int, w32: int, dev) -> tuple:
+    """(dense K5 tables, int32 keys) on the card whose clear sets are no
+    leaf range: each of SPAN_SLOTS slots of SPAN_TREES trees clears random
+    bits of a random span of words, with zero words inside the span; some
+    slots clear nothing or are padding (key INT32_MAX); features stray
+    outside [0, F); tree 0 keeps no bit and tree 1 only its top bit; leaf
+    offsets stray outside the leaf table."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t, m, f = SPAN_TREES, SPAN_SLOTS, SPAN_FEATURES
+    feat = rng.integers(-2, f + 2, (t, m)).astype(np.int32)
+    key = rng.integers(-40, 40, (t, m)).astype(np.int32)
+    key[rng.random((t, m)) < 0.1] = np.iinfo(np.int32).max
+    lo = rng.integers(0, w32, (t, m))
+    hi = lo + 1 + (rng.integers(0, w32, (t, m)) % (w32 - lo))
+    words = rng.integers(0, 2 ** 32, (t, m, w32), dtype=np.uint64).astype(np.uint32)
+    col = np.arange(w32)
+    inside = (col >= lo[..., None]) & (col < hi[..., None])
+    inside &= rng.random((t, m, w32)) >= 0.3          # zero words inside spans
+    inside &= (rng.random((t, m)) >= 0.1)[..., None]  # empty clear sets
+    inv = np.where(inside, words, np.uint32(0))
+    init = rng.integers(0, 2 ** 32, (t, w32), dtype=np.uint64).astype(np.uint32)
+    init[0] = 0
+    init[1] = 0
+    init[1, -1] = np.uint32(1 << 31)
+    n_leaves = 64 * w32
+    off = rng.integers(-3, n_leaves, t).astype(np.int32)
+    leaf = rng.integers(0, 2 ** 32, (n_leaves, N_CLASSES), dtype=np.uint64).astype(np.uint32)
+    keys = rng.integers(-40, 40, (SPAN_ROWS, f)).astype(np.int32)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(
+        np.int32 if a.dtype == np.uint32 else a.dtype)).to(dev)
+    u32 = lambda a: on(a).view(torch.uint32)
+    return [on(feat), on(key), u32(inv), u32(init), on(off), u32(leaf)], on(keys)
 
 
 def bitvector_work(ir, keys) -> tuple:
@@ -411,6 +477,33 @@ def bitvector_work(ir, keys) -> tuple:
     nbytes = keys.numel() * 4 + table_bytes + b * bv.n_classes * 4
     ops = b * bv.total_entries + ors + b * bv.n_trees * bv.n_classes
     return nbytes, ops, applied, ors
+
+
+def sweep_k5(kbv, tt, ir, keys, dev, flush) -> list:
+    """K5 at every CTA shape of SWEEP_K5, L2-flushed and warm, each launch
+    held against the plain version (tolerance 0); fails on a mismatch."""
+    import torch
+
+    dense = bitvector_tables(kbv, ir, dev)
+    packed = kbv.pack_bitvector_tables(*dense, device=dev)
+    out = []
+    for rows, grid in SWEEP_K5.items():
+        x = keys[:rows]
+        ref = kbv.bitvector_plain(x, *dense)
+        for per_thread, block_b, splits, block_t, staged in grid:
+            shape = dict(block_b=block_b, block_t=block_t, splits=splits,
+                         _rows_per_thread=per_thread, _stage_records=staged)
+            fn = lambda: kbv.tree_bitvector(x, packed, **shape)
+            err = max_abs_err(fn(), ref)
+            torch.cuda.synchronize()
+            if err:
+                fail(f"kernel bitvector disagrees with its plain version at {rows} rows, {shape}")
+            out.append(dict(rows=rows, shape=dict(tt.LAUNCH_SHAPES["bitvector"]),
+                            ms=cuda_ms(fn, KERNEL_TIMING_REPS, flush, lead=True),
+                            warm_ms=cuda_ms(fn, KERNEL_TIMING_REPS, lead=True)))
+            print(f"sweep bitvector {rows} rows {out[-1]['shape']}: {out[-1]['ms']:.4f} ms "
+                  f"L2-flushed, {out[-1]['warm_ms']:.4f} ms warm")
+    return out
 
 
 def check_and_time(cases: dict, flush, tt) -> dict:
@@ -618,6 +711,8 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--kernels-only", action="store_true",
                         help="only check and time the kernel cases of step 5")
+    parser.add_argument("--sweep-k5", action="store_true",
+                        help="only time K5 over the CTA shapes of SWEEP_K5")
     parser.add_argument("--src", type=Path, default=SRC,
                         help="the src directory to take repro_torch from "
                              "(with --kernels-only)")
@@ -670,6 +765,12 @@ def main() -> None:
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     flush = lambda: flush_buf.fill_(1)
 
+    if args.sweep_k5:
+        kbv = importlib.import_module("repro_torch.kernels.bitvector")
+        swept = sweep_k5(kbv, tt, ir, keys, dev, flush)
+        print(card)
+        print(json.dumps({"sweep_k5": swept}))
+        return
     if args.kernels_only:
         times = check_and_time(kernel_cases(ops, tt, ir, keys, dev), flush, tt)
         print(card)
@@ -757,7 +858,7 @@ def main() -> None:
     if any(errs.values()):
         fail("kernel onehot disagrees with its plain version on a malformed table: "
              + str({k: v for k, v in errs.items() if v}))
-    # K5 on a forest whose bitvectors are wider than its register chunk
+    # K5 on a forest whose bitvectors are wider than the model's 32 words
     kbv = importlib.import_module("repro_torch.kernels.bitvector")
     wide_ir, wide_x = wide_forest(args.seed + 4)
     wide_keys = float_to_key(torch.from_numpy(wide_x).to(dev))
@@ -771,6 +872,26 @@ def main() -> None:
           f"max |kernel - plain| = {wide_err}, launched at {wide_shape}")
     if wide_err:
         fail("kernel bitvector disagrees with its plain version on the multi-word forest")
+    # K5 on random clear sets that are no leaf range, at its own CTA shape
+    # and pinned ones
+    span_errs = {}
+    for w32 in SPAN_WIDTHS:
+        dense, span_keys = random_span_tables(args.seed + 5 + w32, w32, dev)
+        ref = kbv.bitvector_plain(span_keys, *dense)
+        packed = kbv.pack_bitvector_tables(*dense, device=dev)
+        for shape in SPAN_SHAPES:
+            out = kbv.tree_bitvector(span_keys, packed, **shape)
+            torch.cuda.synchronize()
+            launched = tt.LAUNCH_SHAPES["bitvector"]
+            span_errs[(w32, launched["block_b"], launched["block_t"], launched["splits"],
+                       launched["staged_records"])] = max_abs_err(out, ref)
+    print(f"kernel bitvector on random clear sets (multi-word spans with zero words "
+          f"inside, W32 = {SPAN_WIDTHS}), {len(span_errs)} launches over CTA shapes "
+          f"(W32, rows, trees, splits, staged records) {sorted(span_errs)}: "
+          f"max |kernel - plain| = {max(span_errs.values())}")
+    if any(span_errs.values()):
+        fail("kernel bitvector disagrees with its plain version on random clear sets: "
+             + str({k: v for k, v in span_errs.items() if v}))
 
     # the bounds at the main path's shape
     lm_tables = [lm.feature, lm.threshold_key, lm.left, lm.right, lm.leaf_fixed]
@@ -803,6 +924,10 @@ def main() -> None:
             library_ms=None, shape=measured[name]["shape"], small_batches=small)
     nbytes, n_ops, applied, ors = bitvector_work(ir, keys)
     bound_ms, bound_by = bound(nbytes, n_ops)
+    dense_bytes = sum(a.numel() * 4 for a in bitvector_tables(kbv, ir, dev))
+    packed = kbv.pack_bitvector_tables(*bitvector_tables(kbv, ir, dev), device=dev)
+    print(f"kernel bitvector tables: {packed.records.shape[0]} records, {packed.nbytes()} "
+          f"bytes packed, against {dense_bytes} bytes of the dense slot grid")
     print(f"kernel bitvector: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
           f"{n_ops} ops: {ors} ORs of nonzero mask words over {applied} false "
           f"(row, entry) pairs of {ROWS * ir.materialize('bitvector').total_entries}); "
@@ -816,7 +941,9 @@ def main() -> None:
         library_ms=None, shape=measured["bitvector"]["shape"],
         small_batches={f"bitvector@{r}": measured[f"bitvector@{r}"]
                        for r in SMALL_ROWS["bitvector"]},
-        multi_word=dict(max_abs_err=wide_err, shape=wide_shape))
+        multi_word=dict(max_abs_err=wide_err, shape=wide_shape),
+        random_spans=dict(max_abs_err=max(span_errs.values()), launches=len(span_errs)),
+        table_bytes=dict(packed=packed.nbytes(), dense=dense_bytes))
 
     for spec in routes:
         eng = engines[spec]

@@ -6,12 +6,14 @@ at all.  Every internal-node test of a tree is compared, the false nodes'
 masks fold into a live-leaf bitvector, and each tree's exit leaf is its
 lowest surviving bit (see ``kernels/bitvector.py``).
 
-It copies the slot grid of ``bitvector_device_arrays`` to its device once,
-at construction.  Per call it moves the rows over, keys them (FlInt) and
-runs ``kernels.bitvector.tree_bitvector``: K5 on the card, the plain version
-with ``device="cpu"``.  The partials are the exact uint32 accumulators of
-every other backend, so ``flint`` and ``integer`` differ only in the shared
-numpy finalize, and every plan can shard it.
+It packs the slot grid of ``bitvector_device_arrays`` once, at
+construction, into the records K5 reads (``pack_bitvector_tables``: one
+16-byte record per nonzero mask word), and copies them to its device.  Per
+call it moves the rows over, keys them (FlInt) and runs
+``kernels.bitvector.tree_bitvector``: K5 on the card, the plain version on
+the unpacked grid with ``device="cpu"``.  The partials are the exact
+uint32 accumulators of every other backend, so ``flint`` and ``integer``
+differ only in the shared numpy finalize, and every plan can shard it.
 
 Rows must carry at least the forest's ``n_features`` columns, as for the
 ``cuda`` backend: K5 takes the row stride from the rows.
@@ -24,7 +26,11 @@ import torch
 from repro_torch.backends.base import BackendCapabilities, TreeBackend, register_backend
 from repro_torch.core.ensemble import u32_numpy
 from repro_torch.core.flint import float_to_key
-from repro_torch.kernels.bitvector import bitvector_device_arrays, tree_bitvector
+from repro_torch.kernels.bitvector import (
+    bitvector_device_arrays,
+    pack_bitvector_tables,
+    tree_bitvector,
+)
 
 
 @register_backend
@@ -41,11 +47,11 @@ class BitvectorBackend(TreeBackend):
 
     def __init__(self, packed, mode: str = "integer", *, device=None):
         super().__init__(packed, mode, device=device)
-        arrays = bitvector_device_arrays(packed, self.device)
+        arrays = bitvector_device_arrays(packed, "cpu")
         self.n_entry_slots = arrays.pop("n_entry_slots")
-        self._tables = tuple(arrays[k] for k in (
+        self._tables = pack_bitvector_tables(*(arrays[k] for k in (
             "entry_feat", "entry_key", "inv_mask", "init_mask", "leaf_off",
-            "leaf_fixed"))
+            "leaf_fixed")), device=self.device)
 
     def predict_partials(self, X):
         X = np.asarray(X)
@@ -54,4 +60,4 @@ class BitvectorBackend(TreeBackend):
                 f"rows of shape {X.shape} have fewer columns than the "
                 f"{self.packed.n_features} features the forest reads")
         x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
-        return u32_numpy(tree_bitvector(float_to_key(x), *self._tables))
+        return u32_numpy(tree_bitvector(float_to_key(x), self._tables))

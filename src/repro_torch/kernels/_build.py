@@ -40,9 +40,10 @@ _SIGNATURES = {
     "intreeger_gather": [_PTR] * 4 + [_INT] * 10 + [_PTR],
     # as intreeger_gather
     "intreeger_onehot": [_PTR] * 4 + [_INT] * 10 + [_PTR],
-    # x, entry_feat, entry_key, inv_mask, init_mask, leaf_off, leaf, out,
-    # B, F, T, M, W32, L, C, rows_per_cta, trees_per_cta, stage_x, stream
-    "intreeger_bitvector": [_PTR] * 8 + [_INT] * 10 + [_PTR],
+    # x, records, word_start, init_mask, leaf_off, leaf, out,
+    # B, F, T, W32, R, L, C, rows_per_cta, trees_per_cta, splits,
+    # rows_per_thread, rec_cap, stage_x, stream
+    "intreeger_bitvector": [_PTR] * 7 + [_INT] * 13 + [_PTR],
 }
 
 _lock = threading.Lock()

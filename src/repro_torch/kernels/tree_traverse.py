@@ -45,8 +45,8 @@ import torch
 #: is ``kernels/bitvector.py::tree_bitvector``
 LAUNCHES = {"leaf_major": 0, "gather": 0, "onehot": 0, "bitvector": 0}
 #: the CTA shape of each kernel's last launch: rows and trees per CTA, the
-#: walks per thread (K5: the words per chunk), the staging and its shared
-#: memory
+#: walks per thread (K5: the splits and rows per thread), the staging and
+#: its shared memory
 LAUNCH_SHAPES = {"leaf_major": None, "gather": None, "onehot": None,
                  "bitvector": None}
 _LAUNCHES_LOCK = threading.Lock()
@@ -57,6 +57,8 @@ _U32_MASK = 0xFFFFFFFF
 #: takes (the kernels' launch bound), and the walks a thread may carry
 SMEM_PER_CTA = 232_448
 MAX_TILE_ROWS = 512
+#: the most CTAs of grid.y, which carries the tree chunks of every kernel
+MAX_TREE_CHUNKS = 65_535
 WALKS = (1, 2, 4)
 #: walks per thread when the caller names none (fewer when a CTA's tree
 #: chunk is shorter)
@@ -216,6 +218,16 @@ def stages_x(n_features: int) -> bool:
     return tile_bytes(32, n_features) <= SMEM_PER_CTA
 
 
+def check_tree_chunks(t: int, block_t: int) -> None:
+    """Raise ``ValueError`` where ``t`` trees in chunks of ``block_t`` take
+    more CTAs than grid.y holds (:data:`MAX_TREE_CHUNKS`).  The tree count
+    itself has no limit: tree offsets are 64-bit in every kernel."""
+    chunks = -(-t // block_t)
+    if chunks > MAX_TREE_CHUNKS:
+        raise ValueError(f"{t} trees in chunks of {block_t} make {chunks} tree chunks, "
+                         f"over the {MAX_TREE_CHUNKS} CTAs of grid.y")
+
+
 def default_walks(block_t: int) -> int:
     """Walks per thread: :data:`DEFAULT_WALKS`, or the largest of
     :data:`WALKS` that a chunk of ``block_t`` trees fills."""
@@ -267,8 +279,6 @@ def _cuda_args(x_keys, tables: dict):
         out[name] = a
     if out["quads"].data_ptr() % 16:
         raise ValueError("quads must be 16-byte aligned")
-    if t > 65535:
-        raise ValueError(f"{t} trees exceed the kernels' grid.y limit")
     if not 1 <= n <= 2 ** 28:  # the kernels index a group of 4 trees in 32 bits
         raise ValueError(f"the node tables need 1 to 2**28 nodes per tree, got {n}")
     return out
@@ -286,6 +296,7 @@ def _launch(kernel: str, x_keys, tables: dict, ints: tuple, block_b: int,
     c = args["leaf_fixed"].shape[-1]
     if block_t < 1:  # rows per CTA: check_tile_shape below
         raise ValueError(f"bad CTA shape: {block_b} rows x {block_t} trees")
+    check_tree_chunks(t, block_t)
     if f < 1:  # every walk reads x[row, max(f, 0)] at least once
         raise ValueError("the CUDA tree kernels need rows with at least one feature")
     walks = default_walks(block_t) if walks is None else walks

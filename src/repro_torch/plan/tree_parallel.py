@@ -14,11 +14,11 @@ single plan.
 The JAX package has a second, fused strategy: all shards on the reference
 walk in one ``shard_map`` over one device per shard.  The port keeps its
 selection rule (:meth:`TreeParallelPlan._can_fuse`, counting the devices of
-the plan's kind) but not the strategy: where the rule picks it, the plan
-raises, since the fused form waits for a machine with several cards.  On
-fewer devices than shards, as on one card or the CPU, ``device_parallel=
-"auto"`` takes the threaded path and ``device_parallel=True`` raises, as in
-the JAX package.
+the plan's kind) but not the strategy, which waits for a machine with
+several cards: where the rule picks it, ``device_parallel="auto"`` takes the
+threaded path, which gives the same bits, and ``device_parallel=True``
+raises.  On fewer devices than shards, as on one card or the CPU, "auto"
+takes the threaded path and ``True`` raises, as in the JAX package.
 
 Deterministic modes only: float accumulation is not associative, so a float
 forest cannot be tree-sharded losslessly (use ``row_parallel``, which
@@ -86,10 +86,14 @@ class TreeParallelPlan(ExecutionPlan):
         self.device = resolve_device(device)
         self.ranges = tree_ranges(ir.n_trees, len(names))
         names = names[: len(self.ranges)]
-        if self._can_fuse(names, layout, backend_kwargs, device_parallel):
-            raise ValueError(f"{_FUSED_NOT_PORTED}; pass device_parallel=False "
-                             "for the threaded path")
+        # where the JAX package's rule picks the fused strategy (not ported),
+        # "auto" takes the threaded path, whose bits are the same; only an
+        # explicit ask for it raises
+        fuse = self._can_fuse(names, layout, backend_kwargs, device_parallel)
         if device_parallel is True:
+            if fuse:
+                raise ValueError(f"{_FUSED_NOT_PORTED}; pass device_parallel=False "
+                                 "or \"auto\" for the threaded path")
             raise ValueError(
                 "device_parallel=True needs a homogeneous 'reference' "
                 "plan (default layout, no backend kwargs) and at least "

@@ -6,11 +6,17 @@ version, the one the CPU runs) and the scores of the ``flint:bitvector`` and
 ``integer:bitvector`` engines equal the JAX package's, with tolerance 0, on
 trained forests, on ``forest_cases.DEGENERATE_FORESTS``, on a two-word
 layout (a 71-leaf chain, as ``tests/test_bitvector.py``), on a layout wider
-than K5's 32-word register chunk (a 1,101-leaf chain: W32 = 36) and on
-``ForestIR.subset`` slices.  The chains' rows spread over the chain's whole
-threshold range, so exit leaves land in every word, the high ones included.
-Inputs come from seeds through numpy; the forest crosses packages through
+than 32 words (a 1,101-leaf chain: W32 = 36) and on ``ForestIR.subset``
+slices.  The chains' rows spread over the chain's whole threshold range, so
+exit leaves land in every word, the high ones included.  Inputs come from
+seeds through numpy; the forest crosses packages through
 ``ForestIR.from_numpy``.
+
+The records K5 reads (``pack_bitvector_tables``) unpack to the slot grid
+bit for bit on every case, on chains of 8 and 32 words, on all-stump
+forests, on subset slices and on random clear sets that are no leaf range;
+K5's CTA rule and both wrappers' shape checks keep the tree chunks within
+grid.y's 65,535 CTAs for any forest.
 """
 import numpy as np
 import pytest
@@ -27,6 +33,7 @@ from repro_torch.ir.forest_ir import ARRAY_DTYPES
 from repro_torch.kernels import bitvector as kbv
 from repro_torch.kernels import tree_traverse as tt
 from repro_torch.serve import TreeEngine
+from test_torch_cuda import random_span_tables
 
 _TABLES = ("entry_feat", "entry_key", "inv_mask", "init_mask", "leaf_off", "leaf_fixed")
 
@@ -101,10 +108,11 @@ def test_layout_arrays_match_reference(case):
 
 
 def test_wide_layouts_are_wider_than_one_register_chunk():
-    """The cases cover a two-word layout and one wider than K5's largest
-    register chunk, whose high words are really reached."""
+    """The cases cover a two-word layout and one wider than 32 uint32 words
+    (the register chunk of K5's first design, and the width of a depth-10
+    tree), whose high words are really reached."""
     wide = ForestIR.from_forest(CASES["wide"][0]()).materialize("bitvector")
-    assert 2 * wide.words > kbv.CHUNK_WORDS and wide.words == 18
+    assert 2 * wide.words > 32 and wide.words == 18
     assert ForestIR.from_forest(CASES["multiword"][0]()).materialize("bitvector").words == 2
 
 
@@ -213,10 +221,160 @@ def test_backend_capabilities_and_row_checks():
 
 
 def test_pick_blocks_spreads_small_batches_over_trees():
-    """K5's CTA rule: 128 rows of the full-width model per CTA, tree chunks
-    for about four waves, one tree per CTA at small batches."""
-    assert kbv.pick_blocks(65_536, 128, 87) == (128, 22)
-    assert kbv.pick_blocks(1000, 128, 87) == (128, 1)
-    assert kbv.pick_blocks(20, 128, 87) == (128, 1)
-    rows, trees = kbv.pick_blocks(300, 3, 2000)  # too wide to stage
-    assert rows == 128 and trees == 1
+    """K5's CTA rule on the full-width model (W32 = 32, 1,072 records a
+    tree): at 65,536 rows 128 rows of 2 a thread, 8 splits of 4 words, tree
+    chunks for about four waves of the 2 CTAs an SM holds; at 1,000 rows 64
+    rows and one tree chunk of 2 per 8 CTAs; at 20 rows one warp of rows
+    and 16 splits of 2 words, a tree per CTA; each tree's records staged."""
+    assert kbv.pick_blocks(65_536, 128, 87, 32, 1072) == (128, 43, 8, 2)
+    assert kbv.pick_blocks(1000, 128, 87, 32, 1072) == (64, 2, 8, 2)
+    assert kbv.pick_blocks(20, 128, 87, 32, 1072) == (32, 1, 16, 1)
+    assert kbv.pick_blocks(20, 128, 87, 2, 30) == (32, 1, 1, 1)  # at least two words a split
+    assert kbv.record_cap(1072, 128, 87, 8) == 1072
+    assert kbv.smem_bytes(128, 87, 8, 1072) == 44_544 + 4096 + 34_304
+    assert kbv.record_cap(2049, 32, 87, 1) == 0  # over STAGED_RECORD_BYTES
+    assert kbv.record_cap(1000, 32, 1800, 1) == 0  # no room beside the tile
+    rows, trees, splits, per_thread = kbv.pick_blocks(300, 3, 2000, 36, 1100)  # unstaged rows
+    assert (rows, trees, splits, per_thread) == (64, 1, 16, 2)
+    for b, t, w32 in ((65_536, 128, 32), (1000, 128, 32), (20, 128, 32), (7, 5, 36)):
+        rows, trees, splits, per_thread = kbv.pick_blocks(b, t, 87, w32, 1072)
+        kbv.check_launch_shape(t, 87, rows, trees, splits, per_thread,
+                               kbv.record_cap(1072, rows, 87, splits))
+
+
+# ------------------------------------------------------------------ fault A
+
+@pytest.mark.parametrize("t", [1, 3, 4096, 65_535, 65_536, 65_537, 200_000, 1_000_000])
+@pytest.mark.parametrize("b", [1, 20, 1000, 65_536])
+def test_pick_blocks_keep_the_tree_chunks_inside_grid_y(b, t):
+    """Both CTA rules (the walks' ``ops.pick_blocks`` and K5's) split any
+    forest into at most 65,535 tree chunks, staged or not."""
+    from repro_torch.kernels import ops
+
+    for n_features in (87, 4000):
+        _, block_t = ops.pick_blocks(b, t, n_features, 132)
+        assert -(-t // block_t) <= tt.MAX_TREE_CHUNKS
+        tt.check_tree_chunks(t, block_t)
+        rows, block_t, splits, per_thread = kbv.pick_blocks(b, t, n_features, 32, 1072, 132)
+        assert -(-t // block_t) <= tt.MAX_TREE_CHUNKS
+        kbv.check_launch_shape(t, n_features, rows, block_t, splits, per_thread)
+
+
+def test_pinned_tree_chunks_over_grid_y_raise_before_launch():
+    """A pinned ``block_t`` that makes more than 65,535 tree chunks raises
+    ``ValueError`` naming the chunk count, for the walks and for K5; the
+    tree count alone raises nothing."""
+    tt.check_tree_chunks(65_536, 2)
+    tt.check_tree_chunks(1_000_000, 16)
+    with pytest.raises(ValueError, match="65536 tree chunks"):
+        tt.check_tree_chunks(65_536, 1)
+    with pytest.raises(ValueError, match="100000 tree chunks"):
+        kbv.check_launch_shape(200_000, 87, 128, 2, 1)
+    kbv.check_launch_shape(65_536, 87, 128, 2, 1)
+    with pytest.raises(ValueError, match="threads"):
+        kbv.check_launch_shape(8, 87, 128, 1, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        kbv.check_launch_shape(8, 87, 128, 1, 8, 2, rec_cap=6000)
+    with pytest.raises(ValueError, match="shared memory"):
+        kbv.check_launch_shape(8, 1800, 160, 1, 1)
+    with pytest.raises(ValueError, match="rows per thread"):
+        kbv.check_launch_shape(8, 87, 128, 1, 1, rows_per_thread=3)
+    with pytest.raises(ValueError, match="bad CTA shape"):
+        kbv.check_launch_shape(8, 87, 32, 1, 1, rows_per_thread=2)
+
+
+# ------------------------------------------------------------------ packing
+
+def _dense(arrays):
+    return [arrays[k] for k in _TABLES]
+
+
+def _assert_unpacks(dense, packed, label):
+    """``packed`` unpacks to ``dense``'s ``inv_mask`` bit for bit, with each
+    slot's feature (a negative one lifted to 0) and key wherever its clear
+    set is not empty; its records
+    are the nonzero mask words, grouped by tree and word."""
+    feat, key, inv = (_u32(a) for a in dense[:3])
+    u_feat, u_key, u_inv = (_u32(a) for a in kbv.unpack_bitvector_tables(packed)[:3])
+    np.testing.assert_array_equal(u_inv, inv, err_msg=label)
+    used = inv.any(-1)
+    # a negative feature packs as 0, where both versions clamp it
+    np.testing.assert_array_equal(u_feat[used], np.maximum(feat, 0)[used], err_msg=label)
+    np.testing.assert_array_equal(u_key[used], key[used], err_msg=label)
+    rec = packed.records.numpy()
+    assert rec.shape == (int((inv != 0).sum()), 4) and (rec[:, 3] != 0).all(), label
+    ws = packed.word_start.numpy()
+    t, w32 = _u32(dense[3]).shape
+    assert ws.shape == (t, w32 + 1) and ws[0, 0] == 0 and ws[-1, -1] == len(rec)
+    assert (np.diff(ws, axis=1) >= 0).all() and (ws[1:, 0] == ws[:-1, -1]).all()
+    for tree in range(t):
+        for w in range(w32):
+            assert (rec[ws[tree, w]:ws[tree, w + 1], 2] == w).all(), label
+    for got, want in zip((packed.init_mask, packed.leaf_off, packed.leaf_fixed), dense[3:6]):
+        np.testing.assert_array_equal(_u32(got), _u32(want), err_msg=label)
+    assert packed.n_entry_slots == feat.shape[1]
+
+
+def test_packed_tables_unpack_to_the_dense_grid(case):
+    """Every layout case packs and unpacks to its slot grid, and the wrapper
+    on packed tables equals the plain version on the dense grid."""
+    name, _, ir, rows = case
+    arrays = kbv.bitvector_device_arrays(ir.materialize("bitvector"), "cpu")
+    arrays.pop("n_entry_slots")
+    packed = kbv.pack_bitvector_tables(*_dense(arrays), device="cpu")
+    _assert_unpacks(_dense(arrays), packed, name)
+    keys = float_to_key(torch.from_numpy(rows[131]))
+    np.testing.assert_array_equal(_u32(kbv.tree_bitvector(keys, packed)),
+                                  _u32(kbv.bitvector_plain(keys, *_dense(arrays))))
+
+
+@pytest.mark.parametrize("bounds", [(0, 1), (2, 5), (3, 8)])
+def test_packed_tables_of_subset_slices(bounds):
+    ir = _port(JForestIR.from_forest(_trained(0))).subset(*bounds)
+    arrays = kbv.bitvector_device_arrays(ir.materialize("bitvector"), "cpu")
+    arrays.pop("n_entry_slots")
+    _assert_unpacks(_dense(arrays), kbv.pack_bitvector_tables(*_dense(arrays), device="cpu"),
+                    f"subset{bounds}")
+
+
+@pytest.mark.parametrize("w32", [2, 8, 32, 36])
+def test_random_span_masks_pack_exactly(w32):
+    """Random non-range clear sets (multi-word spans with zero words
+    inside) pack and unpack bit for bit, and the wrapper on the packed
+    tables equals the plain version on the dense ones."""
+    dense, keys = random_span_tables(w32, 5, 9, w32, 6, 40, 3)
+    packed = kbv.pack_bitvector_tables(*dense, device="cpu")
+    _assert_unpacks(dense, packed, f"W32={w32}")
+    np.testing.assert_array_equal(_u32(kbv.tree_bitvector(keys, packed)),
+                                  _u32(kbv.tree_bitvector(keys, *dense)))
+
+
+@pytest.mark.parametrize("depth,w32", [(200, 8), (1000, 32)])
+def test_chain_layouts_pack_exactly(depth, w32):
+    """Chains whose bitvectors take 8 and 32 words pack to one record per
+    nonzero word: one for most slots (a clear set is one leaf range)."""
+    ir = ForestIR.from_forest(forest_from_trees([chain_tree(depth, 3), chain_tree(9, 3)], 3, 2))
+    arrays = kbv.bitvector_device_arrays(ir.materialize("bitvector"), "cpu")
+    arrays.pop("n_entry_slots")
+    assert arrays["init_mask"].shape[-1] == w32
+    packed = kbv.pack_bitvector_tables(*_dense(arrays), device="cpu")
+    _assert_unpacks(_dense(arrays), packed, f"chain {depth}")
+    assert len(packed.records) < 1.1 * (depth + 9)
+
+
+def test_all_stump_tables_pack_to_no_records():
+    ir = ForestIR.from_forest(DEGENERATE_FORESTS["stumps"]())
+    arrays = kbv.bitvector_device_arrays(ir.materialize("bitvector"), "cpu")
+    assert arrays.pop("n_entry_slots") == 0
+    packed = kbv.pack_bitvector_tables(*_dense(arrays), device="cpu")
+    assert packed.records.shape == (0, 4) and not packed.word_start.any()
+    _assert_unpacks(_dense(arrays), packed, "all stumps")
+
+
+def test_backend_packs_its_tables_once():
+    ir = ForestIR.from_forest(_trained(1))
+    backend = create_backend("bitvector", ir.materialize("bitvector"), device="cpu")
+    assert isinstance(backend._tables, kbv.BitvectorTables)
+    assert backend._tables.nbytes() < sum(
+        a.numel() * 4 for a in _dense(kbv.bitvector_device_arrays(
+            ir.materialize("bitvector"), "cpu")))

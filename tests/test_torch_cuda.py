@@ -4,13 +4,17 @@ counters showing the kernel ran, at shapes that reach each edge of their
 design (odd and even feature counts, rows too wide to stage, class counts
 that take the scalar leaf path and several class chunks, tree chunks that
 the walks per thread do not divide, rows past the last full CTA; for K5
-bitvectors of 2, 8, 32 and 36 words, the last wider than its register
-chunk, and an all-stump forest); K3 also on malformed tables at every walk
-count and staging, where K1 and K2 must stay inside their buffers; two
-gateways on two routes serving at once from executor threads; and the
-sharded plans (``tree_parallel`` over ``cuda`` shards and over
-``cuda|bitvector``, ``row_parallel``) equal to the single plan, two threads
-serving one plan route at once.  Marked ``cuda``; each
+bitvectors of 2, 8, 32 and 36 words, an all-stump forest and random clear
+sets that are no leaf range, on its packed tables and the dense grid, at
+pinned rows, trees, splits and rows per thread, records staged or not); K3
+also on malformed tables at every walk count and staging, where K1 and K2
+must stay inside their buffers; K1, K2, K3 and K5 on 65,536 trees, more
+than grid.y holds CTAs; two gateways on two routes serving at once from
+executor threads; the sharded plans (``tree_parallel`` over ``cuda`` shards
+and over ``cuda|bitvector``, ``row_parallel``) equal to the single plan, two
+threads serving one plan route at once; and ``tree_parallel`` under
+``device_parallel="auto"`` on threads where two cards are counted.  Marked
+``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
 on a machine with a card::
 
@@ -392,37 +396,200 @@ def _bitvector_case(name, rows):
     return ir, x
 
 
+def _dense_tables(arrays):
+    return [arrays[k] for k in ("entry_feat", "entry_key", "inv_mask", "init_mask",
+                                "leaf_off", "leaf_fixed")]
+
+
+def _assert_bitvector_shapes(keys, dense, ref, n_features, n_trees, label):
+    """K5 on the packed tables and on the dense grid, at its own CTA shape
+    and at pinned ones (rows, trees and splits per CTA, rows per thread),
+    each equal to ``ref`` with one launch counted and its shape recorded."""
+    packed = kbv.pack_bitvector_tables(*dense, device=keys.device)
+    w32 = dense[3].shape[-1]
+    auto = kbv.pick_blocks(keys.shape[0], n_trees, n_features, w32, packed.tree_records, 132)
+    for blocks in ({}, dict(block_b=32, block_t=1), dict(block_b=64, block_t=3),
+                   dict(block_b=512, block_t=n_trees),
+                   dict(block_b=32, block_t=2, splits=16),
+                   dict(block_b=64, block_t=1, splits=3, _stage_records=False),
+                   dict(block_b=128, block_t=2, splits=4, _rows_per_thread=1),
+                   dict(block_b=64, block_t=5, splits=1, _rows_per_thread=2,
+                        _stage_records=False),
+                   dict(block_b=128, block_t=1, splits=2, _rows_per_thread=2),
+                   dict(block_b=96, block_t=2, splits=5, _rows_per_thread=1,
+                        _stage_records=True)):
+        for tables in ((packed,), dense) if not blocks else ((packed,),):
+            tt.reset_launches()
+            out = kbv.tree_bitvector(keys, *tables, **blocks)
+            torch.cuda.synchronize()
+            assert tt.LAUNCHES == {"leaf_major": 0, "gather": 0, "onehot": 0, "bitvector": 1}
+            shape = tt.LAUNCH_SHAPES["bitvector"]
+            want = dict(zip(("block_b", "block_t", "splits", "rows_per_thread"), auto))
+            want.update({k.lstrip("_"): v for k, v in blocks.items() if k != "_stage_records"})
+            if "block_b" in blocks and "_rows_per_thread" not in blocks:
+                want["rows_per_thread"] = auto[3] if blocks["block_b"] % (32 * auto[3]) == 0 \
+                    else 1
+            if "splits" not in blocks:
+                want["splits"] = max(1, min(auto[2], kbv.MAX_THREADS * want["rows_per_thread"]
+                                            // want["block_b"]))
+            assert {k: shape[k] for k in want} == want, label
+            staged = kbv.record_cap(packed.tree_records, shape["block_b"], n_features,
+                                    shape["splits"])
+            if "_stage_records" in blocks:
+                staged = packed.tree_records if blocks["_stage_records"] else 0
+            assert shape["staged_records"] == staged
+            assert shape["stage_x"] == tt.stages_x(n_features)
+            assert shape["smem_bytes"] == kbv.smem_bytes(shape["block_b"], n_features,
+                                                         shape["splits"], staged)
+            assert out.dtype == torch.uint32 and out.shape == ref.shape
+            np.testing.assert_array_equal(out.view(torch.int32).cpu().numpy(),
+                                          ref.view(torch.int32).cpu().numpy(),
+                                          err_msg=f"{label}, {blocks}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 20, 1000])
 @pytest.mark.parametrize("name", sorted(BITVECTOR_CASES))
 def test_bitvector_kernel_matches_plain_version(card, name, rows):
     """K5 equals its plain version (max |kernel - plain| = 0) at each width,
-    class count and row count, at its own CTA shape and pinned ones, and
-    counts one launch per call."""
+    class count and row count, on its packed tables and on the dense grid,
+    at its own CTA shape and pinned ones, and counts one launch per call."""
     ir, x = _bitvector_case(name, rows)
     bv = ir.materialize("bitvector")
     arrays = kbv.bitvector_device_arrays(bv, card)
     arrays.pop("n_entry_slots")
-    tables = [arrays[k] for k in ("entry_feat", "entry_key", "inv_mask", "init_mask",
-                                  "leaf_off", "leaf_fixed")]
+    dense = _dense_tables(arrays)
     w32 = 2 * bv.words
     assert w32 == {"W32=2": 2, "W32=8": 8, "W32=32": 32, "W32=36": 36,
                    "all stumps": 2}[name.split(",")[0]]
     keys = float_to_key(torch.from_numpy(x).to(card))
-    ref = kbv.bitvector_plain(keys, *tables)
-    for blocks in ({}, dict(block_b=32, block_t=1), dict(block_b=64, block_t=3),
-                   dict(block_b=512, block_t=ir.n_trees)):
-        tt.reset_launches()
-        out = kbv.tree_bitvector(keys, *tables, **blocks)
-        torch.cuda.synchronize()
-        assert tt.LAUNCHES == {"leaf_major": 0, "gather": 0, "onehot": 0, "bitvector": 1}
-        shape = tt.LAUNCH_SHAPES["bitvector"]
-        assert shape["word_chunks"] == (2 if w32 == 36 else 1)
-        assert shape["stage_x"] == tt.stages_x(ir.n_features)
-        assert out.dtype == torch.uint32 and out.shape == (rows, ir.n_classes)
-        np.testing.assert_array_equal(out.view(torch.int32).cpu().numpy(),
-                                      ref.view(torch.int32).cpu().numpy(),
-                                      err_msg=f"{name}, {rows} rows, {blocks}")
+    ref = kbv.bitvector_plain(keys, *dense)
+    _assert_bitvector_shapes(keys, dense, ref, ir.n_features, ir.n_trees, f"{name}, {rows} rows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w32", [2, 8, 32, 36])
+def test_bitvector_kernel_on_random_span_masks(card, w32):
+    """K5 equals its plain version on clear sets that are no leaf range:
+    multi-word spans with zero words inside, empty sets, padding slots,
+    features outside [0, F), a tree with no surviving bit and one with only
+    its top bit, and leaf offsets outside the leaf table."""
+    dense, keys = random_span_tables(w32, 5, 9, w32, 6, 40, 3)
+    dense = [a.to(card) for a in dense]
+    keys = keys.to(card)
+    ref = kbv.bitvector_plain(keys, *dense)
+    _assert_bitvector_shapes(keys, dense, ref, 6, 5, f"random spans, W32={w32}")
+
+
+def random_span_tables(seed, n_trees, n_slots, w32, n_features, n_leaves, n_classes,
+                       n_rows=97):
+    """(dense K5 tables on the CPU, int32 keys of ``n_rows`` rows): random
+    clear sets that are no leaf range.  Each slot clears random bits of a
+    random span of words, some of its inner words zero; a tenth of the
+    slots clear nothing and a tenth are padding (key INT32_MAX); features
+    stray outside [0, F); tree 0 keeps no bit (leaf 32) and tree 1 only its
+    top bit; leaf offsets stray outside the leaf table."""
+    rng = np.random.default_rng(seed)
+    feat = rng.integers(-2, n_features + 2, (n_trees, n_slots)).astype(np.int32)
+    key = rng.integers(-6, 6, (n_trees, n_slots)).astype(np.int32)
+    key[rng.random((n_trees, n_slots)) < 0.1] = kbv._NEVER_KEY
+    inv = np.zeros((n_trees, n_slots, w32), np.uint32)
+    for t in range(n_trees):
+        for m in range(n_slots):
+            lo = int(rng.integers(0, w32))
+            hi = int(rng.integers(lo, w32)) + 1
+            words = rng.integers(0, 2 ** 32, hi - lo, dtype=np.uint64).astype(np.uint32)
+            words[rng.random(hi - lo) < 0.3] = 0
+            if rng.random() < 0.1:
+                words[:] = 0
+            inv[t, m, lo:hi] = words
+    init = rng.integers(0, 2 ** 32, (n_trees, w32), dtype=np.uint64).astype(np.uint32)
+    init[0] = 0
+    if n_trees > 1:
+        init[1] = 0
+        init[1, -1] = 1 << 31
+    off = rng.integers(-3, n_leaves, n_trees).astype(np.int32)
+    leaf = rng.integers(0, 2 ** 32, (n_leaves, n_classes), dtype=np.uint64).astype(np.uint32)
+    u32 = lambda a: torch.from_numpy(a.view(np.int32)).view(torch.uint32)
+    keys = rng.integers(-7, 7, (n_rows, n_features)).astype(np.int32)
+    return ([torch.from_numpy(feat), torch.from_numpy(key), u32(inv), u32(init),
+             torch.from_numpy(off), u32(leaf)], torch.from_numpy(keys))
+
+
+@pytest.fixture(scope="module")
+def many_trees():
+    """A forest of 65,536 depth-1 trees (one split each) over 3 features, 2
+    classes, and 40 rows: more trees than grid.y holds CTAs."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(65_536)
+    probs = rng.dirichlet(np.ones(2), (65_536, 2))
+    trees = [TreeArrays(feature=np.array([f, -1, -1], np.int32),
+                        threshold=np.array([thr, 0.0, 0.0], np.float32),
+                        left=np.array([1, 1, 2], np.int32), right=np.array([2, 1, 2], np.int32),
+                        leaf_probs=np.concatenate([np.zeros((1, 2)), p]), depth=1)
+             for f, thr, p in zip(rng.integers(0, 3, 65_536), rng.normal(size=65_536), probs)]
+    ir = ForestIR.from_forest(SimpleNamespace(trees_=trees, n_classes_=2, n_features_=3))
+    return ir, rng.normal(size=(40, 3)).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_kernels_score_more_trees_than_grid_y_holds(card, many_trees):
+    """K1, K2, K3 and K5 score 65,536 trees, bit-identical to their plain
+    versions: the wrappers check the tree chunks, not the tree count."""
+    ir, x = many_trees
+    keys = float_to_key(torch.from_numpy(x).to(card))
+    lm = ir.materialize("leaf_major")
+    f, k, l, r, leaf = _on(card, lm)
+    nint = torch.from_numpy(lm.internal_counts.astype(np.int32)).to(card)
+    pad = _on(card, ir.materialize("padded"))
+    blocks = dict(zip(("block_b", "block_t"), pick_blocks(40, ir.n_trees, 3, 132)))
+    assert -(-ir.n_trees // blocks["block_t"]) <= tt.MAX_TREE_CHUNKS
+    tt.reset_launches()
+    k1 = tt.tree_traverse_leaf_major(keys, tt.pack_node_quads(f, k, l, r), nint, leaf,
+                                     **blocks)
+    pad_quads = tt.pack_node_quads(*pad[:4])
+    k2 = tt.tree_traverse_gather(keys, pad_quads, pad[4], depth=1, **blocks)
+    k3 = tt.tree_traverse_onehot(keys, pad_quads, pad[4], depth=1, **blocks)
+    arrays = kbv.bitvector_device_arrays(ir.materialize("bitvector"), card)
+    arrays.pop("n_entry_slots")
+    dense = _dense_tables(arrays)
+    k5 = kbv.tree_bitvector(keys, kbv.pack_bitvector_tables(*dense, device=card))
+    torch.cuda.synchronize()
+    assert tt.LAUNCHES == {"leaf_major": 1, "gather": 1, "onehot": 1, "bitvector": 1}
+    plain = {"K1": (k1, tt.leaf_major_plain(keys, f, k, l, r, nint, leaf, block_b=64, block_t=1)),
+             "K2": (k2, tt.gather_plain(keys, *pad, depth=1, block_b=64, block_t=1)),
+             "K3": (k3, tt.onehot_plain(keys, *pad, depth=1, block_b=64, block_t=1)),
+             "K5": (k5, kbv.bitvector_plain(keys, *dense))}
+    for name, (got, want) in plain.items():
+        diff = (got.view(torch.int32).long() & 0xFFFFFFFF) - (want.view(torch.int32).long()
+                                                               & 0xFFFFFFFF)
+        assert int(diff.abs().max()) == 0, name
+    np.testing.assert_array_equal(
+        k1.view(torch.int32).cpu().numpy(),
+        TreeEngine(ir, spec="integer:reference", device="cpu").predict_partials(x)
+        .view(np.int32))
+
+
+@pytest.mark.cuda
+def test_auto_takes_threads_on_a_card_per_shard(card, monkeypatch):
+    """With two cards counted (so the JAX package's rule picks the fused
+    strategy for a two-shard reference plan), ``device_parallel="auto"``
+    serves through the threaded plan on the card, bit-identical to the
+    single plan, and ``device_parallel=True`` raises."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    ir = _forest(23, 12, 6, 9, 4)
+    x = np.random.default_rng(8).normal(size=(300, 9)).astype(np.float32)
+    eng = TreeEngine(ir, spec="integer:reference+tree_parallel:2")
+    assert eng.plan.name == "tree_parallel" and not eng.plan.fused
+    assert all(b.device.type == "cuda" for b in eng.plan.backends)
+    single = TreeEngine(ir, spec="integer:reference")
+    for got, want in zip(eng.predict_scores(x), single.predict_scores(x)):
+        np.testing.assert_array_equal(got, want)
+    eng.close()
+    with pytest.raises(ValueError, match="not ported"):
+        TreeEngine(ir, spec="integer:reference+tree_parallel:2",
+                   plan_kwargs={"device_parallel": True})
 
 
 @pytest.mark.cuda

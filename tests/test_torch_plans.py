@@ -9,8 +9,9 @@ backends (``reference``, ``cuda``, ``bitvector``; the JAX counterpart of
 ``cuda`` is ``pallas``) x ``DEGENERATE_FORESTS``, the heterogeneous
 ``cuda|bitvector|reference`` plan, forced threads against auto (the fused
 strategy is not ported, so ``device_parallel=True`` raises on one device as
-it does in the JAX package), warm covering every shard, and shard timings
-draining into the gateway.
+it does in the JAX package, and where the JAX rule would fuse, "auto" takes
+the threaded path and only ``True`` raises), warm covering every shard, and
+shard timings draining into the gateway.
 """
 import asyncio
 
@@ -272,6 +273,28 @@ def test_forced_threads_match_auto_and_fused_raises(irs, probe_rows):
     with pytest.raises(ValueError, match="jax devices"):
         JTreeEngine(jir, spec="integer:pallas+tree_parallel:2",
                     plan_kwargs={"device_parallel": True})
+
+
+def test_auto_takes_threads_where_the_fused_rule_applies(irs, probe_rows, monkeypatch):
+    """Where the JAX package's rule picks the fused strategy (made true
+    here, as on a host with a card per shard), ``device_parallel="auto"``
+    builds the threaded plan, bit-identical to ``single``, and only
+    ``device_parallel=True`` raises for want of the fused strategy."""
+    _, ir = irs
+    asked = []
+    monkeypatch.setattr(TreeParallelPlan, "_can_fuse",
+                        lambda self, *args: asked.append(args[-1]) or True)
+    spec = "integer:reference+tree_parallel:2"
+    single = TreeEngine(ir, spec="integer:reference", device="cpu")
+    for kw in ({}, {"plan_kwargs": {"device_parallel": "auto"}}):
+        auto = TreeEngine(ir, spec=spec, device="cpu", **kw)
+        assert auto.plan.name == "tree_parallel" and auto.plan.n_shards == 2
+        assert not auto.plan.fused and auto.plan.describe()["fused"] is False
+        _assert_same(_scores(auto, probe_rows), _scores(single, probe_rows), "auto vs single")
+        auto.close()
+    assert asked == ["auto", "auto"]
+    with pytest.raises(ValueError, match="fused .* not ported"):
+        TreeEngine(ir, spec=spec, device="cpu", plan_kwargs={"device_parallel": True})
 
 
 def test_engine_partials_match_scores(irs, probe_rows):
