@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernels-only [--src DIR]
-    python3 chip_smoke.py --sweep-k5
 
 Run from the root of a checkout (it imports ``src/repro_torch``) on a host
 with one CUDA card.  It
@@ -31,7 +30,8 @@ with one CUDA card.  It
      small forest whose bitvectors span 36 words and on random clear sets
      that are no leaf range (multi-word spans with zero words inside) at
      pinned CTA shapes, and prints K5's packed table bytes beside the
-     dense slot grid's,
+     dense slot grid's, and K5's bound from the records each (row, tree)
+     needs up to its exit word beside the count over every entry,
   5. times each kernel (L2 flushed before every launch, and warm), its plain
      version and the end-to-end request of every route with CUDA events and
      the host clock; each kernel also at the gateway's small batches (K1 at
@@ -49,11 +49,7 @@ with one CUDA card.  It
      with the launch counters read around it, holds every response against
      the reference walk, and checks that its stats show both shard labels.
 
-``--sweep-k5`` builds the kernels and the model and times K5 over the grid
-of CTA shapes behind ``kernels/bitvector.py::pick_blocks`` (SWEEP_K5) at
-ROWS, 1,000 and 20 rows, each launch checked against the plain version,
-printing one JSON line.  ``--kernels-only`` builds the kernels and the
-model and only checks and
+``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
 ``--src`` names another checkout's ``src`` to take ``repro_torch`` from (an
 older tree, for a before/after comparison in one process per tree), through
@@ -119,17 +115,6 @@ SOURCES = {"leaf_major": "src/repro_torch/csrc/tree_traverse.cu",
            "onehot": "src/repro_torch/csrc/tree_traverse.cu",
            "bitvector": "src/repro_torch/csrc/bitvector.cu"}
 
-# K5's sweep: batch rows -> (rows per thread, rows, splits, trees, records
-# staged) per CTA
-SWEEP_K5 = {
-    ROWS: [(2, b, s, t, g) for b in (64, 128) for s in (4, 8, 16) for t in (8, 16, 43)
-           for g in (True, False)] + [(1, 64, 8, 43, g) for g in (True, False)],
-    1000: [(2, b, s, t, g) for b in (64, 128) for s in (4, 8, 16) for t in (1, 2, 4)
-           for g in (True, False)],
-    20: [(1, 32, s, t, g) for s in (8, 16, 32) for t in (1, 2) for g in (True, False)]
-        + [(2, 64, s, 1, g) for s in (16, 32) for g in (True, False)],
-}
-
 # the QuickScorer route's requests, and the sharded plan routes (each at
 # ROWS rows); the plan gateway's workload is GATEWAY_* with fewer requests
 BITVECTOR_REQUESTS = (ROWS, 1000, 20, 1)
@@ -145,7 +130,7 @@ WIDE_ROWS = 2000
 # size, and the CTA shapes pinned beside K5's own (rows, trees, splits; the
 # last reads its records from the table)
 SPAN_WIDTHS = (2, 8, 36)
-SPAN_TREES, SPAN_SLOTS, SPAN_FEATURES, SPAN_ROWS = 24, 300, 87, 1000
+SPAN_TREES, SPAN_SLOTS, SPAN_FEATURES, SPAN_ROWS, SPAN_KEYS = 24, 300, 87, 1000, 40
 SPAN_SHAPES = ({}, dict(block_b=32, block_t=1, splits=16), dict(block_b=64, block_t=5, splits=3),
                dict(block_b=128, block_t=24, splits=1), dict(block_b=256, block_t=2, splits=2),
                dict(block_b=128, block_t=3, splits=4, _stage_records=False))
@@ -413,19 +398,25 @@ def kernel_cases(ops, tt, ir, keys, dev) -> dict:
     return cases
 
 
-def random_span_tables(seed: int, w32: int, dev) -> tuple:
-    """(dense K5 tables, int32 keys) on the card whose clear sets are no
-    leaf range: each of SPAN_SLOTS slots of SPAN_TREES trees clears random
-    bits of a random span of words, with zero words inside the span; some
-    slots clear nothing or are padding (key INT32_MAX); features stray
-    outside [0, F); tree 0 keeps no bit and tree 1 only its top bit; leaf
-    offsets stray outside the leaf table."""
+def random_span_tables(seed: int, n_trees: int, n_slots: int, w32: int, n_features: int,
+                       n_leaves: int, n_classes: int, n_rows: int = 97,
+                       key_range: int = 7) -> tuple:
+    """(the six dense K5 tables, int32 keys of ``n_rows`` rows), CPU
+    tensors, whose clear sets are no leaf range: each slot clears random
+    bits of a random span of words, with zero words inside the span; a tenth
+    of the slots clear nothing and a tenth are padding (key INT32_MAX); keys
+    lie in [-key_range, key_range); features stray outside [0, F), a
+    twentieth of them below -F; tree 0 keeps no bit (leaf 32) and tree 1
+    only its top bit; leaf rows stray past the table and below 0 (tree 2's
+    offset is -L / 2, tree 3's -2 L)."""
     import torch
 
     rng = np.random.default_rng(seed)
-    t, m, f = SPAN_TREES, SPAN_SLOTS, SPAN_FEATURES
+    t, m, f = n_trees, n_slots, n_features
     feat = rng.integers(-2, f + 2, (t, m)).astype(np.int32)
-    key = rng.integers(-40, 40, (t, m)).astype(np.int32)
+    below = rng.random((t, m)) < 0.05
+    feat[below] = rng.integers(-2 * f - 2, -f, int(below.sum()))
+    key = rng.integers(-key_range, key_range, (t, m)).astype(np.int32)
     key[rng.random((t, m)) < 0.1] = np.iinfo(np.int32).max
     lo = rng.integers(0, w32, (t, m))
     hi = lo + 1 + (rng.integers(0, w32, (t, m)) % (w32 - lo))
@@ -437,15 +428,15 @@ def random_span_tables(seed: int, w32: int, dev) -> tuple:
     inv = np.where(inside, words, np.uint32(0))
     init = rng.integers(0, 2 ** 32, (t, w32), dtype=np.uint64).astype(np.uint32)
     init[0] = 0
-    init[1] = 0
-    init[1, -1] = np.uint32(1 << 31)
-    n_leaves = 64 * w32
+    if t > 1:
+        init[1] = 0
+        init[1, -1] = np.uint32(1 << 31)
     off = rng.integers(-3, n_leaves, t).astype(np.int32)
-    leaf = rng.integers(0, 2 ** 32, (n_leaves, N_CLASSES), dtype=np.uint64).astype(np.uint32)
-    keys = rng.integers(-40, 40, (SPAN_ROWS, f)).astype(np.int32)
-    on = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(
-        np.int32 if a.dtype == np.uint32 else a.dtype)).to(dev)
-    u32 = lambda a: on(a).view(torch.uint32)
+    off[2:4] = (-(n_leaves // 2), -2 * n_leaves)[:max(0, t - 2)]
+    leaf = rng.integers(0, 2 ** 32, (n_leaves, n_classes), dtype=np.uint64).astype(np.uint32)
+    keys = rng.integers(-key_range, key_range, (n_rows, f)).astype(np.int32)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    u32 = lambda a: on(a.view(np.int32)).view(torch.uint32)
     return [on(feat), on(key), u32(inv), u32(init), on(off), u32(leaf)], on(keys)
 
 
@@ -479,31 +470,47 @@ def bitvector_work(ir, keys) -> tuple:
     return nbytes, ops, applied, ors
 
 
-def sweep_k5(kbv, tt, ir, keys, dev, flush) -> list:
-    """K5 at every CTA shape of SWEEP_K5, L2-flushed and warm, each launch
-    held against the plain version (tolerance 0); fails on a mismatch."""
+def bitvector_exit_work(packed, dense, keys, chunk_rows: int = 4096,
+                        sub_rows: int = 256) -> tuple:
+    """(bytes, operations, compares, ORs) that K5's function needs on this
+    run's rows where each (row, tree) takes its tree's words lowest first
+    and stops at its exit word, the first word where a bit survives (the
+    last word where none does): the records of higher words cannot change
+    the result.  A compare per record (one nonzero mask word of an entry) in
+    words up to the exit word, an OR per such record whose compare is false,
+    and an add per (row, tree, class); each byte of the keys and of the
+    packed tables read once and the partials written once.  The exit words
+    come from the dense grid's cleared sets, built as the plain version
+    builds them, ``chunk_rows`` rows at a time; features and leaf rows are
+    indexed as jnp indexes them."""
     import torch
 
-    dense = bitvector_tables(kbv, ir, dev)
-    packed = kbv.pack_bitvector_tables(*dense, device=dev)
-    out = []
-    for rows, grid in SWEEP_K5.items():
-        x = keys[:rows]
-        ref = kbv.bitvector_plain(x, *dense)
-        for per_thread, block_b, splits, block_t, staged in grid:
-            shape = dict(block_b=block_b, block_t=block_t, splits=splits,
-                         _rows_per_thread=per_thread, _stage_records=staged)
-            fn = lambda: kbv.tree_bitvector(x, packed, **shape)
-            err = max_abs_err(fn(), ref)
-            torch.cuda.synchronize()
-            if err:
-                fail(f"kernel bitvector disagrees with its plain version at {rows} rows, {shape}")
-            out.append(dict(rows=rows, shape=dict(tt.LAUNCH_SHAPES["bitvector"]),
-                            ms=cuda_ms(fn, KERNEL_TIMING_REPS, flush, lead=True),
-                            warm_ms=cuda_ms(fn, KERNEL_TIMING_REPS, lead=True)))
-            print(f"sweep bitvector {rows} rows {out[-1]['shape']}: {out[-1]['ms']:.4f} ms "
-                  f"L2-flushed, {out[-1]['warm_ms']:.4f} ms warm")
-    return out
+    feat, key, inv, init, _, leaf = dense
+    b, f = keys.shape
+    t, w32 = init.shape
+    dev = keys.device
+    wrap = lambda i: torch.where(i < 0, i + f, i).clamp(0, f - 1)
+    feat, inv, init = wrap(feat.long()), inv.view(torch.int32), init.view(torch.int32)
+    ws = packed.word_start.long()
+    rec = packed.records.long()
+    rec_tree = torch.repeat_interleave(torch.arange(t, device=dev), ws[:, -1] - ws[:, 0])
+    rec_feat, rec_key, rec_word = wrap(rec[:, 0]), rec[:, 1], rec[:, 2]
+    trees = torch.arange(t, device=dev)
+    compares = ors = 0
+    for r0 in range(0, b, chunk_rows):
+        x = keys[r0:r0 + chunk_rows]
+        cleared = torch.zeros((x.shape[0], t, w32), dtype=torch.int32, device=dev)
+        for j in range(feat.shape[1]):
+            cleared |= torch.where((x[:, feat[:, j]] > key[:, j])[:, :, None], inv[:, j], 0)
+        live = (init & ~cleared) != 0
+        exit_word = torch.where(live.any(-1), live.int().argmax(-1), w32 - 1)  # (rows, T)
+        compares += int((ws[trees, exit_word + 1] - ws[:, 0]).sum())
+        for s0 in range(0, x.shape[0], sub_rows):
+            xs = x[s0:s0 + sub_rows]
+            needed = rec_word <= exit_word[s0:s0 + sub_rows][:, rec_tree]
+            ors += int((needed & (xs[:, rec_feat] > rec_key)).sum())
+    nbytes = keys.numel() * 4 + packed.nbytes() + b * leaf.shape[1] * 4
+    return nbytes, compares + ors + b * t * leaf.shape[1], compares, ors
 
 
 def check_and_time(cases: dict, flush, tt) -> dict:
@@ -711,8 +718,6 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--kernels-only", action="store_true",
                         help="only check and time the kernel cases of step 5")
-    parser.add_argument("--sweep-k5", action="store_true",
-                        help="only time K5 over the CTA shapes of SWEEP_K5")
     parser.add_argument("--src", type=Path, default=SRC,
                         help="the src directory to take repro_torch from "
                              "(with --kernels-only)")
@@ -765,12 +770,6 @@ def main() -> None:
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     flush = lambda: flush_buf.fill_(1)
 
-    if args.sweep_k5:
-        kbv = importlib.import_module("repro_torch.kernels.bitvector")
-        swept = sweep_k5(kbv, tt, ir, keys, dev, flush)
-        print(card)
-        print(json.dumps({"sweep_k5": swept}))
-        return
     if args.kernels_only:
         times = check_and_time(kernel_cases(ops, tt, ir, keys, dev), flush, tt)
         print(card)
@@ -863,7 +862,8 @@ def main() -> None:
     wide_ir, wide_x = wide_forest(args.seed + 4)
     wide_keys = float_to_key(torch.from_numpy(wide_x).to(dev))
     wide_tables = bitvector_tables(kbv, wide_ir, dev)
-    wide_out = kbv.tree_bitvector(wide_keys, *wide_tables)
+    wide_out = kbv.tree_bitvector(wide_keys, kbv.pack_bitvector_tables(*wide_tables,
+                                                                       device=dev))
     torch.cuda.synchronize()
     wide_shape = tt.LAUNCH_SHAPES["bitvector"]
     wide_err = max_abs_err(wide_out, kbv.bitvector_plain(wide_keys, *wide_tables))
@@ -876,7 +876,10 @@ def main() -> None:
     # and pinned ones
     span_errs = {}
     for w32 in SPAN_WIDTHS:
-        dense, span_keys = random_span_tables(args.seed + 5 + w32, w32, dev)
+        dense, span_keys = random_span_tables(
+            args.seed + 5 + w32, SPAN_TREES, SPAN_SLOTS, w32, SPAN_FEATURES, 64 * w32,
+            N_CLASSES, SPAN_ROWS, SPAN_KEYS)
+        dense, span_keys = [a.to(dev) for a in dense], span_keys.to(dev)
         ref = kbv.bitvector_plain(span_keys, *dense)
         packed = kbv.pack_bitvector_tables(*dense, device=dev)
         for shape in SPAN_SHAPES:
@@ -922,16 +925,23 @@ def main() -> None:
             ms=measured[name]["ms"], warm_ms=measured[name]["warm_ms"],
             plain_ms=measured[name]["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, shape=measured[name]["shape"], small_batches=small)
-    nbytes, n_ops, applied, ors = bitvector_work(ir, keys)
-    bound_ms, bound_by = bound(nbytes, n_ops)
-    dense_bytes = sum(a.numel() * 4 for a in bitvector_tables(kbv, ir, dev))
-    packed = kbv.pack_bitvector_tables(*bitvector_tables(kbv, ir, dev), device=dev)
+    dense = bitvector_tables(kbv, ir, dev)
+    dense_bytes = sum(a.numel() * 4 for a in dense)
+    packed = kbv.pack_bitvector_tables(*dense, device=dev)
     print(f"kernel bitvector tables: {packed.records.shape[0]} records, {packed.nbytes()} "
           f"bytes packed, against {dense_bytes} bytes of the dense slot grid")
+    # the bound: what this run's data needs with the scan stopping at each
+    # (row, tree)'s exit word; beside it the count over every entry
+    nbytes, n_ops, compares, ors = bitvector_exit_work(packed, dense, keys)
+    bound_ms, bound_by = bound(nbytes, n_ops)
+    all_bytes, all_ops, applied, all_ors = bitvector_work(ir, keys)
+    all_ms, all_by = bound(all_bytes, all_ops)
     print(f"kernel bitvector: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
-          f"{n_ops} ops: {ors} ORs of nonzero mask words over {applied} false "
-          f"(row, entry) pairs of {ROWS * ir.materialize('bitvector').total_entries}); "
-          "no single PyTorch call "
+          f"{n_ops} ops: {compares} compares and {ors} ORs of the records up to each "
+          f"(row, tree)'s exit word); over every entry {all_ms:.4f} ms by {all_by} "
+          f"({all_bytes} bytes, {all_ops} ops: {all_ors} ORs of nonzero mask words over "
+          f"{applied} false (row, entry) pairs of "
+          f"{ROWS * ir.materialize('bitvector').total_entries}); no single PyTorch call "
           "computes this function, so there is no library time")
     rows_out["bitvector"] = dict(
         name="bitvector", route="cuda", source=SOURCES["bitvector"],
@@ -943,7 +953,8 @@ def main() -> None:
                        for r in SMALL_ROWS["bitvector"]},
         multi_word=dict(max_abs_err=wide_err, shape=wide_shape),
         random_spans=dict(max_abs_err=max(span_errs.values()), launches=len(span_errs)),
-        table_bytes=dict(packed=packed.nbytes(), dense=dense_bytes))
+        table_bytes=dict(packed=packed.nbytes(), dense=dense_bytes),
+        bound_every_entry=dict(ms=all_ms, by=all_by, bytes=all_bytes, ops=all_ops))
 
     for spec in routes:
         eng = engines[spec]

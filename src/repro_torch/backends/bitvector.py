@@ -11,7 +11,7 @@ construction, into the records K5 reads (``pack_bitvector_tables``: one
 16-byte record per nonzero mask word), and copies them to its device.  Per
 call it moves the rows over, keys them (FlInt) and runs
 ``kernels.bitvector.tree_bitvector``: K5 on the card, the plain version on
-the unpacked grid with ``device="cpu"``.  The partials are the exact
+the dense grid the tables keep with ``device="cpu"``.  The partials are the exact
 uint32 accumulators of every other backend, so ``flint`` and ``integer``
 differ only in the shared numpy finalize, and every plan can shard it.
 

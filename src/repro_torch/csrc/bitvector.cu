@@ -69,21 +69,26 @@
 //       shared-memory broadcasts; trees whose records do not fit (the
 //       wrapper's rule, kernels/bitvector.py::record_cap) read them from the
 //       table through the read-only cache.
-// Every index is clamped into its buffer: a record's feature into [0, F)
-// (the packer lifts a negative one to 0), each word's record range into its
-// tree's, the tree's into [0, R) and the staged buffer, the leaf row into
-// [0, L).
+// Indices follow jnp's gathers in _bitvector_partials: a negative index
+// wraps once (i + n), then clamps into [0, n).  A record's feature is
+// clamped into [0, F) by one unsigned min; where a table holds a feature
+// outside [0, F) the wrapper passes records whose features it has already
+// wrapped and clamped so, which keeps the per-record work at one
+// instruction.  The leaf row wraps and clamps here, once per (row, tree).
+// Each word's record range is clamped into its tree's, the tree's into
+// [0, R) and the staged buffer.
 //
-// What bounds it.  Per (row, tree) the function needs a compare at every one
-// of the tree's entries and, for each false one, an OR of each nonzero word
-// of its clear set.  At 65,536 rows of the full-width model that is about
-// 8.6e9 compares and 4.5e9 ORs, about 1.3e10 operations (0.196 ms at the
-// H100's 67 TOP/s; chip_smoke.py counts it from each run's data), against
-// about 47 MB that must move (0.014 ms at 3.35 TB/s), so operations bound
-// it.  This body issues per warp and record one shared-memory broadcast,
-// one shared-memory read a row and a few integer instructions, and stops
-// scanning at the first surviving word; PERF.md has its times beside the
-// bound, and the sweep of CTA shapes behind kernels/bitvector.py::pick_blocks.
+// What bounds it.  Per (row, tree) the function needs, scanning words lowest
+// first, the records of the words up to its exit word: a compare at each and
+// an OR at each false one (higher words cannot change the result).  At
+// 65,536 rows of the full-width model that is about 4.6e9 compares and 2.3e9
+// ORs, about 7.0e9 operations (0.104 ms at the H100's 67 TOP/s;
+// chip_smoke.py::bitvector_exit_work counts it from each run's data),
+// against about 31 MB that must move (0.009 ms at 3.35 TB/s), so operations
+// bound it.  This body issues per warp and record one shared-memory
+// broadcast, one shared-memory read a row and a few integer instructions,
+// and runs at about 32 times that bound; PERF.md has its times, and the
+// sweep of CTA shapes behind kernels/bitvector.py::pick_blocks.
 //
 // The host entry launches on the caller's stream and returns
 // cudaGetLastError(), which the Python wrapper turns into an exception.
@@ -142,9 +147,9 @@ __device__ __forceinline__ void tree_records(const BvArgs& a, int t, int& first,
   count = min(max(__ldg(ws + a.W32), first), a.R) - first;
 }
 
-// (b): one record on the thread's rows.  The packer lifts a negative
-// feature to 0, so one unsigned min clamps it into [0, F) (and keeps any
-// other record's read inside the row).
+// (b): one record on the thread's rows.  The wrapper has wrapped and
+// clamped the features of a malformed table, so one unsigned min clamps a
+// feature into [0, F) as jnp does (and keeps any read inside the row).
 template <int kRows, bool kStaged>
 __device__ __forceinline__ void apply_record(const int4 r, const int* const (&xr)[kRows],
                                              int F, unsigned (&cleared)[kRows]) {
@@ -324,7 +329,8 @@ __global__ void __launch_bounds__(kMaxThreads) bitvector_tile(const BvArgs a) {
     const long long off = __ldg(a.leaf_off + t);
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
-      const long long at = off + (leaf[j] >= 0 ? leaf[j] : kNoSurvivor);
+      long long at = off + (leaf[j] >= 0 ? leaf[j] : kNoSurvivor);
+      at = at < 0 ? at + a.L : at;  // jnp wraps a negative row once
       const long long idx = at < 0 ? 0 : (at >= a.L ? a.L - 1 : at);
       add_leaf(acc[j], a.leaf + static_cast<size_t>(idx) * a.C + c0, classes_left,
                vec_leaf);

@@ -19,17 +19,19 @@ of the layout's little-endian uint64 words lists them low to high, so word
 ``b // 32`` holds leaf bit ``b``.  Where no bit survives (never, on a layout
 built from a real tree) both versions take leaf 32 of word 0, which is what
 ``_bitvector_partials`` computes there (``argmax`` of no nonzero word is 0,
-``popcount(0 - 1)`` is 32), and clamp the leaf row into the table.
+``popcount(0 - 1)`` is 32).  An entry's feature and a tree's leaf row are
+indexed as jnp indexes them: a negative index wraps once (``i + n``), then
+clamps into [0, n).  Only malformed tables hold such an index.
 
 K5 reads the slot grid packed once on the host
 (:func:`pack_bitvector_tables`): one 16-byte record per nonzero word of each
 slot's clear set, grouped by tree and word, so that it ORs each false
 entry's nonzero words and nothing else.  The wrapper takes the packed
-tables or the dense grid (which it packs per call), takes the plain version
-only for tensors on the CPU (unpacking packed tables), and for CUDA tensors
-launches K5 or raises.  It counts its launches in
-``tree_traverse.LAUNCHES["bitvector"]`` and records its CTA shape in
-``tree_traverse.LAUNCH_SHAPES["bitvector"]``, under the walks' lock.
+tables, takes the plain version on the dense grid they keep only for
+tensors on the CPU, and for CUDA tensors launches K5 or raises.  It counts
+its launches in ``tree_traverse.LAUNCHES["bitvector"]`` and records its CTA
+shape in ``tree_traverse.LAUNCH_SHAPES["bitvector"]``, under the walks'
+lock.
 """
 from __future__ import annotations
 
@@ -128,6 +130,12 @@ def _exit_leaves(live: torch.Tensor) -> torch.Tensor:
     return w_idx.to(torch.int64) * 32 + _popcount32((lsb - 1) & _U32_MASK)
 
 
+def _jnp_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices into a length-``n`` axis as jnp's gathers take them: a
+    negative index wraps once, then every index clamps into [0, n)."""
+    return torch.where(i < 0, i + n, i).clamp(0, n - 1)
+
+
 def bitvector_plain(x_keys, entry_feat, entry_key, inv_mask, init_mask,
                     leaf_off, leaf_fixed, *, chunk_rows=None) -> torch.Tensor:
     """K5's function in plain PyTorch, the twin of ``_bitvector_partials``:
@@ -137,8 +145,8 @@ def bitvector_plain(x_keys, entry_feat, entry_key, inv_mask, init_mask,
     whose compare is false, as the jnp form does; the (rows, T, W32)
     cleared-bit tensor is built for ``chunk_rows`` rows at a time (by
     default as many as fit in 64 MiB), so 65,536 rows of the full-width
-    model fit on the card.  Each entry's feature is clamped into [0, F) and
-    each leaf row into [0, L), as K5 clamps them.  The leaves add in int64
+    model fit on the card.  Each entry's feature and each leaf row is
+    indexed as jnp indexes it (:func:`_jnp_index`).  The leaves add in int64
     masked to 32 bits, because torch's uint32 has no add.
     """
     b = x_keys.shape[0]
@@ -147,7 +155,7 @@ def bitvector_plain(x_keys, entry_feat, entry_key, inv_mask, init_mask,
     inv = inv_mask.view(torch.int32)
     init = init_mask.view(torch.int32)
     leaf = leaf_fixed.view(torch.int32).to(torch.int64) & _U32_MASK
-    feat = entry_feat.long().clamp(0, x_keys.shape[1] - 1)
+    feat = _jnp_index(entry_feat.long(), x_keys.shape[1])
     off = leaf_off.long()
     step = chunk_rows or max(1, _PLAIN_CHUNK_BYTES // max(1, t * w32 * 4))
     out = torch.empty((b, leaf.shape[-1]), dtype=torch.int32, device=x_keys.device)
@@ -157,7 +165,7 @@ def bitvector_plain(x_keys, entry_feat, entry_key, inv_mask, init_mask,
         for j in range(m):
             applied = x[:, feat[:, j]] > entry_key[:, j]          # (rows, T)
             cleared |= torch.where(applied[:, :, None], inv[:, j, :], 0)
-        rows = (off + _exit_leaves(init & ~cleared)).clamp(0, leaf.shape[0] - 1)
+        rows = _jnp_index(off + _exit_leaves(init & ~cleared), leaf.shape[0])
         out[r0:r0 + step] = (leaf[rows].sum(1) & _U32_MASK).to(torch.int32)
     return out.view(torch.uint32)
 
@@ -169,26 +177,32 @@ def bitvector_plain(x_keys, entry_feat, entry_key, inv_mask, init_mask,
 class BitvectorTables(NamedTuple):
     """The slot grid of :func:`bitvector_device_arrays` as K5 reads it.
 
-    ``records`` (R, 4) int32: one record {feature, key, word, bits} per
-    nonzero word of each slot's clear set, grouped by tree, then by word
-    (lowest first), then by slot.  ``word_start`` (T, W32 + 1) int32: the
-    first record of each (tree, word); ``word_start[t, W32]`` ends tree t.
-    ``slot`` (R,) int32: the slot each record came from, which only
-    :func:`unpack_bitvector_tables` reads.  ``init_mask``, ``leaf_off`` and
-    ``leaf_fixed`` are the grid's own; ``n_entry_slots`` is its M, and
-    ``tree_records`` the most records of one tree.
+    On the tables' device: ``records`` (R, 4) int32, one record {feature,
+    key, word, bits} per nonzero word of each slot's clear set, grouped by
+    tree, then by word (lowest first), then by slot; ``word_start``
+    (T, W32 + 1) int32, the first record of each (tree, word), with
+    ``word_start[t, W32]`` ending tree t; and the grid's own ``init_mask``,
+    ``leaf_off`` and ``leaf_fixed``.  On the host: ``n_entry_slots`` the
+    grid's M, ``tree_records`` the most records of one tree,
+    ``feature_range`` the lowest and highest record feature, and ``slot``
+    (R,) int32 numpy, the slot each record came from, which only
+    :func:`unpack_bitvector_tables` reads.  ``dense``: the six dense tables
+    where the tables live on the CPU (the plain version reads them), else
+    None.
     """
     records: torch.Tensor
     word_start: torch.Tensor
     init_mask: torch.Tensor
     leaf_off: torch.Tensor
     leaf_fixed: torch.Tensor
-    slot: torch.Tensor
     n_entry_slots: int
     tree_records: int
+    feature_range: tuple
+    slot: np.ndarray
+    dense: tuple | None
 
     def nbytes(self) -> int:
-        """Bytes K5 reads its tables from (``slot`` stays unread)."""
+        """Bytes K5 reads its tables from."""
         return sum(a.numel() * a.element_size() for a in (
             self.records, self.word_start, self.init_mask, self.leaf_off,
             self.leaf_fixed))
@@ -212,7 +226,8 @@ def pack_bitvector_tables(entry_feat, entry_key, inv_mask, init_mask, leaf_off,
     Every nonzero word of a clear set becomes a record and no zero word
     does, so any mask packs exactly, ranges or not, and the padding slots'
     empty clear sets pack to nothing: they apply nothing in either form.
-    A negative feature packs as 0, where K5 and the plain version clamp it.
+    Features pack as they are; :func:`tree_bitvector` indexes them with the
+    rows' width.  On the CPU the tables also keep the dense grid, as given.
     """
     feat, key = _numpy(entry_feat).astype(np.int32), _numpy(entry_key).astype(np.int32)
     inv = _numpy(inv_mask).view(np.uint32)
@@ -227,26 +242,31 @@ def pack_bitvector_tables(entry_feat, entry_key, inv_mask, init_mask, leaf_off,
         raise ValueError(f"{len(tree)} nonzero mask words exceed K5's 32-bit record index")
     order = np.lexsort((slot, word, tree))
     tree, slot, word = tree[order], slot[order], word[order]
-    records = np.stack([np.maximum(feat[tree, slot], 0), key[tree, slot],
+    records = np.stack([feat[tree, slot], key[tree, slot],
                         word.astype(np.int32), inv[tree, slot, word].view(np.int32)], axis=1)
     counts = np.bincount(tree * w32 + word, minlength=t * w32)
     starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     word_start = starts[np.arange(t)[:, None] * w32 + np.arange(w32 + 1)]
     dev = resolve_device(device)
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    dense = (entry_feat, entry_key, inv_mask, init_mask, leaf_off, leaf_fixed)
     return BitvectorTables(
         records=as_t(records), word_start=as_t(word_start),
         init_mask=as_t(init), leaf_off=as_t(_numpy(leaf_off).astype(np.int32)),
-        leaf_fixed=as_t(_numpy(leaf_fixed).view(np.uint32)),
-        slot=as_t(slot.astype(np.int32)), n_entry_slots=m,
-        tree_records=int((word_start[:, -1] - word_start[:, 0]).max()) if t else 0)
+        leaf_fixed=as_t(_numpy(leaf_fixed).view(np.uint32)), n_entry_slots=m,
+        tree_records=int((word_start[:, -1] - word_start[:, 0]).max()) if t else 0,
+        feature_range=(int(records[:, 0].min()), int(records[:, 0].max()))
+        if len(records) else (0, 0),
+        slot=slot.astype(np.int32),
+        dense=tuple(torch.as_tensor(a).cpu() for a in dense) if dev.type == "cpu" else None)
 
 
 def unpack_bitvector_tables(packed: BitvectorTables) -> tuple:
-    """The dense slot grid back from ``packed``, as tensors on its device:
-    ``inv_mask`` bit for bit, and each slot's feature and key where its
-    clear set is not empty; a slot with an empty clear set (which applies
-    nothing) comes back as padding, feature 0 and key ``_NEVER_KEY``."""
+    """The dense slot grid back from ``packed``'s records alone, as tensors
+    on its device: ``inv_mask`` bit for bit, and each slot's feature and key
+    where its clear set is not empty; a slot with an empty clear set (which
+    applies nothing) comes back as padding, feature 0 and key
+    ``_NEVER_KEY``."""
     w32 = packed.init_mask.shape[-1]
     t, m = packed.word_start.shape[0], packed.n_entry_slots
     dev = packed.records.device
@@ -254,7 +274,7 @@ def unpack_bitvector_tables(packed: BitvectorTables) -> tuple:
     tree = torch.repeat_interleave(
         torch.arange(t, device=dev),
         (packed.word_start[:, -1] - packed.word_start[:, 0]).long())
-    slot = packed.slot.long()
+    slot = torch.from_numpy(packed.slot).to(dev).long()
     entry_feat = torch.zeros((t, m), dtype=torch.int32, device=dev)
     entry_key = torch.full((t, m), int(_NEVER_KEY), dtype=torch.int32, device=dev)
     inv = torch.zeros((t, m, w32), dtype=torch.int32, device=dev)
@@ -395,44 +415,52 @@ def _check(x_keys, tables: BitvectorTables):
     return out
 
 
-def tree_bitvector(x_keys, *tables, block_b=None, block_t=None, splits=None,
-                   _rows_per_thread=None, _stage_records=None) -> torch.Tensor:
-    """K5: (B, C) uint32 partials of the QuickScorer tables, given as one
-    :class:`BitvectorTables` or as the six dense tables of
-    :func:`bitvector_device_arrays` (packed here, per call).
+def _wrap_features(records: torch.Tensor, n_features: int) -> torch.Tensor:
+    """``records`` with each feature indexed as jnp indexes ``x[:, f]`` on
+    rows of ``n_features`` columns (:func:`_jnp_index`)."""
+    out = records.clone()
+    out[:, 0] = _jnp_index(records[:, 0], n_features)
+    return out
+
+
+def tree_bitvector(x_keys, tables: BitvectorTables, *, block_b=None, block_t=None,
+                   splits=None, _rows_per_thread=None, _stage_records=None) -> torch.Tensor:
+    """K5: (B, C) uint32 partials of the QuickScorer ``tables``
+    (:func:`pack_bitvector_tables`).
 
     On the card: ``block_b`` rows, ``block_t`` trees and ``splits`` warps a
     tree per CTA, rows per thread and the staging of each tree's records in
     shared memory as :func:`pick_blocks` and :func:`record_cap` choose them
     where None; ``_rows_per_thread`` and ``_stage_records`` pin those two for
-    tests.  On the CPU: :func:`bitvector_plain` on the dense grid.
+    tests.  Where a record's feature lies outside [0, F) (a malformed
+    table), the records are copied with each feature wrapped and clamped as
+    jnp indexes it, so that K5's own clamp is exact.  On the CPU:
+    :func:`bitvector_plain` on the dense grid the tables keep.
     """
-    if len(tables) == 1 and isinstance(tables[0], BitvectorTables):
-        packed = tables[0]
-    elif len(tables) == 6:
-        packed = None
-    else:
-        raise TypeError("tree_bitvector takes one BitvectorTables or the six dense tables")
+    if not isinstance(tables, BitvectorTables):
+        raise TypeError("tree_bitvector takes the BitvectorTables of pack_bitvector_tables")
     if x_keys.device.type == "cpu":
-        dense = tables if packed is None else unpack_bitvector_tables(packed)
-        return bitvector_plain(x_keys, *dense)
+        if tables.dense is None:
+            raise ValueError(f"tables packed for {tables.records.device} cannot score "
+                             "rows on the CPU")
+        return bitvector_plain(x_keys, *tables.dense)
     from repro_torch.kernels import ops
     from repro_torch.kernels._build import load_library
 
-    if packed is None:
-        packed = pack_bitvector_tables(*tables, device=x_keys.device)
-    args = _check(x_keys, packed)
+    args = _check(x_keys, tables)
     b, f = x_keys.shape
     t, w32 = args["init_mask"].shape
     n_leaves, c = args["leaf_fixed"].shape
-    auto = pick_blocks(b, t, f, w32, packed.tree_records, ops._sm_count(x_keys.device))
+    if tables.feature_range[0] < 0 or tables.feature_range[1] >= f:
+        args["records"] = _wrap_features(args["records"], f)
+    auto = pick_blocks(b, t, f, w32, tables.tree_records, ops._sm_count(x_keys.device))
     block_b, block_t = block_b or auto[0], block_t or auto[1]
     rows_per_thread = _rows_per_thread or (auto[3] if block_b % (32 * auto[3]) == 0 else 1)
     # a pinned row count takes the rule's splits as far as the threads allow
     splits = splits or max(1, min(auto[2], MAX_THREADS * rows_per_thread // block_b))
-    rec_cap = record_cap(packed.tree_records, block_b, f, splits)
+    rec_cap = record_cap(tables.tree_records, block_b, f, splits)
     if _stage_records is not None:
-        rec_cap = packed.tree_records if _stage_records else 0
+        rec_cap = tables.tree_records if _stage_records else 0
     check_launch_shape(t, f, block_b, block_t, splits, rows_per_thread, rec_cap)
     stage_x = tt.stages_x(f)
     shape = dict(block_b=block_b, block_t=block_t, splits=splits,

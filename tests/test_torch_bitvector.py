@@ -14,10 +14,18 @@ seeds through numpy; the forest crosses packages through
 
 The records K5 reads (``pack_bitvector_tables``) unpack to the slot grid
 bit for bit on every case, on chains of 8 and 32 words, on all-stump
-forests, on subset slices and on random clear sets that are no leaf range;
-K5's CTA rule and both wrappers' shape checks keep the tree chunks within
-grid.y's 65,535 CTAs for any forest.
+forests, on subset slices and on random clear sets that are no leaf range
+(``chip_smoke.random_span_tables``); on those random tables, whose
+features and leaf rows stray below 0 and past their tables, the plain
+version equals ``_bitvector_partials``, and so do the records with the
+features wrapped as the wrapper hands them to K5.  K5's CTA rule and both
+wrappers' shape checks keep the tree chunks within grid.y's 65,535 CTAs
+for any forest.  ``chip_smoke.bitvector_exit_work``, which K5's bound
+reads, equals a count made record by record.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -33,7 +41,9 @@ from repro_torch.ir.forest_ir import ARRAY_DTYPES
 from repro_torch.kernels import bitvector as kbv
 from repro_torch.kernels import tree_traverse as tt
 from repro_torch.serve import TreeEngine
-from test_torch_cuda import random_span_tables
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import bitvector_exit_work, random_span_tables  # noqa: E402
 
 _TABLES = ("entry_feat", "entry_key", "inv_mask", "init_mask", "leaf_off", "leaf_fixed")
 
@@ -147,14 +157,19 @@ def test_plain_matches_bitvector_partials(case, chunk_rows):
 
 
 def test_wrapper_on_the_cpu_runs_the_plain_version(case):
-    """On CPU tensors the wrapper takes the plain version and counts no
-    launch."""
+    """On CPU tensors the wrapper takes the plain version on the dense grid
+    its tables keep and counts no launch; it takes the packed tables
+    only."""
     _, _, ir, rows = case
     arrays = kbv.bitvector_device_arrays(ir.materialize("bitvector"), "cpu")
     keys = float_to_key(torch.from_numpy(rows[64]))
+    packed = kbv.pack_bitvector_tables(*(arrays[k] for k in _TABLES), device="cpu")
+    assert all(a is arrays[k] for a, k in zip(packed.dense, _TABLES))
     before = dict(tt.LAUNCHES)
-    out = kbv.tree_bitvector(keys, *(arrays[k] for k in _TABLES))
+    out = kbv.tree_bitvector(keys, packed)
     assert tt.LAUNCHES == before
+    with pytest.raises(TypeError, match="BitvectorTables"):
+        kbv.tree_bitvector(keys, [arrays[k] for k in _TABLES])
     np.testing.assert_array_equal(
         _u32(out), _u32(kbv.bitvector_plain(keys, *(arrays[k] for k in _TABLES))))
 
@@ -291,15 +306,14 @@ def _dense(arrays):
 
 def _assert_unpacks(dense, packed, label):
     """``packed`` unpacks to ``dense``'s ``inv_mask`` bit for bit, with each
-    slot's feature (a negative one lifted to 0) and key wherever its clear
-    set is not empty; its records
-    are the nonzero mask words, grouped by tree and word."""
+    slot's feature and key wherever its clear set is not empty; its records
+    are the nonzero mask words, grouped by tree and word; it keeps the dense
+    grid (packed on the CPU) and its records' feature range."""
     feat, key, inv = (_u32(a) for a in dense[:3])
     u_feat, u_key, u_inv = (_u32(a) for a in kbv.unpack_bitvector_tables(packed)[:3])
     np.testing.assert_array_equal(u_inv, inv, err_msg=label)
     used = inv.any(-1)
-    # a negative feature packs as 0, where both versions clamp it
-    np.testing.assert_array_equal(u_feat[used], np.maximum(feat, 0)[used], err_msg=label)
+    np.testing.assert_array_equal(u_feat[used], feat[used], err_msg=label)
     np.testing.assert_array_equal(u_key[used], key[used], err_msg=label)
     rec = packed.records.numpy()
     assert rec.shape == (int((inv != 0).sum()), 4) and (rec[:, 3] != 0).all(), label
@@ -313,6 +327,10 @@ def _assert_unpacks(dense, packed, label):
     for got, want in zip((packed.init_mask, packed.leaf_off, packed.leaf_fixed), dense[3:6]):
         np.testing.assert_array_equal(_u32(got), _u32(want), err_msg=label)
     assert packed.n_entry_slots == feat.shape[1]
+    assert packed.feature_range == ((int(rec[:, 0].min()), int(rec[:, 0].max()))
+                                    if len(rec) else (0, 0))
+    assert packed.slot.shape == (len(rec),) and isinstance(packed.slot, np.ndarray)
+    assert len(packed.dense) == 6
 
 
 def test_packed_tables_unpack_to_the_dense_grid(case):
@@ -346,7 +364,81 @@ def test_random_span_masks_pack_exactly(w32):
     packed = kbv.pack_bitvector_tables(*dense, device="cpu")
     _assert_unpacks(dense, packed, f"W32={w32}")
     np.testing.assert_array_equal(_u32(kbv.tree_bitvector(keys, packed)),
-                                  _u32(kbv.tree_bitvector(keys, *dense)))
+                                  _u32(kbv.bitvector_plain(keys, *dense)))
+
+
+def _jax_partials(dense, keys):
+    arrays = dict(zip(_TABLES, (_u32(a) for a in dense)))
+    return np.asarray(jbv._bitvector_partials(arrays, keys.numpy(), dense[0].shape[1]))
+
+
+@pytest.mark.parametrize("w32", [2, 8, 32, 36])
+def test_plain_matches_bitvector_partials_on_random_span_masks(w32):
+    """On random clear sets whose features stray below 0, below -F and past
+    F, and whose leaf rows stray below 0 and past the leaf table, the plain
+    version equals ``_bitvector_partials`` (tolerance 0): both index as
+    jnp does, a negative index wrapped once and then clamped."""
+    dense, keys = random_span_tables(w32 + 100, 6, 40, w32, 7, 48, 3, n_rows=61)
+    feat = dense[0].numpy()
+    assert (feat < -7).any() and ((feat < 0) & (feat >= -7)).any() and (feat >= 7).any()
+    assert (dense[4].numpy() < 0).any()
+    np.testing.assert_array_equal(_u32(kbv.bitvector_plain(keys, *dense)),
+                                  _jax_partials(dense, keys))
+
+
+@pytest.mark.parametrize("w32", [2, 36])
+def test_wrapped_records_score_as_the_raw_table(w32):
+    """The records the wrapper hands K5 where a feature lies outside
+    [0, F) hold every feature in [0, F), and score (unpacked, through the
+    plain version) as the raw table does in the JAX package."""
+    dense, keys = random_span_tables(w32 + 200, 6, 40, w32, 7, 48, 3, n_rows=61)
+    packed = kbv.pack_bitvector_tables(*dense, device="cpu")
+    lo, hi = packed.feature_range
+    assert lo < 0 and hi >= 7
+    wrapped = packed._replace(records=kbv._wrap_features(packed.records, 7))
+    feat = wrapped.records[:, 0]
+    assert int(feat.min()) >= 0 and int(feat.max()) < 7
+    np.testing.assert_array_equal(_u32(kbv.bitvector_plain(
+        keys, *kbv.unpack_bitvector_tables(wrapped))), _jax_partials(dense, keys))
+
+
+def _exit_work_by_record(packed, dense, keys):
+    """(compares, ORs) of K5's scan, record by record: each (row, tree)
+    takes its words lowest first and stops at the first with a surviving
+    bit."""
+    rec, ws = packed.records.numpy(), packed.word_start.numpy()
+    init = _u32(dense[3])
+    x = keys.numpy()
+    f = x.shape[1]
+    compares = ors = 0
+    for row in x:
+        for t in range(init.shape[0]):
+            for w in range(init.shape[1]):
+                cleared = 0
+                for r in rec[ws[t, w]:ws[t, w + 1]]:
+                    feat = min(max(r[0] + f if r[0] < 0 else r[0], 0), f - 1)
+                    compares += 1
+                    if row[feat] > r[1]:
+                        ors += 1
+                        cleared |= int(r[3]) & 0xFFFFFFFF
+                if int(init[t, w]) & ~cleared:
+                    break
+    return compares, ors
+
+
+@pytest.mark.parametrize("w32", [2, 8])
+def test_exit_work_counts_the_records_each_scan_needs(w32):
+    """K5's bound counts, per (row, tree), the records in words up to its
+    exit word and the false ones among them, as a scan record by record
+    finds them; rows and records chunked so that no chunk divides evenly."""
+    dense, keys = random_span_tables(w32 + 300, 4, 12, w32, 5, 40, 3, n_rows=23)
+    packed = kbv.pack_bitvector_tables(*dense, device="cpu")
+    nbytes, n_ops, compares, ors = bitvector_exit_work(packed, dense, keys, chunk_rows=7,
+                                                       sub_rows=3)
+    assert (compares, ors) == _exit_work_by_record(packed, dense, keys)
+    assert n_ops == compares + ors + 23 * 4 * 3
+    assert nbytes == keys.numel() * 4 + packed.nbytes() + 23 * 3 * 4
+    assert 0 < compares < len(packed.records) * 23
 
 
 @pytest.mark.parametrize("depth,w32", [(200, 8), (1000, 32)])

@@ -5,8 +5,8 @@ design (odd and even feature counts, rows too wide to stage, class counts
 that take the scalar leaf path and several class chunks, tree chunks that
 the walks per thread do not divide, rows past the last full CTA; for K5
 bitvectors of 2, 8, 32 and 36 words, an all-stump forest and random clear
-sets that are no leaf range, on its packed tables and the dense grid, at
-pinned rows, trees, splits and rows per thread, records staged or not); K3
+sets that are no leaf range, on its packed tables, at pinned rows, trees,
+splits and rows per thread, records staged or not); K3
 also on malformed tables at every walk count and staging, where K1 and K2
 must stay inside their buffers; K1, K2, K3 and K5 on 65,536 trees, more
 than grid.y holds CTAs; two gateways on two routes serving at once from
@@ -20,10 +20,13 @@ on a machine with a card::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-This file imports no JAX, so it runs where only PyTorch is installed.
+This file imports no JAX, so it runs where only PyTorch is installed.  It
+takes K5's random clear sets from ``chip_smoke.random_span_tables``, the
+generator the smoke run uses.
 """
 import asyncio
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +39,9 @@ from repro_torch.kernels import tree_traverse as tt
 from repro_torch.kernels.ops import pick_blocks
 from repro_torch.serve import Gateway, ModelRegistry, TreeEngine
 from repro_torch.trees import TreeArrays
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import random_span_tables  # noqa: E402  (numpy only at import)
 
 
 @pytest.fixture
@@ -402,9 +408,9 @@ def _dense_tables(arrays):
 
 
 def _assert_bitvector_shapes(keys, dense, ref, n_features, n_trees, label):
-    """K5 on the packed tables and on the dense grid, at its own CTA shape
-    and at pinned ones (rows, trees and splits per CTA, rows per thread),
-    each equal to ``ref`` with one launch counted and its shape recorded."""
+    """K5 on the packed tables, at its own CTA shape and at pinned ones
+    (rows, trees and splits per CTA, rows per thread), each equal to ``ref``
+    with one launch counted and its shape recorded."""
     packed = kbv.pack_bitvector_tables(*dense, device=keys.device)
     w32 = dense[3].shape[-1]
     auto = kbv.pick_blocks(keys.shape[0], n_trees, n_features, w32, packed.tree_records, 132)
@@ -418,33 +424,32 @@ def _assert_bitvector_shapes(keys, dense, ref, n_features, n_trees, label):
                    dict(block_b=128, block_t=1, splits=2, _rows_per_thread=2),
                    dict(block_b=96, block_t=2, splits=5, _rows_per_thread=1,
                         _stage_records=True)):
-        for tables in ((packed,), dense) if not blocks else ((packed,),):
-            tt.reset_launches()
-            out = kbv.tree_bitvector(keys, *tables, **blocks)
-            torch.cuda.synchronize()
-            assert tt.LAUNCHES == {"leaf_major": 0, "gather": 0, "onehot": 0, "bitvector": 1}
-            shape = tt.LAUNCH_SHAPES["bitvector"]
-            want = dict(zip(("block_b", "block_t", "splits", "rows_per_thread"), auto))
-            want.update({k.lstrip("_"): v for k, v in blocks.items() if k != "_stage_records"})
-            if "block_b" in blocks and "_rows_per_thread" not in blocks:
-                want["rows_per_thread"] = auto[3] if blocks["block_b"] % (32 * auto[3]) == 0 \
-                    else 1
-            if "splits" not in blocks:
-                want["splits"] = max(1, min(auto[2], kbv.MAX_THREADS * want["rows_per_thread"]
-                                            // want["block_b"]))
-            assert {k: shape[k] for k in want} == want, label
-            staged = kbv.record_cap(packed.tree_records, shape["block_b"], n_features,
-                                    shape["splits"])
-            if "_stage_records" in blocks:
-                staged = packed.tree_records if blocks["_stage_records"] else 0
-            assert shape["staged_records"] == staged
-            assert shape["stage_x"] == tt.stages_x(n_features)
-            assert shape["smem_bytes"] == kbv.smem_bytes(shape["block_b"], n_features,
-                                                         shape["splits"], staged)
-            assert out.dtype == torch.uint32 and out.shape == ref.shape
-            np.testing.assert_array_equal(out.view(torch.int32).cpu().numpy(),
-                                          ref.view(torch.int32).cpu().numpy(),
-                                          err_msg=f"{label}, {blocks}")
+        tt.reset_launches()
+        out = kbv.tree_bitvector(keys, packed, **blocks)
+        torch.cuda.synchronize()
+        assert tt.LAUNCHES == {"leaf_major": 0, "gather": 0, "onehot": 0, "bitvector": 1}
+        shape = tt.LAUNCH_SHAPES["bitvector"]
+        want = dict(zip(("block_b", "block_t", "splits", "rows_per_thread"), auto))
+        want.update({k.lstrip("_"): v for k, v in blocks.items() if k != "_stage_records"})
+        if "block_b" in blocks and "_rows_per_thread" not in blocks:
+            want["rows_per_thread"] = auto[3] if blocks["block_b"] % (32 * auto[3]) == 0 \
+                else 1
+        if "splits" not in blocks:
+            want["splits"] = max(1, min(auto[2], kbv.MAX_THREADS * want["rows_per_thread"]
+                                        // want["block_b"]))
+        assert {k: shape[k] for k in want} == want, label
+        staged = kbv.record_cap(packed.tree_records, shape["block_b"], n_features,
+                                shape["splits"])
+        if "_stage_records" in blocks:
+            staged = packed.tree_records if blocks["_stage_records"] else 0
+        assert shape["staged_records"] == staged
+        assert shape["stage_x"] == tt.stages_x(n_features)
+        assert shape["smem_bytes"] == kbv.smem_bytes(shape["block_b"], n_features,
+                                                     shape["splits"], staged)
+        assert out.dtype == torch.uint32 and out.shape == ref.shape
+        np.testing.assert_array_equal(out.view(torch.int32).cpu().numpy(),
+                                      ref.view(torch.int32).cpu().numpy(),
+                                      err_msg=f"{label}, {blocks}")
 
 
 @pytest.mark.cuda
@@ -452,8 +457,8 @@ def _assert_bitvector_shapes(keys, dense, ref, n_features, n_trees, label):
 @pytest.mark.parametrize("name", sorted(BITVECTOR_CASES))
 def test_bitvector_kernel_matches_plain_version(card, name, rows):
     """K5 equals its plain version (max |kernel - plain| = 0) at each width,
-    class count and row count, on its packed tables and on the dense grid,
-    at its own CTA shape and pinned ones, and counts one launch per call."""
+    class count and row count, on its packed tables, at its own CTA shape
+    and pinned ones, and counts one launch per call."""
     ir, x = _bitvector_case(name, rows)
     bv = ir.materialize("bitvector")
     arrays = kbv.bitvector_device_arrays(bv, card)
@@ -472,48 +477,14 @@ def test_bitvector_kernel_matches_plain_version(card, name, rows):
 def test_bitvector_kernel_on_random_span_masks(card, w32):
     """K5 equals its plain version on clear sets that are no leaf range:
     multi-word spans with zero words inside, empty sets, padding slots,
-    features outside [0, F), a tree with no surviving bit and one with only
-    its top bit, and leaf offsets outside the leaf table."""
+    features outside [0, F) and below -F (the wrapper wraps them as jnp
+    does), a tree with no surviving bit and one with only its top bit, and
+    leaf rows below 0 and past the leaf table."""
     dense, keys = random_span_tables(w32, 5, 9, w32, 6, 40, 3)
     dense = [a.to(card) for a in dense]
     keys = keys.to(card)
     ref = kbv.bitvector_plain(keys, *dense)
     _assert_bitvector_shapes(keys, dense, ref, 6, 5, f"random spans, W32={w32}")
-
-
-def random_span_tables(seed, n_trees, n_slots, w32, n_features, n_leaves, n_classes,
-                       n_rows=97):
-    """(dense K5 tables on the CPU, int32 keys of ``n_rows`` rows): random
-    clear sets that are no leaf range.  Each slot clears random bits of a
-    random span of words, some of its inner words zero; a tenth of the
-    slots clear nothing and a tenth are padding (key INT32_MAX); features
-    stray outside [0, F); tree 0 keeps no bit (leaf 32) and tree 1 only its
-    top bit; leaf offsets stray outside the leaf table."""
-    rng = np.random.default_rng(seed)
-    feat = rng.integers(-2, n_features + 2, (n_trees, n_slots)).astype(np.int32)
-    key = rng.integers(-6, 6, (n_trees, n_slots)).astype(np.int32)
-    key[rng.random((n_trees, n_slots)) < 0.1] = kbv._NEVER_KEY
-    inv = np.zeros((n_trees, n_slots, w32), np.uint32)
-    for t in range(n_trees):
-        for m in range(n_slots):
-            lo = int(rng.integers(0, w32))
-            hi = int(rng.integers(lo, w32)) + 1
-            words = rng.integers(0, 2 ** 32, hi - lo, dtype=np.uint64).astype(np.uint32)
-            words[rng.random(hi - lo) < 0.3] = 0
-            if rng.random() < 0.1:
-                words[:] = 0
-            inv[t, m, lo:hi] = words
-    init = rng.integers(0, 2 ** 32, (n_trees, w32), dtype=np.uint64).astype(np.uint32)
-    init[0] = 0
-    if n_trees > 1:
-        init[1] = 0
-        init[1, -1] = 1 << 31
-    off = rng.integers(-3, n_leaves, n_trees).astype(np.int32)
-    leaf = rng.integers(0, 2 ** 32, (n_leaves, n_classes), dtype=np.uint64).astype(np.uint32)
-    u32 = lambda a: torch.from_numpy(a.view(np.int32)).view(torch.uint32)
-    keys = rng.integers(-7, 7, (n_rows, n_features)).astype(np.int32)
-    return ([torch.from_numpy(feat), torch.from_numpy(key), u32(inv), u32(init),
-             torch.from_numpy(off), u32(leaf)], torch.from_numpy(keys))
 
 
 @pytest.fixture(scope="module")
