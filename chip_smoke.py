@@ -47,7 +47,24 @@ with one CUDA card.  It
   7. serves a shorter seeded workload through a gateway on the
      heterogeneous plan route ``integer:cuda|bitvector+tree_parallel:2``,
      with the launch counters read around it, holds every response against
-     the reference walk, and checks that its stats show both shard labels.
+     the reference walk, and checks that its stats show both shard labels,
+  8. deploys the model: writes its JSON, converts it to ITRF with
+     ``python -m repro_torch.trees.convert`` twice (plain, and with
+     ``--strip-float --pack-leaves``), checks both files' ``--verify``
+     digests, each from a fresh process, against the in-process digest,
+     registers the plain file by mmap and serves 65,536 rows through
+     ``integer:cuda@leaf_major`` (K1), ``integer:bitvector`` (K5) and
+     ``integer:reference@packed_leaf``; then starts two loopback shard
+     workers on the card and serves 65,536 rows through
+     ``integer:cuda+remote_tree_parallel:2`` and
+     ``integer:cuda|bitvector+remote_tree_parallel:2`` over both files (the
+     stripped one ships its ITRF image in HELLO, the plain one its arrays),
+     timed beside ``integer:cuda+tree_parallel:2``, with the workers' own
+     launch counts read from their span records around it,
+  9. serves the plan gateway's workload through a gateway on
+     ``integer:cuda|bitvector+remote_tree_parallel:2`` over the stripped
+     artifact and those workers, holds every response against the reference
+     walk, and fails if either worker launched no kernel.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -67,6 +84,8 @@ import argparse
 import importlib
 import importlib.util
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -144,6 +163,19 @@ GATEWAY_REPEAT_SHARE = 0.25
 GATEWAY_RATE_PER_S = 100.0
 GATEWAY_MAX_BATCH_ROWS = 4096
 MODEL_ID = "intreeger-rf"
+
+# the deployment phase: the routes served from the registered plain
+# artifact, the remote routes (two loopback workers on the card) with the
+# in-process plan timed beside them, each at ROWS rows, and the remote
+# gateway's route; its files go under DEPLOY_DIR, which git ignores
+DEPLOY_ROUTES = ("integer:cuda@leaf_major", "integer:bitvector",
+                 "integer:reference@packed_leaf")
+REMOTE_ROUTES = ("integer:cuda+remote_tree_parallel:2",
+                 "integer:cuda|bitvector+remote_tree_parallel:2")
+REMOTE_BASELINE = "integer:cuda+tree_parallel:2"
+REMOTE_GATEWAY_ROUTE = "integer:cuda|bitvector+remote_tree_parallel:2"
+REMOTE_WORKERS = 2
+DEPLOY_DIR = ROOT / "build" / "chip_smoke_deploy"
 
 
 def fail(message: str, code: int = 1):
@@ -648,25 +680,35 @@ def gateway_phase(forest_v1, forest_v2, seed: int, dev, card: str) -> dict:
     return gw_launches
 
 
-def plan_gateway_phase(forest, seed: int, dev, card: str) -> dict:
-    """Serve PLAN_GATEWAY_REQUESTS seeded requests through one gateway on
-    PLAN_GATEWAY_ROUTE, hold every response against the reference walk,
-    check that the stats carry one label per shard, print the gateway's
-    metrics, and return the kernel launches of the run."""
+def plan_gateway_phase(reg, mv, route: str, seed: int, dev, card: str,
+                       plan_kwargs=None, label: str = "plan gateway",
+                       after_warm=None, before_close=None) -> tuple:
+    """Serve PLAN_GATEWAY_REQUESTS seeded requests for ``mv``'s model through
+    one gateway over ``reg`` on ``route``, hold every response against the
+    reference walk, check that the stats carry one label per shard, print
+    the gateway's metrics, and return this process's kernel launches of the
+    run and the model's gateway stats.  The warm's shard calls stay out of
+    the stats; ``after_warm(engine, the warm's shard timings)`` runs after
+    the warm and
+    ``before_close(engine)`` after the last response, before the gateway
+    closes its engines."""
     import asyncio
 
     import torch
     from repro_torch.kernels import tree_traverse as tt
-    from repro_torch.serve import Gateway, ModelRegistry, TreeEngine
+    from repro_torch.serve import Gateway, TreeEngine
 
-    reg = ModelRegistry()
-    mv = reg.register_forest(MODEL_ID, forest)
-    gw = Gateway(reg, PLAN_GATEWAY_ROUTE, max_batch_rows=GATEWAY_MAX_BATCH_ROWS,
-                 max_delay_ms=2.0, max_queue_rows=1 << 22, cache_rows=1 << 20, device=dev)
+    gw = Gateway(reg, route, max_batch_rows=GATEWAY_MAX_BATCH_ROWS,
+                 max_delay_ms=2.0, max_queue_rows=1 << 22, cache_rows=1 << 20, device=dev,
+                 plan_kwargs=plan_kwargs)
     t0 = time.perf_counter()
-    mv.engine(gw.spec, device=dev).warm(GATEWAY_MAX_BATCH_ROWS)
+    eng = mv.engine(gw.spec, device=dev, plan_kwargs=plan_kwargs)
+    eng.warm(GATEWAY_MAX_BATCH_ROWS)
     torch.cuda.synchronize()
-    print(f"plan gateway: warmed {PLAN_GATEWAY_ROUTE} in {time.perf_counter() - t0:.2f} s")
+    warm_timings = eng.drain_shard_timings()
+    print(f"{label}: warmed {route} in {time.perf_counter() - t0:.2f} s")
+    if after_warm is not None:
+        after_warm(eng, warm_timings)
     reqs, arrivals = gateway_workload(seed + 3, PLAN_GATEWAY_REQUESTS)
 
     async def run():
@@ -675,38 +717,351 @@ def plan_gateway_phase(forest, seed: int, dev, card: str) -> dict:
 
         async def client(i):
             await asyncio.sleep(max(0.0, start + arrivals[i] - loop.time()))
-            return await gw.submit(MODEL_ID, reqs[i])
+            return await gw.submit(mv.model_id, reqs[i])
 
         results = await asyncio.gather(*[client(i) for i in range(len(reqs))])
+        seconds = loop.time() - start
+        if before_close is not None:
+            before_close(eng)
         await gw.close()
-        return results, loop.time() - start
+        return results, seconds
 
     tt.reset_launches()
     results, seconds = asyncio.run(run())
     torch.cuda.synchronize()
     launches = dict(tt.LAUNCHES)
     rows = sum(len(x) for x in reqs)
-    print(f"plan gateway path: {len(reqs)} requests ({rows} rows) in {seconds:.3f} s, "
-          f"kernel launches {launches}")
+    print(f"{label} path: {len(reqs)} requests ({rows} rows) in {seconds:.3f} s, "
+          f"kernel launches in this process {launches}")
     all_rows = np.concatenate(reqs)
     offsets = np.cumsum([0] + [len(x) for x in reqs])
     want = TreeEngine(mv.packed, spec="integer:reference", device=dev).predict_scores(all_rows)
     for i, (scores, preds) in enumerate(results):
         lo, hi = offsets[i], offsets[i + 1]
         if not (np.array_equal(scores, want[0][lo:hi]) and np.array_equal(preds, want[1][lo:hi])):
-            fail(f"plan gateway request {i} ({hi - lo} rows) differs from the reference walk")
-    print(f"plan gateway responses bit-identical to the reference walk: {len(reqs)}")
-    st = gw.stats()["per_model"][MODEL_ID]
+            fail(f"{label} request {i} ({hi - lo} rows) differs from the reference walk")
+    print(f"{label} responses bit-identical to the reference walk: {len(reqs)}")
+    st = gw.stats()["per_model"][mv.model_id]
     if len(st["shards"]) != 2:
-        fail(f"plan gateway stats show shard labels {sorted(st['shards'])}, not two")
+        fail(f"{label} stats show shard labels {sorted(st['shards'])}, not two")
     stage_ms = {k: h["mean"] for k, h in st["stages"].items()}
     shard_ms = {k: round(v["ms_per_call"], 4) for k, v in st["shards"].items()}
-    print(f"{card} | plan gateway {PLAN_GATEWAY_ROUTE}: p50 {st['p50_ms']:.3f} ms, "
+    print(f"{card} | {label} {route}: p50 {st['p50_ms']:.3f} ms, "
           f"p99 {st['p99_ms']:.3f} ms, {st['rows_per_s']:.0f} rows/s, cache hit rate "
           f"{st['cache_hit_rate']:.4f}, batches {st['batches']}, occupancy "
           f"{st['batch_occupancy']:.1f} rows, shard ms per call {json.dumps(shard_ms)}, "
           "stage ms means " + json.dumps({k: round(v, 4) for k, v in sorted(stage_ms.items())}))
-    return launches
+    return launches, st
+
+
+# ---------------------------------------------------------------------------
+# the deployment path: artifacts, the converter, the shard workers
+# ---------------------------------------------------------------------------
+
+def run_modules(commands: list, timeout: float = 600) -> list:
+    """The stdout of each ``python -m <args>`` in ``commands``, all started
+    together with the checkout's ``src`` on the path; fails the run on a
+    non-zero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+    procs = [subprocess.Popen([sys.executable, "-m", *args], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for args in commands]
+    outs = []
+    try:
+        for args, proc in zip(commands, procs):
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode:
+                fail(f"python -m {' '.join(args)} exited {proc.returncode}: {err[-3000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def loopback_ms(payload: bytes, reps: int) -> float:
+    """Median host ms to carry one frame of ``payload`` through a loopback
+    TCP connection, from the send until the reader holds the whole frame:
+    the transfer alone, without encoding or the worker's work."""
+    import socket
+    import threading
+
+    from repro_torch.serve import wire
+
+    server = socket.create_server(("127.0.0.1", 0))
+    sender = socket.create_connection(server.getsockname())
+    reader, _ = server.accept()
+    try:
+        def read_one(done):
+            wire.read_frame(reader)
+            done.append(time.perf_counter())
+
+        times = []
+        for _ in range(reps + 1):
+            done = []
+            thread = threading.Thread(target=read_one, args=(done,))
+            thread.start()
+            t0 = time.perf_counter()
+            wire.send_frame(sender, wire.MSG_PREDICT, payload)
+            thread.join()
+            times.append((done[0] - t0) * 1e3)
+        return statistics.median(times[1:])
+    finally:
+        for sock in (sender, reader, server):
+            sock.close()
+
+
+def span_records(span_dir: Path) -> dict:
+    """Each worker's span records so far: ``{worker index: [record, ...]}``
+    (``spawn_local_workers`` names worker ``i``'s file ``worker_<pid>_<i>``)."""
+    return {int(f.stem.rsplit("_", 1)[1]):
+            [json.loads(line) for line in f.read_text().splitlines()]
+            for f in span_dir.glob("worker_*.jsonl")}
+
+
+def settled_span_records(span_dir: Path, want: dict, timeout_s: float = 30.0) -> dict:
+    """The span records once worker ``i`` has written ``want[i]`` of them, one
+    per PREDICT it served.  A worker writes a request's record after it has
+    sent the partials, so the reader polls; a shortfall at the timeout or a
+    record beyond the requests fails the run."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        recs = span_records(span_dir)
+        got = {i: len(recs.get(i, ())) for i in set(want) | set(recs)}
+        if any(got[i] > want.get(i, 0) for i in got):
+            fail(f"the workers wrote span records {got} for requests {want}")
+        if all(got[i] == want.get(i, 0) for i in got):
+            return recs
+        if time.monotonic() > deadline:
+            fail(f"the workers wrote span records {got} in {timeout_s:.0f} s, "
+                 f"for requests {want}")
+        time.sleep(0.02)
+
+
+def count_worker_calls(calls: dict, into: dict) -> dict:
+    """Add each shard label's calls (``{"w<i>:<backend>[a:b]": calls}``) to
+    ``into[i]``: the PREDICTs worker ``i`` served.  A worker that served two
+    shards' labels fails the run, since each of the plan's two shards has
+    its own worker."""
+    workers = [int(label.split(":", 1)[0][1:]) for label in calls]
+    if len(set(workers)) != len(workers):
+        fail(f"a worker served another worker's shard: {sorted(calls)}")
+    for i, (label, n) in zip(workers, calls.items()):
+        into[i] = into.get(i, 0) + n
+    return into
+
+
+def check_remote_plan(eng, label: str) -> None:
+    """Fail unless every worker of ``eng``'s remote plan is alive and no
+    shard attempt was re-dispatched."""
+    plan = eng.plan
+    dead = [w["addr"] for w in plan.workers() if not w["alive"]]
+    if plan.redispatches or dead:
+        fail(f"{label}: {plan.redispatches} shard attempts re-dispatched, "
+             f"workers evicted {dead}")
+
+
+def worker_launches(before: dict, after: dict) -> dict:
+    """``{worker index: {kernel: launches}}`` summed over each worker's records
+    written between the two readings: each record counts the launches of its
+    process since the record before, so these are the launches of the
+    requests in between."""
+    out = {}
+    for name, recs in after.items():
+        counts = {}
+        for rec in recs[len(before.get(name, ())):]:
+            for kernel, n in rec["launches"].items():
+                counts[kernel] = counts.get(kernel, 0) + n
+        out[name] = counts
+    return out
+
+
+def summed(per_worker: dict) -> dict:
+    total = {}
+    for counts in per_worker.values():
+        for kernel, n in counts.items():
+            total[kernel] = total.get(kernel, 0) + n
+    return total
+
+
+def deployment_phase(forest, ir, X, want, seed: int, dev, card: str) -> dict:
+    """Steps 8 and 9: the artifacts, the routes served from the registered
+    file, the remote routes and the remote gateway.  -> the kernel launches
+    by path: this process's on the artifact routes, the workers' on the
+    remote routes and on the remote gateway."""
+    import torch
+    from repro_torch.kernels import tree_traverse as tt
+    from repro_torch.serve import ModelRegistry, wire
+    from repro_torch.serve.worker import spawn_local_workers
+    from repro_torch.trees.convert import _partials_digest
+    from repro_torch.trees.io import forest_to_json
+
+    def same(got, label):
+        scores, preds = got
+        if scores.shape != want[0].shape or not np.array_equal(scores, want[0]) \
+                or not np.array_equal(preds, want[1]):
+            fail(f"{label} differs from the reference walk of the in-memory forest")
+
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    DEPLOY_DIR.mkdir(parents=True)
+    procs = []
+    try:
+        # the workers start first: they load torch and the card while the
+        # files are written
+        t0 = time.perf_counter()
+        span_dir = DEPLOY_DIR / "spans"
+        procs, addrs = spawn_local_workers(REMOTE_WORKERS, span_dir=str(span_dir))
+        print(f"deploy: {REMOTE_WORKERS} workers on the card listening at {addrs} after "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # 8a. JSON -> ITRF twice, each checked from a fresh process
+        t0 = time.perf_counter()
+        json_path = DEPLOY_DIR / "model.json"
+        json_path.write_text(forest_to_json(forest))
+        files = {"plain": DEPLOY_DIR / "plain.itrf", "packed": DEPLOY_DIR / "packed.itrf"}
+        flags = {"plain": [], "packed": ["--strip-float", "--pack-leaves"]}
+        outs = run_modules([["repro_torch.trees.convert", str(json_path), str(path),
+                             *flags[name]] for name, path in files.items()])
+        for (name, path), out in zip(files.items(), outs):
+            print(f"deploy: convert {' '.join(flags[name]) or '(plain)'}: "
+                  + " / ".join(out.strip().splitlines()))
+            print(f"deploy: {name} artifact {path.stat().st_size} bytes "
+                  f"(model JSON {json_path.stat().st_size} bytes)")
+        expect = _partials_digest(ir, device=dev)
+        outs = run_modules([["repro_torch.trees.convert", "--verify", str(path)]
+                            for path in files.values()])
+        for (name, path), out in zip(files.items(), outs):
+            got = [ln.split()[1] for ln in out.splitlines() if ln.startswith("PARTIALS_SHA256 ")]
+            if got != [expect]:
+                fail(f"{name} artifact: fresh-process --verify digest {got} != in-process "
+                     f"{expect}")
+        print(f"deploy: both files' fresh-process --verify digests equal the in-process "
+              f"digest {expect}; phase 8a {time.perf_counter() - t0:.2f} s")
+
+        # 8b. the plain file registered by mmap, served through K1, K5 and
+        # the packed_leaf reference walk
+        t0 = time.perf_counter()
+        reg = ModelRegistry()
+        mv = reg.register_artifact(MODEL_ID, str(files["plain"]))
+        engines, load_ms = {}, None
+        for spec in DEPLOY_ROUTES:
+            engines[spec] = mv.engine(spec, device=dev)
+        tt.reset_launches()
+        for spec, eng in engines.items():
+            t1 = time.perf_counter()
+            got = eng.predict_scores(X)
+            first_ms = (time.perf_counter() - t1) * 1e3
+            ledger = eng.drain_compile_timings()
+            load_ms = ledger.get("load", load_ms)
+            same(got, f"{spec} on the registered artifact")
+            print(f"{card} | deploy: {spec} on the mmap-registered artifact, {ROWS} rows: "
+                  f"bit-identical to the reference walk; first request {first_ms:.3f} ms")
+        torch.cuda.synchronize()
+        deploy_launches = dict(tt.LAUNCHES)
+        builds = mv._build_ms
+        print(f"{card} | deploy: register_artifact load {load_ms:.3f} ms (mmap); engine "
+              "builds ms " + json.dumps({k: round(v, 3) for k, v in sorted(builds.items())})
+              + f"; kernel launches {deploy_launches}; phase 8b "
+              f"{time.perf_counter() - t0:.2f} s")
+        if not deploy_launches["leaf_major"] or not deploy_launches["bitvector"]:
+            fail("the artifact routes did not launch K1 and K5")
+
+        # 8c. the remote routes on two loopback workers on the card, over the
+        # stripped file (HELLO ships its image) and the plain one (arrays)
+        t0 = time.perf_counter()
+        versions = {"packed": reg.register_artifact("packed", str(files["packed"])),
+                    "plain": mv}
+        kw = {"workers": addrs}
+        served = {i: 0 for i in range(REMOTE_WORKERS)}
+        before = settled_span_records(span_dir, served)
+        for name, version in versions.items():
+            for spec in REMOTE_ROUTES:
+                t1 = time.perf_counter()
+                eng = version.engine(spec, device=dev, plan_kwargs=kw)
+                hello = eng.plan.hello_format
+                if hello != ("itrf" if name == "packed" else "arrays"):
+                    fail(f"{spec} on the {name} artifact sent a HELLO of {hello}")
+                setup_ms = eng.drain_compile_timings()["remote"]
+                same(eng.predict_scores(X), f"{spec} on the {name} artifact")
+                warm_s = time.perf_counter() - t1
+                count_worker_calls({k: v[1] for k, v in eng.drain_shard_timings().items()},
+                                   served)
+                ms = host_ms(lambda: eng.predict_scores(X), REQUEST_TIMING_REPS)
+                timed = eng.drain_shard_timings()
+                count_worker_calls({k: v[1] for k, v in timed.items()}, served)
+                check_remote_plan(eng, f"{spec} on the {name} artifact")
+                shard = {k: round(v[0] / v[1], 3) for k, v in timed.items()}
+                print(f"{card} | request {spec} on the {name} artifact (HELLO {hello}, "
+                      f"setup {setup_ms:.1f} ms, first request and setup {warm_s:.2f} s): "
+                      f"{ROWS} rows {ms:.3f} ms median of {REQUEST_TIMING_REPS} after a "
+                      f"warm request, host clock; shard round trips ms "
+                      + json.dumps(shard))
+        base = mv.engine(REMOTE_BASELINE, device=dev)
+        same(base.predict_scores(X), REMOTE_BASELINE)
+        ms = host_ms(lambda: base.predict_scores(X), REQUEST_TIMING_REPS)
+        print(f"{card} | request {REMOTE_BASELINE} in process (beside the remote routes): "
+              f"{ROWS} rows {ms:.3f} ms median of {REQUEST_TIMING_REPS}, host clock")
+        after = settled_span_records(span_dir, served)
+        remote = worker_launches(before, after)
+        spans = {}
+        for recs in after.values():
+            for rec in recs[-REQUEST_TIMING_REPS:]:
+                for sp in rec["spans"]:
+                    spans.setdefault(sp["name"], []).append(sp["dur_us"] / 1e3)
+        encode_ms = host_ms(lambda: wire.encode_predict(1, 0, X), REQUEST_TIMING_REPS)
+        send_ms = loopback_ms(wire.encode_predict(1, 0, X), REQUEST_TIMING_REPS)
+        print(f"deploy: remote routes, kernel launches in the workers {remote}; the "
+              f"workers' spans of {REMOTE_ROUTES[-1]} on the plain artifact, ms medians: "
+              + json.dumps(
+                  {k: round(statistics.median(v), 3) for k, v in sorted(spans.items())})
+              + f"; one PREDICT of {ROWS} x {N_FEATURES} rows: encoding {encode_ms:.3f} ms, "
+              f"the frame through loopback {send_ms:.3f} ms (medians, host clock); "
+              f"phase 8c {time.perf_counter() - t0:.2f} s")
+        for i, counts in remote.items():
+            if not any(counts.values()):
+                fail(f"worker {i} launched no kernel on the remote routes")
+        if not summed(remote)["leaf_major"] or not summed(remote)["bitvector"]:
+            fail("the remote routes did not launch K1 and K5 in the workers")
+
+        # 9. the remote gateway
+        # the baseline of the workers' records is read after the warm, so
+        # the warm's launches are not the gateway's
+        t0 = time.perf_counter()
+        marks = {}
+
+        def after_warm(eng, warm_timings):
+            count_worker_calls({k: v[1] for k, v in warm_timings.items()}, served)
+            marks["before"] = settled_span_records(span_dir, served)
+
+        local, st = plan_gateway_phase(
+            reg, versions["packed"], REMOTE_GATEWAY_ROUTE, seed, dev, card,
+            plan_kwargs=kw, label="remote gateway", after_warm=after_warm,
+            before_close=lambda eng: check_remote_plan(eng, "the remote gateway"))
+        count_worker_calls({k: v["calls"] for k, v in st["shards"].items()}, served)
+        gateway = worker_launches(marks["before"], settled_span_records(span_dir, served))
+        print(f"remote gateway: {st['batches']} batches, PREDICTs per shard label "
+              + json.dumps({k: v["calls"] for k, v in sorted(st["shards"].items())})
+              + f", kernel launches in the workers {gateway}; phase 9 "
+              f"{time.perf_counter() - t0:.2f} s")
+        if any(local.values()):
+            fail(f"the remote gateway launched kernels in this process: {local}")
+        for i, counts in gateway.items():
+            if not any(counts.values()):
+                fail(f"worker {i} launched no kernel on the remote gateway")
+        for version in versions.values():
+            version.release()
+        return {"deploy": deploy_launches, "remote_workers": summed(remote),
+                "remote_gateway_workers": summed(gateway)}
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+            if p.stdout is not None:
+                p.stdout.close()
+        shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -738,7 +1093,7 @@ def main() -> None:
     from repro_torch.core.flint import float_to_key
     from repro_torch.kernels import _build, ops, tree_traverse as tt
     from repro_torch.kernels.ref import tree_predict_integer_ref
-    from repro_torch.serve import TreeEngine
+    from repro_torch.serve import ModelRegistry, TreeEngine
 
     dev = torch.device("cuda")
     torch.cuda.set_device(0)
@@ -977,6 +1332,7 @@ def main() -> None:
     }
     print("request integer:cuda@leaf_major steps, ms median: " + ", ".join(
         f"{k} {v:.4f}" for k, v in steps_ms.items()))
+    want = refs["integer"].predict_scores(X)  # for the deployment phase
     for eng in (*engines.values(), *refs.values()):  # the plans' shard pools too
         eng.close()
 
@@ -991,14 +1347,23 @@ def main() -> None:
             fail(f"kernel {name} was not launched on the gateway path")
 
     # 7. the plan gateway, with the launch counters read around it
-    plan_launches = plan_gateway_phase(forest, args.seed, dev, card)
+    reg = ModelRegistry()
+    plan_launches, _ = plan_gateway_phase(reg, reg.register_forest(MODEL_ID, forest),
+                                       PLAN_GATEWAY_ROUTE, args.seed, dev, card)
     if plan_launches["bitvector"] == 0 or \
             plan_launches["leaf_major"] + plan_launches["gather"] == 0:
         fail("the plan gateway did not launch both of its shards' kernels")
 
-    paths = {"engine": launches, "gateway": gw_launches, "plan_gateway": plan_launches}
-    kernels_out = [dict(rows_out[name], launches=sum(p[name] for p in paths.values()),
-                        launches_by_path={k: p[name] for k, p in paths.items()})
+    # 8 and 9. the deployment path and the remote gateway, the workers'
+    # launches read from their span records
+    t0 = time.perf_counter()
+    deploy = deployment_phase(forest, ir, X, want, args.seed, dev, card)
+    print(f"deployment phases: {time.perf_counter() - t0:.2f} s")
+
+    paths = {"engine": launches, "gateway": gw_launches, "plan_gateway": plan_launches,
+             **deploy}
+    kernels_out = [dict(rows_out[name], launches=sum(p.get(name, 0) for p in paths.values()),
+                        launches_by_path={k: p.get(name, 0) for k, p in paths.items()})
                    for name in REPLACES]
     print(card)
     print(json.dumps({"kernels": kernels_out}))

@@ -269,6 +269,25 @@ class ForestIR:
             quant_scale=self.scale,
         )
 
+    # ------------------------------------------------------------- artifacts
+    def to_itrf(self, path, **kwargs) -> dict:
+        """Serialize as an ITRF binary artifact (see
+        :mod:`repro_torch.ir.artifact` for the format and the writer
+        options)."""
+        from repro_torch.ir.artifact import write_itrf
+
+        return write_itrf(path, self, **kwargs)
+
+    @classmethod
+    def from_itrf(cls, path, *, mmap: bool = True) -> "ForestIR":
+        """Load an ITRF artifact.  ``mmap=True`` returns zero-copy read-only
+        views over the file mapping; ``mmap=False`` returns private writable
+        copies.  Either way the arrays are the file's bits verbatim, so
+        scores are bit-identical to the written IR."""
+        from repro_torch.ir.artifact import read_itrf
+
+        return read_itrf(path, mmap_arrays=mmap)
+
     def nbytes_integer(self) -> int:
         """Bytes of the canonical integer-only CSR arrays."""
         return (self.feature.nbytes + self.threshold_key.nbytes

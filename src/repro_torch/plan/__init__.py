@@ -5,8 +5,10 @@ associative uint32 sum, so a forest can be split across backends and the
 partial scores merged with no loss.  Plans carve the forest
 (``ForestIR.subset`` tree shards, ``tree_parallel``) or the batch (row
 shards, ``row_parallel``), drive ``TreeBackend.predict_partials`` on each
-piece, merge, and run the finalize step once.  Every plan is bit-identical
-to the ``single`` plan in the deterministic modes.
+piece, merge, and run the finalize step once; ``remote_tree_parallel``
+runs the tree shards in worker processes over the ITRG wire protocol.
+Every plan is bit-identical to the ``single`` plan in the deterministic
+modes.
 """
 from repro_torch.plan.base import (
     ExecutionPlan,
@@ -18,6 +20,7 @@ from repro_torch.plan.base import (
     register_plan,
     select_plan,
 )
+from repro_torch.plan.remote import RemoteTreeParallelPlan, WorkerError
 from repro_torch.plan.row_parallel import RowParallelPlan
 from repro_torch.plan.single import SingleShardPlan
 from repro_torch.plan.tree_parallel import (
@@ -28,6 +31,7 @@ from repro_torch.plan.tree_parallel import (
 
 __all__ = [
     "ExecutionPlan",
+    "RemoteTreeParallelPlan",
     "RowParallelPlan",
     "SingleShardPlan",
     "TreeParallelPlan",
@@ -40,4 +44,5 @@ __all__ = [
     "select_plan",
     "thread_shard_cap",
     "tree_ranges",
+    "WorkerError",
 ]

@@ -1,32 +1,37 @@
-"""Serving subsystem: the shape-bucketing engine and the async gateway.
+"""Serving subsystem: the shape-bucketing engine, the async gateway, and the
+shard-worker fabric.
 
 Request path:  client → Gateway.submit → QuantizedKeyCache (per-row probe)
              → MicroBatcher (coalesce to block-shaped batches under a
                latency deadline, admission-controlled) → ModelRegistry
-               (versioned, hot-swappable) → TreeEngine (shape-bucketed)
-             → ExecutionPlan (single, tree_parallel, row_parallel)
+               (versioned, hot-swappable, ITRF artifacts mmap-loaded)
+             → TreeEngine (shape-bucketed)
+             → ExecutionPlan (single, tree_parallel, row_parallel, or
+               remote_tree_parallel over ``worker`` processes and ``wire``)
              → TreeBackend (the cuda walks, the bitvector scorer, or the
                torch reference walk) → cache fill → response.
-"""
-from repro_torch.serve.cache import QuantizedKeyCache, row_keys
-from repro_torch.serve.engine import TreeEngine, bucket_rows
-from repro_torch.serve.gateway import Gateway
-from repro_torch.serve.metrics import MetricsRegistry, ModelMetrics
-from repro_torch.serve.queue import AdmissionError, MicroBatcher
-from repro_torch.serve.registry import ModelRegistry, ModelVersion
-from repro_torch.serve.spec import EngineSpec
 
-__all__ = [
-    "AdmissionError",
-    "EngineSpec",
-    "Gateway",
-    "MetricsRegistry",
-    "MicroBatcher",
-    "ModelMetrics",
-    "ModelRegistry",
-    "ModelVersion",
-    "QuantizedKeyCache",
-    "TreeEngine",
-    "bucket_rows",
-    "row_keys",
-]
+The names below load on first use, so ``python -m repro_torch.serve.worker``
+binds its listener before torch loads.
+"""
+import importlib
+
+_EXPORTS = {
+    "QuantizedKeyCache": "cache", "row_keys": "cache",
+    "TreeEngine": "engine", "bucket_rows": "engine",
+    "Gateway": "gateway",
+    "MetricsRegistry": "metrics", "ModelMetrics": "metrics",
+    "AdmissionError": "queue", "MicroBatcher": "queue",
+    "ModelRegistry": "registry", "ModelVersion": "registry",
+    "EngineSpec": "spec",
+    "WorkerServer": "worker", "spawn_local_workers": "worker",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

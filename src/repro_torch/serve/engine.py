@@ -95,7 +95,8 @@ class TreeEngine:
         self.mode = self.plan.mode
         self.max_bucket = max_bucket or self.plan.preferred_block_rows or 4096
         self.compiled_buckets: set[int] = set()
-        # first-execution wall ms per bucket, drained into metrics
+        # first-execution wall ms per bucket, the autotuner's "tune" and the
+        # registry's artifact-load ms under "load", drained into metrics
         self._compile_ms: dict = {}
         self.closed = False
 
@@ -188,7 +189,9 @@ class TreeEngine:
 
     def drain_compile_timings(self) -> dict:
         """First-execution wall ms per bucket since the last drain (the
-        kernels' build lands in the first bucket's entry)."""
+        kernels' build lands in the first bucket's entry), with the one-time
+        costs: ``"tune"``, ``"load"`` (an ITRF artifact's registration) and
+        the plan's setup (``"remote"``: workers' connect and handshake)."""
         out, self._compile_ms = self._compile_ms, {}
         out.update(self.plan.drain_setup_timings())
         return out

@@ -1,12 +1,18 @@
 """Multi-model registry: versioned packed ensembles behind stable model ids.
 
-Models enter through the boundaries the port has:
+Models enter through any boundary the repo supports:
   * a trained forest object (``register_forest``),
   * the Treelite-style JSON artifact (``register_json``), i.e. the
     ``trees/io`` exchange format — the path externally-trained models take,
-  * an already-quantized artifact (``register_packed``).
-The ITRF binary artifact (``register_artifact``, ``export_tuned``) is not
-ported yet (ROADMAP.md Queue 1 item 8): both raise ``NotImplementedError``.
+  * an already-quantized artifact (``register_packed``), or
+  * the ITRF binary artifact (``register_artifact``) — the deployment
+    boundary: the file is mmap-ed read-only and the version serves views
+    over the shared pages (every layout copies what it reads into tables
+    of its own, so nothing writes through the mapping).  Re-registering the
+    same unchanged file reuses the already-parsed IR *object*, layouts and
+    all.  The measured load wall-ms rides the compile/warm ledger as the
+    ``"load"`` bucket of the version's first engine.  ``export_tuned``
+    writes the version's autotune winners back into the file's ``tune_db``.
 
 Each ``register_*`` call creates a new immutable :class:`ModelVersion` and
 atomically repoints the model id at it (hot-swap).  In-flight batches formed
@@ -27,6 +33,7 @@ retained non-current version explicitly.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -46,17 +53,16 @@ def _freeze(obj):
     return obj
 
 
-_ITRF_NOT_PORTED = ("the ITRF artifact is not ported yet (ROADMAP.md Queue 1 "
-                    "item 8); register a forest, its JSON, or a packed artifact")
-
-
 @dataclass
 class ModelVersion:
     model_id: str
     version: int
-    packed: PackedEnsemble  # or a ForestIR
-    source: str  # "forest" | "json" | "packed"
+    packed: PackedEnsemble  # or a ForestIR (register_artifact)
+    source: str  # "forest" | "json" | "packed" | "artifact"
     _engines: dict = field(default_factory=dict, repr=False)
+    # register_artifact's measured load wall-ms, charged once to the first
+    # engine's compile ledger under the "load" bucket
+    _load_ms: float = field(default=None, repr=False)
     released: bool = field(default=False, repr=False)
     # wall-ms spent constructing each route's engine (tables copied to the
     # device) — the cold-start cost ``describe()`` surfaces per model
@@ -85,7 +91,9 @@ class ModelVersion:
         backend names (heterogeneous tree-parallel, ``cuda|bitvector``)
         memoizes under the tuple, each shard on its backend's preferred
         layout unless the spec pins one.  ``plan_kwargs`` carries plan knobs
-        (``device_parallel``, ``clamp_shards``) and is part of the memo key.
+        (``device_parallel``, ``clamp_shards``, the remote plan's
+        ``workers``) and is part of the memo key; the remote plan also
+        receives this version's identity, which its handshake carries.
         """
         from repro_torch.backends import backend_class
         from repro_torch.device import resolve_device
@@ -117,11 +125,20 @@ class ModelVersion:
                 )
             if key not in self._engines:
                 t0 = time.perf_counter()
-                self._engines[key] = TreeEngine(
+                pk = dict(plan_kwargs or {})
+                if resolved_plan == "remote_tree_parallel":
+                    pk.setdefault("model_id", self.model_id)
+                    pk.setdefault("version", self.version)
+                eng = TreeEngine(
                     self.packed, spec.replace(layout=resolved),
-                    plan_kwargs=dict(plan_kwargs) if plan_kwargs else None,
-                    tuned_store=self._tuned, device=dev,
+                    plan_kwargs=pk or None, tuned_store=self._tuned, device=dev,
                 )
+                if self._load_ms is not None:
+                    # the artifact's load cost surfaces once, in the ledger
+                    # the build, tune and remote costs ride
+                    eng._compile_ms["load"] = self._load_ms
+                    self._load_ms = None
+                self._engines[key] = eng
                 backend = spec.backend if isinstance(spec.backend, str) \
                     else "|".join(spec.backend)
                 route = "/".join(str(p) for p in (spec.mode, backend, resolved,
@@ -150,6 +167,10 @@ class ModelRegistry:
         self._history: dict[str, int] = {}  # model_id -> latest version number
         # model_id -> {version: ModelVersion} for the retained window
         self._versions: dict[str, dict[int, ModelVersion]] = {}
+        # (realpath, mtime_ns, size) -> ForestIR: hot-swapping back to an
+        # already-mapped, unchanged artifact file reuses the parsed IR and
+        # its materialized layouts
+        self._artifact_cache: dict = {}
         self._lock = threading.Lock()
 
     # ---------------------------------------------------------- registration
@@ -184,11 +205,55 @@ class ModelRegistry:
         """Load from the trees/io JSON artifact boundary."""
         return self._install(model_id, pack_forest(forest_from_json(payload)), "json")
 
-    def register_artifact(self, model_id: str, path, *, mmap: bool = True):
-        raise NotImplementedError(_ITRF_NOT_PORTED)
+    def register_artifact(self, model_id: str, path, *,
+                          mmap: bool = True) -> ModelVersion:
+        """Load an ITRF binary artifact — no JSON parse, no re-quantization.
+
+        With ``mmap=True`` the version's ForestIR is read-only views over
+        the file mapping, and every process registering the same file shares
+        one page cache.  The measured load wall-ms lands in the first
+        engine's compile ledger under ``"load"``.  Autotune winners the
+        artifact carries for a device of this host (see
+        :func:`repro_torch.ir.artifact.tune_host_key`) seed the version's
+        ``_tuned`` cache; every other entry is ignored.
+        """
+        from repro_torch.ir.artifact import deserialize_tuned, read_itrf
+
+        t0 = time.perf_counter()
+        cache_key = ir = None
+        if mmap:
+            try:
+                st = os.stat(path)
+                cache_key = (os.path.realpath(path), st.st_mtime_ns, st.st_size)
+            except OSError:
+                cache_key = None
+            with self._lock:
+                ir = self._artifact_cache.get(cache_key)
+        if ir is None:
+            ir = read_itrf(path, mmap_arrays=mmap)
+            if cache_key is not None:
+                with self._lock:
+                    self._artifact_cache[cache_key] = ir
+        load_ms = (time.perf_counter() - t0) * 1e3
+        mv = self._install(model_id, ir, "artifact")
+        mv._load_ms = load_ms
+        for route, kwargs in deserialize_tuned(ir.itrf_tuned).items():
+            # live measurements carried across the swap still win
+            mv._tuned.setdefault(route, kwargs)
+        return mv
 
     def export_tuned(self, model_id: str, path) -> None:
-        raise NotImplementedError(_ITRF_NOT_PORTED)
+        """Persist the current version's measured autotune winners into an
+        existing ITRF file's ``tune_db`` section, each under its device's
+        host key, so the next process to ``register_artifact`` it on the
+        same card starts tuned."""
+        from repro_torch.ir.artifact import update_tuned
+
+        mv = self.get(model_id)
+        with mv._lock:
+            tuned = dict(mv._tuned)
+        if tuned:
+            update_tuned(path, tuned)
 
     def release(self, model_id: str, version: int) -> None:
         """Free a retained, non-current version explicitly (its engines

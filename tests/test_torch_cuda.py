@@ -12,8 +12,11 @@ must stay inside their buffers; K1, K2, K3 and K5 on 65,536 trees, more
 than grid.y holds CTAs; two gateways on two routes serving at once from
 executor threads; the sharded plans (``tree_parallel`` over ``cuda`` shards
 and over ``cuda|bitvector``, ``row_parallel``) equal to the single plan, two
-threads serving one plan route at once; and ``tree_parallel`` under
-``device_parallel="auto"`` on threads where two cards are counted.  Marked
+threads serving one plan route at once; ``tree_parallel`` under
+``device_parallel="auto"`` on threads where two cards are counted; K1, K2
+and K5 serving an mmap-registered ITRF artifact; and ``remote_tree_parallel``
+on two workers started on the card, whose span records count K1 and K5
+launched inside them.  Marked
 ``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
 on a machine with a card::
@@ -629,3 +632,80 @@ def test_two_threads_serve_a_plan_route_at_once(card):
         np.testing.assert_array_equal(s, s_ref)
         np.testing.assert_array_equal(p, p_ref)
     eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [{}, {"include_float": False, "pack_leaves": True}],
+                         ids=["plain", "stripped+packed"])
+def test_artifact_routes_on_the_card(card, tmp_path, option):
+    """An ITRF artifact registered by mmap serves K1 (``@leaf_major``), K2
+    (batches under 64 rows), K5 (``integer:bitvector``) and the reference
+    walk of ``packed_leaf`` on the card, each equal to the CPU reference;
+    the file is left as it was."""
+    ir = _forest(23, 20, 7, 9, 4)
+    path = tmp_path / "m.itrf"
+    ir.to_itrf(str(path), **option)
+    before = path.read_bytes()
+    mv = ModelRegistry().register_artifact("m", str(path))
+    assert not mv.packed.feature.flags.writeable
+    x = np.random.default_rng(8).normal(size=(700, 9)).astype(np.float32)
+    ref = TreeEngine(ir, spec="integer:reference", device="cpu")
+    for spec, kernels in (("integer:cuda@leaf_major", {"leaf_major", "gather"}),
+                          ("integer:bitvector", {"bitvector"}),
+                          ("integer:reference@packed_leaf", set())):
+        eng = mv.engine(spec)
+        tt.reset_launches()
+        for b in (20, 700):
+            s, p = eng.predict_scores(x[:b])
+            s_ref, p_ref = ref.predict_scores(x[:b])
+            np.testing.assert_array_equal(s, s_ref, err_msg=spec)
+            np.testing.assert_array_equal(p, p_ref, err_msg=spec)
+        assert {k for k, v in tt.LAUNCHES.items() if v} == kernels, spec
+    assert path.read_bytes() == before
+
+
+@pytest.mark.cuda
+def test_remote_workers_on_the_card(card, tmp_path):
+    """``remote_tree_parallel`` over two loopback workers started with
+    ``--device cuda``: K1 and K5 launch inside the workers (their span
+    records count them), the gateway process launches nothing, and the
+    merged partials equal the CPU reference, through the array HELLO and the
+    ITRF image."""
+    import json
+
+    from repro_torch.serve.worker import spawn_local_workers
+
+    ir = _forest(24, 16, 7, 9, 4)
+    path = tmp_path / "m.itrf"
+    ir.to_itrf(str(path), include_float=False, pack_leaves=True)
+    x = np.random.default_rng(9).normal(size=(700, 9)).astype(np.float32)
+    ref = TreeEngine(ir, spec="integer:reference", device="cpu")
+    spans = tmp_path / "spans"
+    procs, addrs = spawn_local_workers(2, span_dir=str(spans))
+    try:
+        for model, hello in ((ir, "arrays"), (ForestIR.from_itrf(str(path)), "itrf")):
+            eng = TreeEngine(model, spec="integer:cuda|bitvector+remote_tree_parallel:2",
+                             plan_kwargs={"workers": addrs, "connect_timeout_s": 120.0,
+                                          "deadline_ms": 120000.0})
+            assert eng.plan.hello_format == hello
+            assert [w["device"] for w in eng.plan.workers()] == ["cuda", "cuda"]
+            tt.reset_launches()
+            for b in (20, 700):
+                s, p = eng.predict_scores(x[:b])
+                s_ref, p_ref = ref.predict_scores(x[:b])
+                np.testing.assert_array_equal(s, s_ref, err_msg=hello)
+                np.testing.assert_array_equal(p, p_ref, err_msg=hello)
+            assert not any(tt.LAUNCHES.values())
+            eng.close()
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+            p.stdout.close()
+    launches = {}
+    for f in spans.glob("worker_*.jsonl"):
+        for line in f.read_text().splitlines():
+            for k, v in json.loads(line)["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    assert launches["leaf_major"] > 0 and launches["gather"] > 0
+    assert launches["bitvector"] > 0

@@ -153,9 +153,9 @@ def test_spec_validates_against_the_ports_registries():
     with pytest.raises(ValueError, match="backend"):
         EngineSpec.parse("integer:pallas")
     with pytest.raises(ValueError, match="layout"):
-        EngineSpec.parse("integer:reference@packed_leaf")
+        EngineSpec.parse("integer:reference@no_such_layout")
     with pytest.raises(ValueError, match="plan"):
-        EngineSpec.parse("integer:reference+remote_tree_parallel:2")
+        EngineSpec.parse("integer:reference+no_such_plan:2")
     for text in ("integer:bitvector@bitvector", "integer:reference+tree_parallel:2",
                  "float:reference+row_parallel:3", "integer:cuda|bitvector"):
         assert EngineSpec.parse(text).canonical() == JEngineSpec.parse(
@@ -204,7 +204,7 @@ def test_unported_routes_fail_loudly(trained):
         np.testing.assert_array_equal(s, np.asarray(s_ref))
         np.testing.assert_array_equal(p, np.asarray(p_ref))
     with pytest.raises(KeyError, match="unknown plan"):
-        TreeEngine(ir, spec=EngineSpec(backend="cuda", plan="remote_tree_parallel",
+        TreeEngine(ir, spec=EngineSpec(backend="cuda", plan="not_a_plan",
                                        shards=2), device="cpu")
     with pytest.raises(ValueError, match="mode"):
         TreeEngine(ir, spec="float:cuda", device="cpu")

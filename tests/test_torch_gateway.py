@@ -209,23 +209,32 @@ def test_registry_versions_retention_and_release(data):
         reg.get("nope")
 
 
-def test_registry_json_and_packed_paths_bit_identical(data):
+def test_registry_json_and_packed_paths_bit_identical(data, tmp_path):
+    """The JSON, packed and ITRF artifact boundaries serve the forest's
+    bits; ``export_tuned`` with nothing tuned leaves the file as it was."""
+    from repro_torch.ir import ForestIR
+
     X, y, _, _ = data
     rf = RandomForestClassifier(n_estimators=4, max_depth=5, seed=3).fit(X, y)
     reg = ModelRegistry()
     a = reg.register_forest("forest", rf)
     b = reg.register_json("json", forest_to_json(rf))
     c = reg.register_packed("packed", a.packed)
-    assert (a.source, b.source, c.source) == ("forest", "json", "packed")
+    path = tmp_path / "forest.itrf"
+    ForestIR.from_forest(rf).to_itrf(str(path))
+    d = reg.register_artifact("artifact", str(path))
+    assert (a.source, b.source, c.source, d.source) == ("forest", "json", "packed",
+                                                        "artifact")
     ref = a.engine("integer:cuda", device="cpu").predict_scores(X[:40])
-    for mv in (b, c):
+    for mv in (b, c, d):
         out = mv.engine("integer:cuda", device="cpu").predict_scores(X[:40])
         np.testing.assert_array_equal(out[0], ref[0])
         np.testing.assert_array_equal(out[1], ref[1])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        reg.register_artifact("m", "forest.itrf")
-    with pytest.raises(NotImplementedError, match="ITRF"):
-        reg.export_tuned("forest", "forest.itrf")
+    before = path.read_bytes()
+    reg.export_tuned("artifact", str(path))
+    assert path.read_bytes() == before
+    with pytest.raises(FileNotFoundError):
+        reg.register_artifact("m", str(tmp_path / "missing.itrf"))
 
 
 # ---------------------------------------------------------------- gateway
@@ -265,7 +274,7 @@ def test_gateway_rejects_bad_routes_and_rows(data):
     reg = ModelRegistry()
     reg.register_forest("m", v1)
     with pytest.raises(ValueError, match="unknown plan"):
-        Gateway(reg, "integer:cuda+remote_tree_parallel:2", device="cpu")
+        Gateway(reg, "integer:cuda+unknown_plan:2", device="cpu")
     with pytest.raises(ValueError, match="partials"):  # shards=2 picks tree_parallel
         Gateway(reg, EngineSpec(mode="float", backend="reference", shards=2,
                                 plan="tree_parallel"), device="cpu")

@@ -1,7 +1,8 @@
 """Import hygiene: the port and ``chip_smoke.py`` import neither JAX nor any
 module of the JAX package.  Every module of the port is imported, and the
-modules of the gateway slice and of the QuickScorer and sharded-plan slice
-must be among them."""
+modules of the gateway slice, of the QuickScorer and sharded-plan slice and
+of the deployment slice (ITRF, ``packed_leaf``, the converter, the worker
+fabric) must be among them."""
 import os
 import subprocess
 import sys
@@ -34,12 +35,17 @@ QUICKSCORER_AND_PLANS_SLICE = [f"repro_torch.{m}" for m in (
     "ir.bitvector", "kernels.bitvector", "backends.bitvector",
     "plan.tree_parallel", "plan.row_parallel",
 )]
+DEPLOYMENT_SLICE = [f"repro_torch.{m}" for m in (
+    "data.tabular", "ir.packed_leaf", "ir.artifact", "trees.convert",
+    "serve.wire", "serve.worker", "plan.remote",
+)]
 
 
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT),
-                           ",".join(GATEWAY_SLICE + QUICKSCORER_AND_PLANS_SLICE)],
+                           ",".join(GATEWAY_SLICE + QUICKSCORER_AND_PLANS_SLICE
+                                    + DEPLOYMENT_SLICE)],
                           env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

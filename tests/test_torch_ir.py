@@ -9,7 +9,7 @@ from repro_torch.ir import ForestIR, available_layouts, resolve_artifact
 from repro_torch.ir.forest_ir import ARRAY_DTYPES
 from test_backends import _child_before_parent_forest
 
-PORTED_LAYOUTS = ("padded", "leaf_major", "ragged", "bitvector")
+PORTED_LAYOUTS = ("padded", "leaf_major", "ragged", "bitvector", "packed_leaf")
 _META = ("n_trees", "n_classes", "n_features", "max_depth", "layout",
          "quant_scale", "scale")
 

@@ -101,7 +101,8 @@ def jax_scores(irs, probe_rows):
 # ------------------------------------------------------------------ registry
 
 def test_plan_registry_contents():
-    assert set(available_plans()) == {"single", "tree_parallel", "row_parallel"}
+    assert set(available_plans()) == {"single", "tree_parallel", "row_parallel",
+                                      "remote_tree_parallel"}
     assert plan_class("tree_parallel") is TreeParallelPlan
     assert plan_class("row_parallel") is RowParallelPlan
     assert plan_class("single") is SingleShardPlan
