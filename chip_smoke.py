@@ -60,11 +60,35 @@ with one CUDA card.  It
      ``integer:cuda|bitvector+remote_tree_parallel:2`` over both files (the
      stripped one ships its ITRF image in HELLO, the plain one its arrays),
      timed beside ``integer:cuda+tree_parallel:2``, with the workers' own
-     launch counts read from their span records around it,
+     launch counts read from their span records around it; then serves
+     65,536 rows through
+     ``integer:cuda|native_c_table+remote_tree_parallel:2`` over the plain
+     file: worker 0 launches K1, worker 1 builds the C table walk of the
+     other half on its host and launches nothing,
   9. serves the plan gateway's workload through a gateway on
      ``integer:cuda|bitvector+remote_tree_parallel:2`` over the stripped
      artifact and those workers, holds every response against the reference
-     walk, and fails if either worker launched no kernel.
+     walk, and fails if either worker launched no kernel,
+ 10. serves the host-C routes, emitted C compiled by gcc and run on the
+     host CPU (the libraries built on threads: the if-else ones from the
+     run's beginning, the others while step 8 converts the model in other
+     processes): ``integer|flint:native_c_table`` and
+     ``integer|flint:native_c_bitvector`` at 65,536, 1,000, 20 and 1 rows,
+     ``?block_rows=1``, ``?simd=false`` and ``?interleave=1`` at 1,000;
+     ``integer|float:native_c`` on the first 4 trees at 65,536 and 20 rows;
+     ``integer:cuda|native_c_table+tree_parallel:2`` (K1 beside C) and
+     ``integer:bitvector|native_c_bitvector+tree_parallel:2`` (K5 beside
+     C) at 65,536 rows; the plan gateway's workload on
+     ``integer:native_c_table|cuda+tree_parallel:2``, whose ``isa`` column
+     must name the C shard's ISA; and ``integer:native_c_bitvector?
+     autotune=true`` on the first 16 trees, its winner exported to an ITRF
+     file under ``torch-cpu:<isa>`` and read back without measuring.  Each
+     is held bit for bit against the reference walk (the float if-else
+     route's scores within 1e-6, its predictions equal), and the host
+     CPU's model, each library's source bytes and build seconds, each
+     route's ISA and host-clock median are printed.  The three requests of
+     the C bitvector scorer on 65,536 rows take seconds each, so they run
+     once each, at once on threads, beside the autotune step.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -177,6 +201,38 @@ REMOTE_GATEWAY_ROUTE = "integer:cuda|bitvector+remote_tree_parallel:2"
 REMOTE_WORKERS = 2
 DEPLOY_DIR = ROOT / "build" / "chip_smoke_deploy"
 
+# the host-C phase: the emitted-C routes at full width and their row counts,
+# the knob routes at HOST_C_KNOB_ROWS, the if-else C on its first
+# IF_ELSE_TREES trees (gcc -O2 takes 24 s for 8 of these trees and 269 s
+# for 32 on an 8-core x86 host, so the full model cannot build inside a
+# run), the mixed routes beside K1 and K5, the gateway's route (its first
+# shard is C, so the engine reports the C shard's ISA, as the JAX engine
+# does; a plan whose first shard is on the card reports none), the
+# autotuned route on the first TUNE_TREES trees, and the remote route over
+# the deployment phase's workers.  A timing takes REQUEST_TIMING_REPS runs,
+# or as many as fit HOST_C_TIMING_BUDGET_S.
+HOST_C_ROUTES = ("integer:native_c_table", "flint:native_c_table",
+                 "integer:native_c_bitvector", "flint:native_c_bitvector")
+HOST_C_ROWS = (ROWS, 1000, 20, 1)
+HOST_C_KNOB_ROUTES = ("integer:native_c_table?block_rows=1",
+                      "integer:native_c_table?simd=false",
+                      "integer:native_c_bitvector?interleave=1")
+HOST_C_KNOB_ROWS = 1000
+IF_ELSE_TREES = 4
+IF_ELSE_ROUTES = ("integer:native_c", "float:native_c")
+IF_ELSE_ROWS = (ROWS, 20)
+# float32 sums of the same leaves in the same tree order, times one
+# reciprocal: the C and the reference walk may differ only by rounding
+IF_ELSE_FLOAT_TOL = 1e-6
+HOST_C_MIXED = {"integer:cuda|native_c_table+tree_parallel:2": "leaf_major",
+                "integer:bitvector|native_c_bitvector+tree_parallel:2": "bitvector"}
+HOST_C_GATEWAY_ROUTE = "integer:native_c_table|cuda+tree_parallel:2"
+TUNE_TREES = 16
+TUNE_ROUTE = "integer:native_c_bitvector?autotune=true"
+HOST_C_REMOTE_ROUTE = "integer:cuda|native_c_table+remote_tree_parallel:2"
+HOST_C_TIMING_BUDGET_S = 3.0
+HOST_C_DIR = ROOT / "build" / "chip_smoke_host_c"
+
 
 def fail(message: str, code: int = 1):
     print(f"chip_smoke: FAIL: {message}", file=sys.stderr)
@@ -188,6 +244,27 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names its first core (model name,
+    vendor, family, model, stepping, the AVX2 and AVX-512F flags), and the
+    core count."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    flags = [f for f in ("avx2", "avx512f") if f in info.get("flags", "").split()]
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')} stepping "
+            f"{info.get('stepping', '?')}; {'+'.join(flags) or 'no AVX2'}), "
+            f"{os.cpu_count()} cores")
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +407,22 @@ def host_ms(fn, reps: int) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def budget_ms(fn, first_ms: float, reps: int = REQUEST_TIMING_REPS,
+              budget_s: float = HOST_C_TIMING_BUDGET_S) -> tuple:
+    """``(median host ms, runs)`` of ``fn()`` over ``reps`` runs, or as many
+    as fit ``budget_s`` at ``first_ms`` a run; where none fits, the first
+    (checked) run's ``first_ms`` is the one sample."""
+    n = min(reps, int(budget_s * 1e3 // max(first_ms, 1e-3)))
+    if n < 1:
+        return first_ms, 1
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), n
 
 
 def max_abs_err(a, b) -> int:
@@ -887,11 +980,13 @@ def summed(per_worker: dict) -> dict:
     return total
 
 
-def deployment_phase(forest, ir, X, want, seed: int, dev, card: str) -> dict:
+def deployment_phase(forest, ir, X, want, seed: int, dev, card: str,
+                     after_convert=None) -> dict:
     """Steps 8 and 9: the artifacts, the routes served from the registered
-    file, the remote routes and the remote gateway.  -> the kernel launches
-    by path: this process's on the artifact routes, the workers' on the
-    remote routes and on the remote gateway."""
+    file, the remote routes and the remote gateway; ``after_convert()`` runs
+    after the converter's runs, before the first timed request.  -> the
+    kernel launches by path: this process's on the artifact routes, the
+    workers' on the remote routes and on the remote gateway."""
     import torch
     from repro_torch.kernels import tree_traverse as tt
     from repro_torch.serve import ModelRegistry, wire
@@ -940,6 +1035,8 @@ def deployment_phase(forest, ir, X, want, seed: int, dev, card: str) -> dict:
                      f"{expect}")
         print(f"deploy: both files' fresh-process --verify digests equal the in-process "
               f"digest {expect}; phase 8a {time.perf_counter() - t0:.2f} s")
+        if after_convert is not None:
+            after_convert()
 
         # 8b. the plain file registered by mmap, served through K1, K5 and
         # the packed_leaf reference walk
@@ -1026,6 +1123,37 @@ def deployment_phase(forest, ir, X, want, seed: int, dev, card: str) -> dict:
         if not summed(remote)["leaf_major"] or not summed(remote)["bitvector"]:
             fail("the remote routes did not launch K1 and K5 in the workers")
 
+        # 8d. the host-C remote route over the plain file: worker 0 runs K1
+        # on the first half of the trees, worker 1 builds the C table walk of
+        # the second half on its host at its first PREDICT and serves it
+        t0 = time.perf_counter()
+        before_c = settled_span_records(span_dir, served)
+        eng = mv.engine(HOST_C_REMOTE_ROUTE, device=dev, plan_kwargs=kw)
+        same(eng.predict_scores(X), f"{HOST_C_REMOTE_ROUTE} on the plain artifact")
+        build_s = time.perf_counter() - t0
+        first = eng.drain_shard_timings()
+        labels = sorted(first)
+        count_worker_calls({k: v[1] for k, v in first.items()}, served)
+        t1 = time.perf_counter()
+        same(eng.predict_scores(X), f"{HOST_C_REMOTE_ROUTE} on the plain artifact")
+        ms, runs = budget_ms(lambda: eng.predict_scores(X), (time.perf_counter() - t1) * 1e3)
+        timed = eng.drain_shard_timings()
+        count_worker_calls({k: v[1] for k, v in timed.items()}, served)
+        check_remote_plan(eng, HOST_C_REMOTE_ROUTE)
+        host_c = worker_launches(before_c, settled_span_records(span_dir, served))
+        half = N_TREES // 2
+        if labels != [f"w0:cuda[0:{half}]", f"w1:native_c_table[{half}:{N_TREES}]"]:
+            fail(f"{HOST_C_REMOTE_ROUTE}: shard labels {labels}")
+        if not host_c.get(0, {}).get("leaf_major") or any(host_c.get(1, {}).values()):
+            fail(f"{HOST_C_REMOTE_ROUTE}: worker launches {host_c}; worker 0 must launch "
+                 "K1 and worker 1, on the host C shard, nothing")
+        shard = {k: round(v[0] / v[1], 3) for k, v in timed.items()}
+        print(f"{card} | request {HOST_C_REMOTE_ROUTE} on the plain artifact: {ROWS} rows "
+              f"bit-identical to the reference walk (first request with worker 1's C build "
+              f"{build_s:.2f} s); {ms:.3f} ms median of {runs} run(s), host clock; shard "
+              f"round trips ms {json.dumps(shard)}; kernel launches in the workers "
+              f"{host_c}; phase 8d {time.perf_counter() - t0:.2f} s")
+
         # 9. the remote gateway
         # the baseline of the workers' records is read after the warm, so
         # the warm's launches are not the gateway's
@@ -1054,6 +1182,7 @@ def deployment_phase(forest, ir, X, want, seed: int, dev, card: str) -> dict:
         for version in versions.values():
             version.release()
         return {"deploy": deploy_launches, "remote_workers": summed(remote),
+                "remote_host_c_workers": summed(host_c),
                 "remote_gateway_workers": summed(gateway)}
     finally:
         for p in procs:
@@ -1062,6 +1191,301 @@ def deployment_phase(forest, ir, X, want, seed: int, dev, card: str) -> dict:
             if p.stdout is not None:
                 p.stdout.close()
         shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the host-C phase: emitted C on the host CPU, alone and beside K1 and K5
+# ---------------------------------------------------------------------------
+
+def c_backends(eng) -> list:
+    """The host-C shard backends of ``eng``'s plan."""
+    from repro_torch.backends import CompiledCBackend
+
+    return [b for b in eng.plan.backends if isinstance(b, CompiledCBackend)]
+
+
+def start_c_builds(engines: dict, pool) -> dict:
+    """Start building every host-C library of ``engines`` on ``pool``
+    (``simd_isa()`` builds on its first call; gcc runs outside the
+    interpreter lock); -> ``{route: [future of each C shard's ISA]}``."""
+    return {spec: [pool.submit(b.simd_isa) for b in c_backends(eng)]
+            for spec, eng in engines.items()}
+
+
+def finish_c_builds(futures: dict, engines: dict) -> None:
+    """Wait for the builds of :func:`start_c_builds` and print each
+    library's source bytes, emit and gcc seconds and dispatched ISA; a
+    library that did not build fails the run."""
+    for spec, futs in futures.items():
+        for b, fut in zip(c_backends(engines[spec]), futs):
+            isa = fut.result()
+            info = b.build_info
+            if isa is None or not info:
+                fail(f"{spec}: the {b.name} library did not build")
+            print(f"host C build {spec} [{b.name}, {b.packed.n_trees} trees]: source "
+                  f"{info['source_bytes']} bytes, emit {info['emit_s']:.2f} s, gcc -O2 "
+                  f"{info['compile_s']:.2f} s, simd_isa {isa}")
+
+
+def check_c_request(eng, label: str, rows, want_partials, want_scores, mode: str,
+                    n_trees: int, scale: int) -> tuple:
+    """One checked request: ``eng``'s partials against ``want_partials`` and
+    their finalize against ``want_scores`` (scores, preds), tolerance 0;
+    -> (host ms of the checked partials call, partials)."""
+    from repro_torch.core.ensemble import finalize_partials
+
+    t0 = time.perf_counter()
+    partials = eng.predict_partials(rows)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    n = len(rows)
+    if partials.dtype != np.uint32 or not np.array_equal(partials, want_partials[:n]):
+        fail(f"{label} on {n} rows: partials differ from the reference walk's")
+    scores, preds = finalize_partials(mode, partials, n_trees, scale)
+    if not (np.array_equal(scores, want_scores[0][:n])
+            and np.array_equal(preds, want_scores[1][:n])):
+        fail(f"{label} on {n} rows: scores differ from the reference walk's")
+    return first_ms, partials
+
+
+def start_if_else_builds(ir, dev) -> tuple:
+    """Start building the if-else C of the first IF_ELSE_TREES trees on two
+    threads, at the run's beginning: they take the longest of the host-C
+    builds and run outside the interpreter lock while the card phases run.
+    -> (the subset, its engines, their build futures, the pool)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serve import TreeEngine
+
+    sub = ir.subset(0, IF_ELSE_TREES)
+    engines = {spec: TreeEngine(sub, spec=spec, device=dev) for spec in IF_ELSE_ROUTES}
+    pool = ThreadPoolExecutor(max_workers=len(engines))
+    return sub, engines, start_c_builds(engines, pool), pool
+
+
+def start_host_c_builds(ir, dev) -> dict:
+    """Build the engines of the host-C phase and start building their C
+    libraries on one thread per core (:func:`finish_host_c_builds` waits).
+    The deployment phase starts them before its converter runs and waits for
+    them before its first timed request."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serve import ModelRegistry, TreeEngine
+
+    t0 = time.perf_counter()
+    reg = ModelRegistry()
+    mv = reg.register_packed(MODEL_ID, ir)
+    routes = (*HOST_C_ROUTES, *HOST_C_KNOB_ROUTES, *HOST_C_MIXED)
+    engines = {spec: TreeEngine(ir, spec=spec, device=dev) for spec in routes}
+    engines[HOST_C_GATEWAY_ROUTE] = mv.engine(HOST_C_GATEWAY_ROUTE, device=dev)
+    pool = ThreadPoolExecutor(max_workers=os.cpu_count() or 4)
+    return {"reg": reg, "mv": mv, "engines": engines, "pool": pool, "t0": t0,
+            "futures": start_c_builds(engines, pool)}
+
+
+def finish_host_c_builds(builds: dict) -> None:
+    finish_c_builds(builds["futures"], builds["engines"])
+    builds["pool"].shutdown(wait=True)
+    print(f"host C: {sum(len(f) for f in builds['futures'].values())} libraries built on "
+          f"{os.cpu_count()} threads, {time.perf_counter() - builds['t0']:.2f} s from the "
+          "start of their engines")
+
+
+def host_c_phase(ir, X, want: dict, ref_partials, builds: dict, if_else: tuple,
+                 seed: int, dev, card: str) -> dict:
+    """Step 10: the emitted-C routes at full width, the if-else C on its
+    subset, the mixed routes beside K1 and K5, the gateway on a mixed route
+    and the autotuned C route read back from an artifact.  ``want`` maps
+    each mode to the reference walk's (scores, preds) of ``X``,
+    ``ref_partials`` are its partials, ``builds`` is what
+    :func:`start_host_c_builds` started and ``if_else`` what
+    :func:`start_if_else_builds` started at the run's beginning.  The three
+    requests that take seconds (the C bitvector scorer on 65,536 rows in
+    both modes and beside K5) run at once on threads, each one checked run,
+    while the autotune step runs.  -> this process's kernel launches on the
+    mixed routes and the gateway."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from repro_torch.kernels import tree_traverse as tt
+    from repro_torch.serve import TreeEngine
+
+    t_phase = time.perf_counter()
+    print(f"{card} | host CPU {host_cpu()}")
+    reg, mv, engines = builds["reg"], builds["mv"], builds["engines"]
+    sub, if_engines, if_futures, if_pool = if_else
+    shutil.rmtree(HOST_C_DIR, ignore_errors=True)
+    HOST_C_DIR.mkdir(parents=True)
+    try:
+        finish_c_builds(if_futures, if_engines)
+        if_pool.shutdown(wait=True)
+
+        def timed(spec, eng, n, first_ms, what="bit-identical to the reference walk"):
+            ms, runs = budget_ms(lambda: eng.predict_scores(X[:n]), first_ms)
+            print(f"{card} | host C request {spec} ({eng.simd_isa()}): {n} rows {what}; "
+                  f"{ms:.3f} ms median of {runs} run(s), host clock")
+
+        # 10a. the table walk and bitvector C at full width, and their knobs,
+        # each request checked and timed alone
+        heavy = [(spec, ROWS) for spec in HOST_C_ROUTES if "bitvector" in spec]
+        rows_by_route = {spec: HOST_C_ROWS for spec in HOST_C_ROUTES}
+        rows_by_route.update({spec: (HOST_C_KNOB_ROWS,) for spec in HOST_C_KNOB_ROUTES})
+        for spec, counts in rows_by_route.items():
+            eng, mode = engines[spec], spec.split(":")[0]
+            for n in counts:
+                if (spec, n) in heavy:
+                    continue
+                first_ms, _ = check_c_request(eng, spec, X[:n], ref_partials, want[mode],
+                                              mode, ir.n_trees, ir.scale)
+                timed(spec, eng, n, first_ms)
+
+        # 10b. the if-else C on its subset: integer exact, float within
+        # IF_ELSE_FLOAT_TOL with equal predictions
+        print(f"host C: {'/'.join(IF_ELSE_ROUTES)} run on the first {sub.n_trees} of "
+              f"{ir.n_trees} trees: gcc -O2 on the if-else C of the full model would not "
+              "finish inside a run (24 s for 8 of these trees, 269 s for 32, on an 8-core "
+              "x86 host)")
+        sub_int = TreeEngine(sub, spec="integer:reference", device=dev)
+        sub_want = {"integer": sub_int.predict_scores(X),
+                    "float": TreeEngine(sub, spec="float:reference", device=dev)
+                    .predict_scores(X)}
+        sub_partials = sub_int.predict_partials(X)
+        for spec in IF_ELSE_ROUTES:
+            eng, mode = if_engines[spec], spec.split(":")[0]
+            for n in IF_ELSE_ROWS:
+                if mode == "integer":
+                    first_ms, _ = check_c_request(eng, spec, X[:n], sub_partials,
+                                                  sub_want[mode], mode, sub.n_trees,
+                                                  sub.scale)
+                    what = (f"of {sub.n_trees} trees bit-identical to the reference walk "
+                            "of that subset")
+                else:
+                    t0 = time.perf_counter()
+                    scores, preds = eng.predict_scores(X[:n])
+                    first_ms = (time.perf_counter() - t0) * 1e3
+                    want_s, want_p = sub_want[mode]
+                    err = float(np.abs(scores - want_s[:n]).max())
+                    if scores.dtype != np.float32 or err > IF_ELSE_FLOAT_TOL \
+                            or not np.array_equal(preds, want_p[:n]):
+                        fail(f"{spec} on {n} rows: scores {err} from the float reference "
+                             f"walk (tolerance {IF_ELSE_FLOAT_TOL}) or predictions differ")
+                    what = (f"of {sub.n_trees} trees: predictions equal the float "
+                            f"reference walk's, max |scores - reference| {err!r} "
+                            f"(tolerance {IF_ELSE_FLOAT_TOL})")
+                timed(spec, eng, n, first_ms, what)
+
+        # 10c. cuda|native_c_table beside K1, checked and timed alone, with
+        # the launch counters read around its checked request
+        mixed_launches = {}
+
+        def mixed_check(spec):
+            eng = engines[spec]
+            first_ms, _ = check_c_request(eng, spec, X, ref_partials, want["integer"],
+                                          "integer", ir.n_trees, ir.scale)
+            return first_ms
+
+        def read_launches(spec):
+            torch.cuda.synchronize()
+            launches = dict(tt.LAUNCHES)
+            if not launches[HOST_C_MIXED[spec]]:
+                fail(f"{spec} did not launch kernel {HOST_C_MIXED[spec]}")
+            for k, v in launches.items():
+                mixed_launches[k] = mixed_launches.get(k, 0) + v
+            return launches
+
+        def shard_ms(eng):
+            return json.dumps({k: round(v[0] / v[1], 3)
+                               for k, v in eng.drain_shard_timings().items()})
+
+        table_mixed = next(spec for spec in HOST_C_MIXED if "native_c_table" in spec)
+        eng = engines[table_mixed]
+        tt.reset_launches()
+        first_ms = mixed_check(table_mixed)
+        launches = read_launches(table_mixed)
+        ms, runs = budget_ms(lambda: eng.predict_scores(X), first_ms)
+        print(f"{card} | host C request {table_mixed}: {ROWS} rows bit-identical to the "
+              f"reference walk, kernel launches {launches}; {ms:.3f} ms median of {runs} "
+              f"run(s), host clock; shard ms per call {shard_ms(eng)}")
+
+        # 10d. the three requests that take seconds, at once on threads (one
+        # checked run each), beside the autotune step
+        bv_mixed = next(spec for spec in HOST_C_MIXED if "native_c_bitvector" in spec)
+        tt.reset_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(heavy) + 1) as pool:
+            futs = {spec: pool.submit(check_c_request, engines[spec], spec, X, ref_partials,
+                                      want[spec.split(":")[0]], spec.split(":")[0],
+                                      ir.n_trees, ir.scale)
+                    for spec, _ in heavy}
+            futs[bv_mixed] = pool.submit(mixed_check, bv_mixed)
+            tuned = autotune_step(ir, X, dev, card)
+            results = {spec: fut.result() for spec, fut in futs.items()}
+        launches = read_launches(bv_mixed)
+        note = (f", one checked run at once with {len(results) - 1} others and the autotune "
+                "step")
+        for spec, _ in heavy:
+            first_ms = results[spec][0]
+            print(f"{card} | host C request {spec} ({engines[spec].simd_isa()}): {ROWS} rows "
+                  f"bit-identical to the reference walk; {first_ms:.3f} ms{note}, host clock")
+        print(f"{card} | host C request {bv_mixed}: {ROWS} rows bit-identical to the "
+              f"reference walk, kernel launches {launches}; {results[bv_mixed]:.3f} ms{note}, "
+              f"host clock; shard ms per call {shard_ms(engines[bv_mixed])}; step "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # 10e. the plan gateway on a mixed route: the isa column names the
+        # C shard's ISA
+        gw_launches, st = plan_gateway_phase(reg, mv, HOST_C_GATEWAY_ROUTE, seed, dev, card,
+                                             label="host C gateway")
+        if st["isa"] in (None, "-") or st["isa"] != engines[HOST_C_GATEWAY_ROUTE].simd_isa():
+            fail(f"the host C gateway's isa column reads {st['isa']!r}")
+        if gw_launches["leaf_major"] + gw_launches["gather"] == 0:
+            fail("the host C gateway did not launch K1 or K2 for its card shard")
+        print(f"host C gateway: isa column {st['isa']}, kernel launches {gw_launches}")
+        for eng in (*engines.values(), *if_engines.values(), *tuned):
+            eng.close()
+        mv.release()
+        print(f"host C phase: {time.perf_counter() - t_phase:.2f} s")
+        return {"mixed": mixed_launches, "gateway": gw_launches}
+    finally:
+        shutil.rmtree(HOST_C_DIR, ignore_errors=True)
+
+
+def autotune_step(ir, X, dev, card: str) -> tuple:
+    """The autotuned C route on the first TUNE_TREES trees: tuned at warm,
+    its winner exported to an ITRF file under the CPU's host key and read
+    back from it by a fresh registry, which serves without measuring.
+    -> the two engines."""
+    from repro_torch.ir.artifact import host_isa_key, inspect_itrf
+    from repro_torch.serve import ModelRegistry, TreeEngine
+
+    t0 = time.perf_counter()
+    path = str(HOST_C_DIR / "tune.itrf")
+    ir.subset(0, TUNE_TREES).to_itrf(path)
+    reg = ModelRegistry()
+    mv = reg.register_artifact("tune", path)
+    eng = mv.engine(TUNE_ROUTE, device=dev)
+    eng.warm(256)
+    tune_ms = eng.drain_compile_timings().get("tune")
+    reg.export_tuned("tune", path)
+    host = f"torch-cpu:{host_isa_key()}"
+    hosts = inspect_itrf(path)["tuned_hosts"]
+    back = ModelRegistry().register_artifact("tune", path)
+    beng = back.engine(TUNE_ROUTE, device=dev)
+    beng.warm(256)
+    if eng.tuned_config is None or hosts != [host] or back._tuned != mv._tuned \
+            or [k[4] for k in back._tuned] != ["cpu"] \
+            or beng.tuned_config != eng.tuned_config \
+            or "tune" in beng.drain_compile_timings():
+        fail(f"{TUNE_ROUTE}: winner {eng.tuned_config} under {hosts}, read back "
+             f"{back._tuned} as {beng.tuned_config}")
+    want = TreeEngine(back.packed, spec="integer:reference", device=dev).predict_scores(X)
+    got = beng.predict_scores(X)
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        fail(f"{TUNE_ROUTE} read back from the artifact differs from the reference walk")
+    print(f"{card} | host C autotune {TUNE_ROUTE} on {TUNE_TREES} trees: winner "
+          f"{eng.tuned_config} ({eng.simd_isa()}) measured in {tune_ms:.1f} ms, written "
+          f"under {hosts[0]} and read back without measuring; {ROWS} rows bit-identical; "
+          f"step {time.perf_counter() - t0:.2f} s")
+    return eng, beng
 
 
 # ---------------------------------------------------------------------------
@@ -1130,6 +1554,7 @@ def main() -> None:
         print(card)
         print(json.dumps({"kernel_times": times, "src": str(src)}))
         return
+    if_else = start_if_else_builds(ir, dev)
 
     # 3. the main path, with the launch counters read around it
     routes = ("integer:cuda@leaf_major", "flint:cuda@leaf_major",
@@ -1332,7 +1757,9 @@ def main() -> None:
     }
     print("request integer:cuda@leaf_major steps, ms median: " + ", ".join(
         f"{k} {v:.4f}" for k, v in steps_ms.items()))
-    want = refs["integer"].predict_scores(X)  # for the deployment phase
+    # for the deployment and host-C phases
+    want = {mode: refs[mode].predict_scores(X) for mode in ("integer", "flint")}
+    ref_partials = refs["integer"].predict_partials(X)
     for eng in (*engines.values(), *refs.values()):  # the plans' shard pools too
         eng.close()
 
@@ -1357,11 +1784,18 @@ def main() -> None:
     # 8 and 9. the deployment path and the remote gateway, the workers'
     # launches read from their span records
     t0 = time.perf_counter()
-    deploy = deployment_phase(forest, ir, X, want, args.seed, dev, card)
+    # the host-C libraries build while the converter runs in its processes
+    builds = start_host_c_builds(ir, dev)
+    deploy = deployment_phase(forest, ir, X, want["integer"], args.seed, dev, card,
+                              after_convert=lambda: finish_host_c_builds(builds))
     print(f"deployment phases: {time.perf_counter() - t0:.2f} s")
 
+    # 10. the host-C phase, with the launch counters read around its mixed
+    # routes and its gateway
+    host_c = host_c_phase(ir, X, want, ref_partials, builds, if_else, args.seed, dev, card)
+
     paths = {"engine": launches, "gateway": gw_launches, "plan_gateway": plan_launches,
-             **deploy}
+             **deploy, "host_c": host_c["mixed"], "host_c_gateway": host_c["gateway"]}
     kernels_out = [dict(rows_out[name], launches=sum(p.get(name, 0) for p in paths.values()),
                         launches_by_path={k: p.get(name, 0) for k, p in paths.items()})
                    for name in REPLACES]

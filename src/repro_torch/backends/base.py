@@ -70,7 +70,13 @@ class TreeBackend(abc.ABC):
                                          self.name)
         self.packed = packed
         self.mode = mode
-        self.device = resolve_device(device)
+        self.device = self.placement(device)
+
+    @classmethod
+    def placement(cls, device=None):
+        """The device this backend's work runs on when a caller or plan
+        passes ``device``: that device, ``cuda`` for ``None``."""
+        return resolve_device(device)
 
     @property
     def layout(self) -> str:

@@ -1,4 +1,5 @@
-"""Warm-time measured autotuning of the cuda backend's CTA shape.
+"""Warm-time measured autotuning of the cuda backend's CTA shape and the
+host-C backends' blocking knobs.
 
 The cuda backend's ``(block_b, block_t)`` — rows and trees per CTA — has a
 static heuristic (``kernels/ops.py::pick_blocks``: 128 rows where the
@@ -9,7 +10,13 @@ answer: during ``TreeEngine.warm()`` each candidate of
 halved and doubled neighbours that fit) is built on the engine's *already
 materialized* layout artifact and timed (min-of-rounds ``predict_partials``
 on deterministic pseudo-random rows, with ``torch.cuda.synchronize()``
-around each round on the card), and the winner's kwargs are pinned.
+around each round on the card), and the winner's kwargs are pinned.  The
+host-C backends sweep the JAX package's grids: ``native_c_table``'s
+``block_rows`` in (8, 1, 4, 16) and ``native_c_bitvector``'s ``interleave``
+in (8, 1, 4), the default first.  Their winner is a property of the host
+CPU, not of the card: it is keyed, cached and written to an artifact's
+``tune_db`` under the CPU (``torch-cpu:<isa>``) whatever the engine's
+device.
 
 Every candidate produces bit-identical uint32 partials (the knobs only
 re-tile the grid; uint32 atomics merge exactly in any order), so tuning can
@@ -43,7 +50,7 @@ _ROUNDS = 3
 _WARMUP = 1
 
 # backends with a measurable construction knob; anything else is a no-op
-TUNABLE_BACKENDS = ("cuda",)
+TUNABLE_BACKENDS = ("native_c_table", "native_c_bitvector", "cuda")
 
 
 def autotune_enabled(flag) -> bool:
@@ -59,10 +66,14 @@ def config_str(kwargs: dict) -> str:
 
 def candidate_grid(backend_name: str, artifact, rows: int = _TUNE_ROWS, *,
                    device=None) -> list:
-    """The candidate ``backend_kwargs`` grid for one backend, the heuristic
-    FIRST (ties resolve to it), sized for ``device``'s SM count; the same
-    for every kernel (``impl``), since all three stage alike.  Empty when
-    the backend has no tunable knob."""
+    """The candidate ``backend_kwargs`` grid for one backend, the default
+    or heuristic FIRST (ties resolve to it).  The cuda grid is sized for
+    ``device``'s SM count, the same for every kernel (``impl``), since all
+    three stage alike.  Empty when the backend has no tunable knob."""
+    if backend_name == "native_c_table":
+        return [{"block_rows": r} for r in (8, 1, 4, 16)]
+    if backend_name == "native_c_bitvector":
+        return [{"interleave": k} for k in (8, 1, 4)]
     if backend_name != "cuda":
         return []
     from repro_torch.kernels.ops import _sm_count, pick_blocks_candidates

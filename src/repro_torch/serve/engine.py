@@ -41,7 +41,8 @@ class TreeEngine:
     count and return numpy results.
 
     ``autotune=True`` (or ``?autotune=true`` in the spec) measures the cuda
-    backend's CTA shape during :meth:`warm` and rebuilds the plan on the
+    backend's CTA shape, or a host-C backend's ``block_rows`` or
+    ``interleave``, during :meth:`warm` and rebuilds the plan on the
     measured winner (:mod:`repro_torch.serve.autotune`); single-plan
     string-backend routes only, and knobs the caller already pinned via
     ``backend_kwargs`` are never overridden.  ``tuned_store`` (a mutable
@@ -102,10 +103,15 @@ class TreeEngine:
 
     def _tune_key(self):
         # the route's own kwargs (``impl``) pick the kernel being tuned, so
-        # routes that differ only in them measure and cache independently
+        # routes that differ only in them measure and cache independently;
+        # the device is the one the backend runs on, which for the host-C
+        # backends is the CPU whatever the engine's device
+        from repro_torch.backends import backend_class
+
         c = self._ctor
         return (c["backend"], c["layout"], c["mode"],
-                tuple(sorted((c["backend_kwargs"] or {}).items())), str(c["device"]))
+                tuple(sorted((c["backend_kwargs"] or {}).items())),
+                str(backend_class(c["backend"]).placement(c["device"])))
 
     @property
     def tuned_config(self) -> Optional[str]:
@@ -178,6 +184,18 @@ class TreeEngine:
     def deterministic(self) -> bool:
         """True when outputs are bit-exact integer scores."""
         return self.plan.deterministic
+
+    def simd_isa(self):
+        """The SIMD ISA the serving backend (the first shard's) dispatches
+        to: ``"avx2"`` / ``"neon"`` / ``"scalar"`` / ``"avx512-k8"``-style
+        names for the host-C backends, ``None`` for backends without the
+        surface (the card's, the reference walk, remote shards).  A mixed
+        plan reports its first shard's, as the JAX engine does, so
+        ``native_c_table|cuda`` has an ISA and ``cuda|native_c_table`` has
+        none.  May trigger the backend's first build — callers wanting a free
+        probe should ask after serving has started."""
+        fn = getattr(self.backend, "simd_isa", None)
+        return fn() if fn is not None else None
 
     def drain_shard_timings(self) -> dict:
         """Per-shard wall time since the last drain (``{label: (ms, calls)}``)."""

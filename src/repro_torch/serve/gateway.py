@@ -175,6 +175,9 @@ class Gateway:
         mm.record_shards(eng.drain_shard_timings())
         mm.record_stages(eng.drain_stage_timings())
         mm.record_compiles(eng.drain_compile_timings())
+        # the dispatched SIMD ISA (free here: the batch above already built
+        # the backend, so the probe never triggers a compile)
+        mm.record_isa(eng.simd_isa())
         mm.record_tuned(eng.tuned_config)
         mm.record_spec(str(self.spec))
         # meta = the version that actually computed, so cache fills are keyed

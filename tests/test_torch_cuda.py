@@ -16,7 +16,9 @@ threads serving one plan route at once; ``tree_parallel`` under
 ``device_parallel="auto"`` on threads where two cards are counted; K1, K2
 and K5 serving an mmap-registered ITRF artifact; and ``remote_tree_parallel``
 on two workers started on the card, whose span records count K1 and K5
-launched inside them.  Marked
+launched inside them; and host-C shards (``cuda|native_c_table``,
+``bitvector|native_c_bitvector``) beside K1 and K5, with C backends on the
+CPU whatever device they are given.  Marked
 ``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
 on a machine with a card::
@@ -709,3 +711,59 @@ def test_remote_workers_on_the_card(card, tmp_path):
                 launches[k] = launches.get(k, 0) + v
     assert launches["leaf_major"] > 0 and launches["gather"] > 0
     assert launches["bitvector"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.requires_gcc
+def test_host_c_shards_beside_the_card_kernels(card):
+    """``cuda|native_c_table`` and ``bitvector|native_c_bitvector`` split the
+    forest between a kernel on the card and emitted C on the host: K1 and K5
+    launch, the C shard runs on the CPU, and the merged partials equal the
+    CPU reference walk bit for bit."""
+    ir = _forest(25, 16, 7, 9, 4)
+    x = np.random.default_rng(10).normal(size=(700, 9)).astype(np.float32)
+    for spec, kernels in (("integer:cuda|native_c_table+tree_parallel:2", {"leaf_major"}),
+                          ("integer:bitvector|native_c_bitvector+tree_parallel:2",
+                           {"bitvector"}),
+                          ("flint:native_c_table|cuda+tree_parallel:2", {"leaf_major"})):
+        eng = TreeEngine(ir, spec=spec)
+        ref = TreeEngine(ir, spec=spec.split(":")[0] + ":reference", device="cpu")
+        tt.reset_launches()
+        for b in (300, 700):
+            s, p = eng.predict_scores(x[:b])
+            s_ref, p_ref = ref.predict_scores(x[:b])
+            np.testing.assert_array_equal(s, s_ref, err_msg=spec)
+            np.testing.assert_array_equal(p, p_ref, err_msg=spec)
+        assert {k for k, v in tt.LAUNCHES.items() if v} == kernels, spec
+        devices = {b.name: b.device.type for b in eng.plan.backends}
+        assert devices == {n: ("cpu" if n.startswith("native_c") else "cuda")
+                           for n in devices}, spec
+        eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.requires_gcc
+def test_c_backend_with_no_device_runs_on_the_cpu(card, tmp_path):
+    """A C backend built with ``device=None`` (which means ``cuda`` to every
+    other backend) reports ``cpu``; so does a C route served by an engine on
+    the card, and its autotune winner is written under ``torch-cpu:<isa>``,
+    not under the card's name."""
+    from repro_torch.backends import create_backend
+    from repro_torch.ir.artifact import host_isa_key, inspect_itrf
+
+    ir = _forest(26, 6, 5, 9, 4)
+    assert create_backend("native_c_table", ir.materialize("ragged")).device.type == "cpu"
+    path = str(tmp_path / "m.itrf")
+    ir.to_itrf(path)
+    reg = ModelRegistry()
+    mv = reg.register_artifact("m", path)
+    eng = mv.engine("integer:native_c_bitvector?autotune=true")
+    assert eng.backend.device.type == "cpu"
+    eng.warm(64)
+    assert [k[4] for k in mv._tuned] == ["cpu"]
+    reg.export_tuned("m", path)
+    assert inspect_itrf(path)["tuned_hosts"] == [f"torch-cpu:{host_isa_key()}"]
+    assert ModelRegistry().register_artifact("m", path)._tuned == mv._tuned
+    x = np.random.default_rng(11).normal(size=(50, 9)).astype(np.float32)
+    ref = TreeEngine(ir, spec="integer:reference", device="cpu")
+    np.testing.assert_array_equal(eng.predict_scores(x)[0], ref.predict_scores(x)[0])

@@ -2,7 +2,8 @@
 module of the JAX package.  Every module of the port is imported, and the
 modules of the gateway slice, of the QuickScorer and sharded-plan slice and
 of the deployment slice (ITRF, ``packed_leaf``, the converter, the worker
-fabric) must be among them."""
+fabric) and of the host-C slice (the emitters, the C backends, ``gbt``)
+must be among them."""
 import os
 import subprocess
 import sys
@@ -39,13 +40,18 @@ DEPLOYMENT_SLICE = [f"repro_torch.{m}" for m in (
     "data.tabular", "ir.packed_leaf", "ir.artifact", "trees.convert",
     "serve.wire", "serve.worker", "plan.remote",
 )]
+HOST_C_SLICE = [f"repro_torch.{m}" for m in (
+    "codegen", "codegen.c_emitter", "codegen.table_emitter",
+    "codegen.bitvector_emitter", "codegen.native_bench", "backends.native_c",
+    "backends.native_c_table", "backends.native_c_bitvector", "trees.gbt",
+)]
 
 
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT),
                            ",".join(GATEWAY_SLICE + QUICKSCORER_AND_PLANS_SLICE
-                                    + DEPLOYMENT_SLICE)],
+                                    + DEPLOYMENT_SLICE + HOST_C_SLICE)],
                           env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -6,13 +6,14 @@ against the single-process walk, tolerance 0: wire frames round trip and
 are the JAX package's bytes, bad magic is refused; two workers merge to the
 single plan's bits and float mode is refused; a killed worker and a
 straggler past its deadline are re-dispatched; heterogeneous backends per
-shard (``cuda|bitvector|reference``); ``close`` reaps owned workers; the
+shard (``cuda|bitvector|reference``, and host-C shards beside them); ``close`` reaps owned workers; the
 gateway end to end with worker spans grafted under the shard spans, and
 draining on close; span JSONL with the worker's kernel launches; the HELLO
 fast path (an ITRF image) next to the array HELLO; a worker started on a
 card its host lacks failing each attempt with an error naming the device;
 and the two cross-package directions: a port gateway merging JAX workers'
-partials, and a JAX plan merging port workers' partials.
+partials, and a JAX plan merging port workers' partials, C shards
+included.
 
 Every fixture that spawns workers kills them in its finalizer, and every
 plan takes a short connect timeout and deadline, so no test can hang.
@@ -245,6 +246,21 @@ def test_heterogeneous_worker_backends(remote_engine, X, single):
                                    else "leaf_major+bitvector+padded")
 
 
+@pytest.mark.requires_gcc
+def test_host_c_worker_shards(remote_engine, X, single):
+    """A worker builds a host-C shard beside the card backends' plain
+    versions: the table walk after K1's shard, the C bitvector scorer
+    before the reference walk; every label names its backend."""
+    for spec in ("integer:cuda|native_c_table+remote_tree_parallel:2",
+                 "integer:native_c_bitvector|reference+remote_tree_parallel:2"):
+        eng = remote_engine(spec)
+        _assert_same(_scores(eng, X), single["integer"], spec)
+        labels = sorted(eng.drain_shard_timings())
+        assert [lbl.split(":")[1].split("[")[0] for lbl in labels] == \
+            list(EngineSpec.parse(spec).backend), labels
+        assert all(w["alive"] for w in eng.plan.workers()) and not eng.plan.redispatches
+
+
 def test_itrf_hello_fast_path(irs, remote_engine, X, single, tmp_path):
     """A stripped artifact's image is smaller than the arrays, so HELLO ships
     it whole; the workers rebuild the forest from it and serve the same
@@ -455,6 +471,28 @@ def test_port_plan_merges_jax_workers(irs, jax_worker_pair, X, single, tmp_path,
     out, (fmt, devices) = asyncio.run(run())
     _assert_same(out, single["integer"], hello)
     assert fmt == hello and devices == [None, None]  # JAX workers name no device
+
+
+@pytest.mark.requires_gcc
+def test_c_shards_across_packages(irs, worker_pair, jax_worker_pair, X, single):
+    """A JAX plan's ``native_c_table`` shard built by a port worker, and a
+    port plan's ``native_c`` shard built by a JAX worker: both merge to the
+    single walk's bits."""
+    from repro.serve.spec import EngineSpec as JEngineSpec
+
+    jeng = JTreeEngine(irs[1], JEngineSpec(mode="integer", backend=("reference", "native_c_table"),
+                                           plan="remote_tree_parallel", shards=2),
+                       plan_kwargs={"workers": list(worker_pair), "model_id": "jc",
+                                    "version": 1, **LIMITS})
+    eng = TreeEngine(irs[0], "integer:native_c|reference+remote_tree_parallel:2", device="cpu",
+                     plan_kwargs={"workers": list(jax_worker_pair), "model_id": "pc",
+                                  "version": 1, **LIMITS})
+    try:
+        _assert_same(_scores(jeng, X), single["integer"], "JAX plan, port workers")
+        _assert_same(_scores(eng, X), single["integer"], "port plan, JAX workers")
+    finally:
+        jeng.close()
+        eng.close()
 
 
 @pytest.mark.parametrize("mode", ["flint", "integer"])
