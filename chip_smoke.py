@@ -88,7 +88,24 @@ with one CUDA card.  It
      CPU's model, each library's source bytes and build seconds, each
      route's ISA and host-clock median are printed.  The three requests of
      the C bitvector scorer on 65,536 rows take seconds each, so they run
-     once each, at once on threads, beside the autotune step.
+     once each, at once on threads, beside the autotune step,
+ 11. drives the serving drivers and the LM serving path: granite-3-2b at
+     full width (40 layers, d_model 2048, 2.53 B parameters drawn on the
+     card from the seed) through ``LMEngine``: two greedy generations of
+     16 tokens at batch 4 and prompt 32 that must agree, ``decode_step``
+     against ``forward_logits`` at full width, prefill ms and decode ms per
+     token beside their byte bounds, tok/s and peak memory; then, while
+     ``python -m repro_torch.launch.serve --trees``, ``--trees --gateway
+     --gw-spec integer:cuda`` and ``python -m repro_torch.examples.
+     quickstart`` run as processes at their default sizes (their integer
+     rows must agree at 1.000000, the gateway be bit-identical to the
+     direct engine, the drivers' K1 and K2 launches counted in their
+     processes), granite-3-2b's widths cut to 2 layers on the card against
+     the host's CPU from the same weights, and every LM family's smoke
+     model on the card (prefill/decode consistency; a finite forward for
+     the encoder); last, alone, ``python -m repro_torch.launch.serve --arch
+     granite-3-2b --batch 4 --prompt 32 --tokens 16`` at full width, whose
+     tokens at seed 0 must equal the in-process run's.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -122,9 +139,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# the repo's serving configuration (src/repro/configs/intreeger_rf.py) and
-# the serve_64k request shape (src/repro/launch/shapes.py)
-N_TREES, DEPTH, N_FEATURES, N_CLASSES = 128, 10, 87, 8
+# the repo's serving configuration, read by use_model_config() from this
+# checkout's repro_torch.configs (never from --src); and the serve_64k
+# request shape (src/repro/launch/shapes.py)
+MODEL_ID = "intreeger-rf"
+N_TREES = DEPTH = N_FEATURES = N_CLASSES = None
 ROWS = 65_536
 SMALL_REQUESTS = (1000, 100, 20, 1)
 THRESHOLD_SAMPLE_ROWS = 4096
@@ -186,7 +205,6 @@ GATEWAY_ROW_SHARES = (0.35, 0.35, 0.2, 0.1)
 GATEWAY_REPEAT_SHARE = 0.25
 GATEWAY_RATE_PER_S = 100.0
 GATEWAY_MAX_BATCH_ROWS = 4096
-MODEL_ID = "intreeger-rf"
 
 # the deployment phase: the routes served from the registered plain
 # artifact, the remote routes (two loopback workers on the card) with the
@@ -233,10 +251,59 @@ HOST_C_REMOTE_ROUTE = "integer:cuda|native_c_table+remote_tree_parallel:2"
 HOST_C_TIMING_BUDGET_S = 3.0
 HOST_C_DIR = ROOT / "build" / "chip_smoke_host_c"
 
+# the drivers-and-LM phase: granite-3-2b at full width, the request the
+# launcher serves by default (batch 4, prompt 32, 16 greedy tokens); the
+# cut to 2 layers that runs on the card and on the host's CPU; the H100's
+# bf16 tensor-core peak (NVIDIA data sheet, SXM, dense)
+LM_ARCH = "granite-3-2b"
+LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 32, 16
+LM_CUT_LAYERS = 2
+LM_TIMING_REPS = 5
+BF16_FLOPS_PER_S = 989e12
+# tolerances on logits (float32 outputs of bf16 compute): the reference's own
+# for its smoke models (tests/test_arch_smoke.py); at full width, decode_step
+# against forward_logits on the card (measured 0.0791 at seed 0 on an NVIDIA
+# H100 80GB HBM3 at 700 W), and for the 2-layer cut the card against the
+# host's CPU (measured 0.0469): each about 2.5 times what was measured
+LM_SMOKE_TOL = 0.08
+LM_CONSISTENCY_TOL = 0.2
+LM_HOST_TOL = 0.12
+# the drivers run as ``python -m``, their kernels' launch counters printed
+# as they exit
+DRIVER_WRAPPER = (
+    "import json, runpy, sys\n"
+    "module = sys.argv[1]\n"
+    "sys.argv = [module] + sys.argv[2:]\n"
+    "from repro_torch.kernels import tree_traverse as tt\n"
+    "tt.reset_launches()\n"
+    "runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+    "print('DRIVER_LAUNCHES ' + json.dumps(dict(tt.LAUNCHES)))\n")
+DRIVER_ROWS = ("integer", "integer-leafmajor", "integer-cuda", "integer-c-table")
+
 
 def fail(message: str, code: int = 1):
     print(f"chip_smoke: FAIL: {message}", file=sys.stderr)
     sys.exit(code)
+
+
+def use_model_config() -> None:
+    """The served forest's shape (trees, depth, features, classes) from the
+    configuration registry of this script's own checkout, read before
+    ``--src`` puts another tree's ``repro_torch`` on the path: both sides of
+    a before/after run serve one shape, and a tree without the registry
+    still runs."""
+    global N_TREES, DEPTH, N_FEATURES, N_CLASSES
+    sys.path.insert(0, str(SRC))
+    try:
+        from repro_torch.configs import get_config
+
+        cfg = get_config(MODEL_ID)
+    finally:
+        sys.path.remove(str(SRC))
+        for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
+    N_TREES, DEPTH, N_FEATURES, N_CLASSES = (cfg.n_trees, cfg.tree_depth,
+                                             cfg.n_tab_features, cfg.n_classes)
 
 
 def card_line() -> str:
@@ -851,28 +918,40 @@ def plan_gateway_phase(reg, mv, route: str, seed: int, dev, card: str,
 # the deployment path: artifacts, the converter, the shard workers
 # ---------------------------------------------------------------------------
 
-def run_modules(commands: list, timeout: float = 600) -> list:
-    """The stdout of each ``python -m <args>`` in ``commands``, all started
-    together with the checkout's ``src`` on the path; fails the run on a
-    non-zero exit."""
+def start_modules(commands: list, wrapper: str | None = None) -> list:
+    """Start each ``python -m <args>`` of ``commands`` at once, with the
+    checkout's ``src`` on the path; with ``wrapper``, as ``python -c wrapper
+    <args>``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(SRC), env.get("PYTHONPATH")) if p)
-    procs = [subprocess.Popen([sys.executable, "-m", *args], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, env=env)
-             for args in commands]
+    prefix = ["-c", wrapper] if wrapper else ["-m"]
+    return [(args, subprocess.Popen([sys.executable, *prefix, *args], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=env))
+            for args in commands]
+
+
+def finish_modules(started: list, timeout: float = 600) -> list:
+    """The stdout of each process of ``start_modules``; fails the run on a
+    non-zero exit, and kills whatever still runs."""
     outs = []
     try:
-        for args, proc in zip(commands, procs):
+        for args, proc in started:
             out, err = proc.communicate(timeout=timeout)
             if proc.returncode:
                 fail(f"python -m {' '.join(args)} exited {proc.returncode}: {err[-3000:]}")
             outs.append(out)
     finally:
-        for proc in procs:
+        for _, proc in started:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     return outs
+
+
+def run_modules(commands: list, timeout: float = 600) -> list:
+    """The stdout of each ``python -m <args>`` in ``commands``, all run at
+    once."""
+    return finish_modules(start_modules(commands), timeout)
 
 
 def loopback_ms(payload: bytes, reps: int) -> float:
@@ -1492,6 +1571,323 @@ def autotune_step(ir, X, dev, card: str) -> tuple:
 # the run
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the drivers-and-LM phase: the launcher and examples as a user runs them,
+# granite-3-2b at full width, every LM family's smoke model
+# ---------------------------------------------------------------------------
+
+def driver_launches(out: str, args: list) -> dict:
+    """The kernel launch counts a driver run through DRIVER_WRAPPER printed
+    as it exited."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("DRIVER_LAUNCHES ")]
+    if not lines:
+        fail(f"python -m {' '.join(args)} printed no launch counts")
+    return json.loads(lines[-1].split(" ", 1)[1])
+
+
+def check_logits(got, want, tol: float, what: str) -> tuple:
+    """``(max |got - want|, share of rows whose argmax agrees)``; fails above
+    ``tol``, or where the argmax differs on a row whose top-2 margin in
+    ``want`` exceeds twice ``tol``."""
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{what}: shape {got.shape} against {want.shape}, or values not finite")
+    err = float(np.abs(got - want).max())
+    agree = got.argmax(-1) == want.argmax(-1)
+    srt = np.sort(want, axis=-1)
+    sure = (srt[..., -1] - srt[..., -2]) > 2 * tol
+    if err > tol or not agree[sure].all():
+        fail(f"{what}: max |difference| {err} (tolerance {tol}), argmax agrees on "
+             f"{agree.mean():.4f} of rows, {int((~agree & sure).sum())} of them beyond "
+             "twice the tolerance's margin")
+    return err, float(agree.mean())
+
+
+def smoke_batch(cfg, rng, b: int = 2, s: int = 32) -> dict:
+    """Inputs as ``tests/test_arch_smoke.py`` draws them, as numpy."""
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(b, s, cfg.frontend_dim)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"tokens": rng.integers(0, cfg.vocab_size, (b, s - cfg.vision_patches)
+                                       ).astype(np.int32),
+                "patches": rng.normal(size=(b, cfg.vision_patches, cfg.frontend_dim)
+                                      ).astype(np.float32)}
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+
+
+def lm_consistency(engine, batch: dict, tol: float, what: str) -> tuple:
+    """``decode_step`` on the last token after a prefill of the others,
+    against ``forward_logits``'s last position (``tests/test_arch_smoke.py``'s
+    check)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    on = {k: torch.from_numpy(v).to(engine.device) for k, v in batch.items()}
+    with torch.inference_mode():
+        full = tfm.forward_logits(engine.cfg, engine.params, on)[:, -1]
+    _, cache = engine.prefill(dict(batch, tokens=batch["tokens"][:, :-1]))
+    decoded, _ = engine.decode(cache, on["tokens"][:, -1:])
+    return check_logits(decoded, full, tol, what)
+
+
+def lm_full_width(seed: int, dev, card: str) -> dict:
+    """granite-3-2b at full width on the card: built from the seed, two
+    greedy generations that must agree, the prefill/decode consistency, and
+    the prefill and per-token decode times beside their bounds."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import LMEngine
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    engine = LMEngine(cfg, tfm.init_params(cfg, seed, device=dev),
+                      max_seq=LM_PROMPT + LM_TOKENS, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    leaves = []
+    tfm.tree_map(leaves.append, engine.params)
+    weight_bytes = sum(a.numel() * a.element_size() for a in leaves)
+    n_params = sum(a.numel() for a in leaves)
+    if n_params != cfg.param_count() + cfg.d_model * (2 * cfg.n_layers + 1):
+        fail(f"{LM_ARCH}: {n_params} parameters drawn, param_count() says "
+             f"{cfg.param_count()} besides the norms")
+    batch = {k: v for k, v in pipeline_for(cfg, LM_BATCH, LM_PROMPT, seed=seed)
+             .batch_at(0).items() if k != "labels"}
+    print(f"LM {LM_ARCH} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {n_params} parameters drawn on the card from seed {seed} and "
+          f"cast ({weight_bytes} bytes, bf16 matmul weights) in {build_s:.2f} s, peak "
+          f"{build_peak / 2**30:.3f} GiB while building")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        toks = engine.generate(batch, LM_TOKENS).cpu()
+        runs.append((toks, time.perf_counter() - t0))
+    if tuple(runs[0][0].shape) != (LM_BATCH, LM_TOKENS) or \
+            not torch.equal(runs[0][0], runs[1][0]):
+        fail(f"{LM_ARCH}: two greedy generations differ, or shape {tuple(runs[0][0].shape)}")
+    if int(runs[0][0].min()) < 0 or int(runs[0][0].max()) >= cfg.vocab_size:
+        fail(f"{LM_ARCH}: generated tokens outside the vocabulary")
+    err, agree = lm_consistency(engine, batch, LM_CONSISTENCY_TOL,
+                                f"{LM_ARCH} decode_step against forward_logits")
+
+    def prefill():
+        out = engine.prefill(batch)
+        torch.cuda.synchronize()
+        return out
+
+    prefill_ms = []
+    for _ in range(LM_TIMING_REPS):
+        t0 = time.perf_counter()
+        prefill()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_ms = []
+    for _ in range(LM_TIMING_REPS):
+        logits, cache = prefill()
+        t0 = time.perf_counter()
+        for _ in range(LM_TOKENS):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(-1, 1)
+            logits, cache = engine.decode(cache, nxt)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3 / LM_TOKENS)
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+
+    # bounds: each weight read once and the KV cache (a step reads up to all
+    # of it) over the HBM rate; the matmul flops over the bf16 peak
+    dims = cfg.resolved_head_dim * cfg.n_kv_heads
+    cache_bytes = 2 * cfg.n_layers * LM_BATCH * (LM_PROMPT + LM_TOKENS) * dims * 2
+    decode_bound_ms = max((weight_bytes + cache_bytes) / HBM_BYTES_PER_S,
+                          2 * n_params * LM_BATCH / BF16_FLOPS_PER_S) * 1e3
+    prefill_bound_ms = max((weight_bytes + cache_bytes) / HBM_BYTES_PER_S,
+                           2 * n_params * LM_BATCH * LM_PROMPT / BF16_FLOPS_PER_S) * 1e3
+    out = dict(
+        arch=LM_ARCH, params=n_params, weight_bytes=weight_bytes, build_s=build_s,
+        prefill_ms=statistics.median(prefill_ms), prefill_bound_ms=prefill_bound_ms,
+        decode_ms_per_token=statistics.median(decode_ms), decode_bound_ms=decode_bound_ms,
+        generate_s=[r[1] for r in runs],
+        tok_per_s=LM_BATCH * LM_TOKENS / runs[1][1],
+        peak_gib_build=build_peak / 2**30, peak_gib_serve=serve_peak / 2**30,
+        consistency_max_abs=err, consistency_argmax_agree=agree,
+        tokens=runs[0][0][0].tolist())
+    print(f"{card} | LM {LM_ARCH} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+          f"{LM_TOKENS} greedy tokens: prefill {out['prefill_ms']:.3f} ms median of "
+          f"{LM_TIMING_REPS} (bound {prefill_bound_ms:.3f} ms by bytes); decode "
+          f"{out['decode_ms_per_token']:.3f} ms per token (bound {decode_bound_ms:.3f} ms: "
+          f"{weight_bytes + cache_bytes} bytes over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+          f"generate {runs[0][1]:.3f} s then {runs[1][1]:.3f} s, {out['tok_per_s']:.1f} "
+          f"tok/s; peak memory {out['peak_gib_serve']:.3f} GiB serving, "
+          f"{out['peak_gib_build']:.3f} GiB building; host clock")
+    print(f"  the two generations agree; tokens of row 0: {out['tokens']}; decode_step "
+          f"against forward_logits: max |difference| {err:.5f} (tolerance "
+          f"{LM_CONSISTENCY_TOL}), argmax agrees on {agree:.4f} of rows")
+    del engine
+    return out
+
+
+def lm_cut_on_card_and_host(seed: int, dev) -> dict:
+    """granite-3-2b's full widths cut to LM_CUT_LAYERS layers, the same
+    weights on the card and on the host's CPU: the logits agree."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import LMEngine
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CUT_LAYERS)
+    params = tfm.init_params(cfg, seed, device=dev)
+    batch = {k: torch.from_numpy(v) for k, v in pipeline_for(cfg, LM_BATCH, LM_PROMPT,
+                                                               seed=seed).batch_at(0).items()
+             if k != "labels"}
+    logits = {}
+    seconds = {}
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        engine = LMEngine(cfg, tfm.tree_map(lambda a: a.to(where), params), device=where)
+        with torch.inference_mode():
+            logits[where.type] = tfm.forward_logits(
+                cfg, engine.params, {k: v.to(where) for k, v in batch.items()}).cpu()
+        seconds[where.type] = time.perf_counter() - t0
+    err, agree = check_logits(logits["cuda"], logits["cpu"], LM_HOST_TOL,
+                              f"{LM_ARCH} cut to {LM_CUT_LAYERS} layers, card against CPU")
+    print(f"LM {LM_ARCH} cut to {LM_CUT_LAYERS} layers (full widths), forward_logits of "
+          f"{LM_BATCH} x {LM_PROMPT} tokens on the card and on the host's CPU from the same "
+          f"weights: max |difference| {err:.5f} (tolerance {LM_HOST_TOL}), argmax agrees on "
+          f"{agree:.4f} of positions; {seconds['cuda']:.2f} s on the card, "
+          f"{seconds['cpu']:.2f} s on the CPU")
+    return dict(max_abs=err, argmax_agree=agree)
+
+
+def lm_smoke_models(seed: int, dev) -> dict:
+    """Every LM family's SMOKE model on the card: the prefill/decode
+    consistency of the decoders, a finite forward of the encoder."""
+    import torch
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import LMEngine
+
+    out = {}
+    for arch in ARCHS:
+        cfg = smoke_config(arch)
+        if cfg.family == "trees":
+            continue
+        engine = LMEngine(cfg, tfm.init_params(cfg, seed + 1, device=dev), max_seq=32,
+                          device=dev)
+        batch = smoke_batch(cfg, np.random.default_rng(seed + 1))
+        if cfg.has_decode:
+            out[arch] = lm_consistency(engine, batch, LM_SMOKE_TOL,
+                                       f"{arch} smoke decode_step against forward_logits")[0]
+        else:
+            with torch.inference_mode():
+                got = tfm.forward_logits(cfg, engine.params, {
+                    k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            if tuple(got.shape) != (2, 32, cfg.vocab_size) or not bool(torch.isfinite(got).all()):
+                fail(f"{arch} smoke forward: shape {tuple(got.shape)} or values not finite")
+            out[arch] = None
+    print("LM smoke models on the card, decode_step against forward_logits, max "
+          "|difference|: " + ", ".join(f"{a} {v:.5f}" if v is not None else
+                                       f"{a} (encoder: forward finite)"
+                                       for a, v in out.items()))
+    return out
+
+
+def drivers_and_lm_phase(seed: int, dev, card: str) -> dict:
+    """Phase 11.  The LM at full width runs first and alone, so its times
+    are the card's and this process's only; then the three tree drivers run
+    as processes while the cut model and the smoke models run here; the
+    LM launcher runs last, alone.  Returns the drivers' summed launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    lm = lm_full_width(seed, dev, card)
+    torch.cuda.empty_cache()
+
+    commands = [
+        ["repro_torch.launch.serve", "--trees"],
+        ["repro_torch.launch.serve", "--trees", "--gateway", "--gw-spec", "integer:cuda"],
+        ["repro_torch.examples.quickstart", "--out",
+         str(ROOT / "build" / "chip_smoke_quickstart.c")],
+    ]
+    drivers = start_modules(commands, wrapper=DRIVER_WRAPPER)
+    cut = lm_cut_on_card_and_host(seed, dev)
+    smoke = lm_smoke_models(seed, dev)
+    trees_out, gw_out, qs_out = finish_modules(drivers)
+    trees_n, gw_n, qs_n = (driver_launches(out, args)
+                           for out, args in zip((trees_out, gw_out, qs_out), commands))
+    (ROOT / "build" / "chip_smoke_quickstart.c").unlink(missing_ok=True)
+
+    rows = {ln.split()[0]: ln for ln in trees_out.splitlines() if "agree_with_float=" in ln}
+    want = [r for r in DRIVER_ROWS if r != "integer-c-table" or "integer-native-c" in rows]
+    bad = [r for r in want if "agree_with_float=1.000000" not in rows.get(r, "")]
+    if bad or "integer-cuda" not in rows:
+        fail(f"launch.serve --trees: rows {bad} do not agree at 1.000000:\n{trees_out}")
+    # the drivers ran at once, beside the cut and smoke models in this
+    # process, so the gateway's latencies are contended and not comparable
+    # across runs; their seconds are not printed, as they are collected
+    # only once this process's own work is done
+    print(f"{card} | launch.serve --trees (defaults: 20,000 rows, 50 trees of depth 7, 3 "
+          f"reps), kernel launches {trees_n}:")
+    for line in rows.values():
+        print("  " + line)
+    if "gateway == direct engine (bit-identical): True" not in gw_out:
+        fail(f"launch.serve --trees --gateway --gw-spec integer:cuda:\n{gw_out[-3000:]}")
+    print(f"{card} | launch.serve --trees --gateway --gw-spec integer:cuda (defaults: 400 "
+          f"requests at 400/s), kernel launches {gw_n}: "
+          "bit-identical to the direct engine; its latencies below are contended")
+    for line in gw_out.splitlines():
+        if line.startswith(("workload:", "esa-rf", "shuttle-", "model ")):
+            print("  " + line)
+    for line in ("float == flint == integer predictions", "bit-identical uint32 scores"):
+        if line not in qs_out:
+            fail(f"examples.quickstart printed no '{line}':\n{qs_out[-3000:]}")
+    print(f"{card} | examples.quickstart, kernel launches {qs_n}: "
+          + "; ".join(ln for ln in qs_out.splitlines() if ln.startswith(
+              ("forest accuracy", "float == flint", "bit-identical"))))
+
+    t0 = time.perf_counter()
+    lm_out = run_modules([["repro_torch.launch.serve", "--arch", LM_ARCH, "--batch",
+                           str(LM_BATCH), "--prompt", str(LM_PROMPT), "--tokens",
+                           str(LM_TOKENS)]])[0]
+    lm_s = time.perf_counter() - t0
+    if f"generated ({LM_BATCH}, {LM_TOKENS}) tokens" not in lm_out or \
+            "peak device memory:" not in lm_out:
+        fail(f"launch.serve --arch {LM_ARCH}:\n{lm_out[-3000:]}")
+    # the launcher draws from seed 0 and serves the pipeline's step 0 of
+    # seed 0: at that seed its first row is the in-process run's
+    sample = [int(t) for t in lm_out.split("sample: [", 1)[1].split("]", 1)[0].split()]
+    if seed == 0 and sample != lm["tokens"]:
+        fail(f"launch.serve --arch {LM_ARCH} generated {sample}, the engine in this "
+             f"process {lm['tokens']} from the same seed")
+    print(f"{card} | launch.serve --arch {LM_ARCH} --batch {LM_BATCH} --prompt {LM_PROMPT} "
+          f"--tokens {LM_TOKENS}, full width, {lm_s:.2f} s in all: "
+          + "; ".join(ln.strip() for ln in lm_out.splitlines() if ln.strip()))
+
+    launches = {}
+    for counts in (trees_n, gw_n, qs_n):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    seconds = time.perf_counter() - t_phase
+    print(f"{card} | drivers and LM phase: {seconds:.2f} s; the drivers' kernel launches "
+          f"{launches}")
+    print(json.dumps({"lm": dict(lm, cut=cut, smoke=smoke, phase_s=seconds,
+                                 serve_lm_s=lm_s)}))
+    if launches.get("leaf_major", 0) == 0 or launches.get("gather", 0) == 0:
+        fail(f"the drivers launched K1 and K2 {launches}: one of them never ran")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1512,6 +1908,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    use_model_config()
     sys.path.insert(0, str(src))
     from repro_torch.core.ensemble import finalize_partials
     from repro_torch.core.flint import float_to_key
@@ -1794,8 +2191,12 @@ def main() -> None:
     # routes and its gateway
     host_c = host_c_phase(ir, X, want, ref_partials, builds, if_else, args.seed, dev, card)
 
+    # 11. the drivers (their launches counted in their processes) and the LM
+    drivers = drivers_and_lm_phase(args.seed, dev, card)
+
     paths = {"engine": launches, "gateway": gw_launches, "plan_gateway": plan_launches,
-             **deploy, "host_c": host_c["mixed"], "host_c_gateway": host_c["gateway"]}
+             **deploy, "host_c": host_c["mixed"], "host_c_gateway": host_c["gateway"],
+             "drivers": drivers}
     kernels_out = [dict(rows_out[name], launches=sum(p.get(name, 0) for p in paths.values()),
                         launches_by_path={k: p.get(name, 0) for k, p in paths.items()})
                    for name in REPLACES]

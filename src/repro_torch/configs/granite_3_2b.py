@@ -1,0 +1,30 @@
+"""granite-3-2b [dense]: GQA.  [hf:ibm-granite/granite-3.0-2b-base]
+
+40L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=49155.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=49155,
+    microbatches=4,
+)
+
+SMOKE = ModelConfig(
+    name="granite-3-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    d_ff=128,
+    vocab_size=256,
+)

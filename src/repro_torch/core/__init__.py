@@ -4,6 +4,7 @@
   fixedpoint.py - 2^32/n fixed-point probability conversion
   packing.py    - the padded node-table artifact (``PackedEnsemble``)
   ensemble.py   - mode specs, the numpy finalize, the torch reference walk
+  serving.py    - the one-device tree serving step (reference walk + argmax)
 """
 from repro_torch.core.ensemble import (
     MODES,

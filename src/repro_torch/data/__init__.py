@@ -1,1 +1,2 @@
-"""Synthetic tabular datasets (numpy only) shaped like the paper's benchmarks."""
+"""Synthetic datasets (numpy only): tabular rows shaped like the paper's
+benchmarks (``tabular``) and the LM token pipeline (``tokens``)."""

@@ -1,0 +1,424 @@
+"""Unified model definition for all assigned LM families: the serving half.
+
+The PyTorch counterpart of the JAX package's ``models/transformer.py`` on
+one device.  One functional model covers dense / moe / ssm / hybrid / vlm /
+audio:
+  * blocks are stacked on a leading ``n_layers`` axis, as in the reference,
+    and applied one layer at a time (``params["blocks"]["attn"]["wq"][l]``
+    is a view),
+  * zamba2's hybrid runs groups of ``hybrid_attn_every`` Mamba blocks, each
+    followed by a shared attention+MLP block whose parameter set alternates,
+  * vlm/audio prepend/replace inputs with stub frontend embeddings through a
+    linear projector,
+  * gemma3's local layers mask keys older than the sliding window; every
+    ``global_every``-th layer attends to all keys (window 0).
+
+Params are plain nested dicts.  ``init_params`` draws them from a seeded
+``torch.Generator`` on the device it is given; ``params_from_numpy`` takes
+the JAX package's ``init_params`` output as numpy arrays, so both packages
+compute the same thing from the same weights.  The caches carry their
+position as a Python int; ``decode_step`` advances a cache in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE,
+    AttnDims,
+    Init,
+    attention,
+    attn_params,
+    dense_init,
+    mlp,
+    mlp_params,
+    rms_norm,
+)
+from repro_torch.models.moe import moe_block, moe_params
+
+# leaves that stay float32 at use; every other leaf is a matmul (or
+# embedding) weight that the reference casts to bf16 where it is used
+FLOAT32_LEAVES = frozenset({"ln1", "ln2", "final_norm", "norm_gamma", "a_log", "dt_bias",
+                            "d_skip"})
+
+
+def _attn_dims(cfg: ModelConfig) -> AttnDims:
+    return AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+
+def window_schedule(cfg: ModelConfig):
+    """Per-layer sliding-window size; 0 = full attention."""
+    out = []
+    for i in range(cfg.n_layers):
+        if cfg.global_every:
+            out.append(0 if (i + 1) % cfg.global_every == 0 else cfg.sliding_window)
+        else:
+            out.append(cfg.sliding_window)
+    return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (all of one structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _select(tree, idx: int):
+    return tree_map(lambda a: a[idx], tree)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _block_init(cfg: ModelConfig, init: Init):
+    d = cfg.d_model
+    if cfg.family in ("ssm", "hybrid"):
+        return {
+            "ln1": init.zeros((d,)),
+            "ssm": ssm_mod.ssm_params(init, d, cfg.ssm_expand, cfg.ssm_state),
+        }
+    block = {
+        "ln1": init.zeros((d,)),
+        "ln2": init.zeros((d,)),
+        "attn": attn_params(init, d, _attn_dims(cfg)),
+    }
+    if cfg.family == "moe":
+        block["moe"] = moe_params(init, d, cfg.n_experts, cfg.d_ff)
+    else:
+        block["mlp"] = mlp_params(init, d, cfg.d_ff)
+    return block
+
+
+def _shared_block_init(cfg: ModelConfig, init: Init):
+    d = cfg.d_model
+    return {
+        "ln1": init.zeros((d,)),
+        "ln2": init.zeros((d,)),
+        "attn": attn_params(init, d, _attn_dims(cfg)),
+        "mlp": mlp_params(init, d, cfg.d_ff),
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
+    """float32 parameters drawn on ``device`` (``cuda`` unless the caller
+    passes another; ``meta`` gives the shapes only) from a
+    ``torch.Generator`` seeded with ``seed``.  Blocks are stacked on a
+    leading ``n_layers`` axis, the zamba2 shared sets on a
+    ``hybrid_shared_sets`` axis, as in the reference."""
+    from repro_torch.device import resolve_device
+
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+    init = Init(gen, dev)
+    params = {}
+    if cfg.family != "audio":
+        params["embed"] = dense_init(init, (cfg.vocab_size, cfg.d_model), in_axis=1)
+    if cfg.frontend != "none":
+        params["frontend_proj"] = dense_init(init, (cfg.frontend_dim, cfg.d_model))
+    params["blocks"] = _block_init(cfg, init.stacked(cfg.n_layers))
+    if cfg.hybrid_attn_every:
+        params["shared"] = _shared_block_init(cfg, init.stacked(cfg.hybrid_shared_sets))
+    params["final_norm"] = init.zeros((cfg.d_model,))
+    if not cfg.tie_embeddings or cfg.family == "audio":
+        params["head"] = dense_init(init, (cfg.d_model, cfg.vocab_size))
+    return params
+
+
+def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
+    """The JAX package's ``init_params(cfg, key)`` output, as numpy arrays
+    (blocks stacked on a leading ``n_layers`` axis), as this package's
+    float32 parameters on ``device``.  Raises if a leaf is missing, extra or
+    of another shape than ``init_params`` gives here."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    want = init_params(cfg, device="meta")
+
+    def convert(w, path, node):
+        if isinstance(w, dict):
+            if not isinstance(node, dict) or set(node) != set(w):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                raise ValueError(f"params{path}: keys {got}, expected {sorted(w)}")
+            return {k: convert(w[k], f"{path}[{k!r}]", node[k]) for k in w}
+        a = np.asarray(node)
+        if tuple(a.shape) != tuple(w.shape):
+            raise ValueError(f"params{path}: shape {a.shape}, expected {tuple(w.shape)}")
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return convert(want, "", tree)
+
+
+def cast_matmul_weights(params, dtype=COMPUTE_DTYPE):
+    """Every matmul and embedding weight cast to ``dtype`` once; norm gammas
+    and the SSM's ``a_log``, ``dt_bias`` and ``d_skip`` stay float32.  The
+    reference casts the same weights at each use, so the bits are equal."""
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict)
+                    else v if k in FLOAT32_LEAVES else v.to(dtype))
+                for k, v in tree.items()}
+
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+def _apply_attn_block(cfg, bp, x, positions, window, kv_cache=None, cache_pos=None,
+                      causal=True, q_chunk=512):
+    h, new_cache = attention(
+        bp["attn"],
+        rms_norm(x, bp["ln1"], cfg.norm_eps),
+        _attn_dims(cfg),
+        positions=positions,
+        causal=causal,
+        window=window,
+        rope_theta=cfg.rope_theta,
+        q_chunk=q_chunk,
+        kv_cache=kv_cache,
+        cache_pos=cache_pos,
+    )
+    # the second norm reads the residual sum in float32: the reference's
+    # compiled program folds the bf16 rounding of ``x + h`` into the norm's
+    # float32 cast (XLA's excess precision); the residual stream itself
+    # stays bf16
+    normed = rms_norm(x.float() + h.float(), bp["ln2"], cfg.norm_eps).to(x.dtype)
+    x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "moe":
+        m, aux = moe_block(
+            bp["moe"],
+            normed,
+            n_experts=cfg.n_experts,
+            k=cfg.experts_per_token,
+            act=cfg.act,
+            capacity_factor=cfg.moe_capacity_factor,
+        )
+    else:
+        m = mlp(bp["mlp"], normed, cfg.act)
+    return x + m, new_cache, aux
+
+
+def _apply_ssm_block(cfg, bp, x):
+    h = ssm_mod.ssd_forward(
+        bp["ssm"],
+        rms_norm(x, bp["ln1"], cfg.norm_eps),
+        d_model=cfg.d_model,
+        expand=cfg.ssm_expand,
+        state=cfg.ssm_state,
+        chunk=cfg.ssm_chunk,
+    )
+    return x + h
+
+
+def _hybrid_groups(cfg):
+    """zamba2's layout: ``n_groups`` groups of ``every`` Mamba blocks, each
+    followed by shared set ``g % hybrid_shared_sets``."""
+    every = cfg.hybrid_attn_every
+    if cfg.n_layers % every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is no multiple of "
+                         f"hybrid_attn_every {every}")
+    return cfg.n_layers // every, every
+
+
+def _positions(b: int, s: int, device, start: int = 0):
+    return (start + torch.arange(s, device=device)).expand(b, s)
+
+
+# ---------------------------------------------------------------------------
+# forward (encoder / prefill-logits)
+# ---------------------------------------------------------------------------
+
+def embed_inputs(cfg: ModelConfig, params, batch):
+    """Token/frontend embedding.  Returns (x (B,S,D), label_offset)."""
+    if cfg.family == "audio":
+        x = batch["frames"].to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
+        return x, 0
+    tok = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
+        return torch.cat([patches, tok], dim=1), cfg.vision_patches
+    return tok, 0
+
+
+def backbone(cfg: ModelConfig, params, x):
+    """Run all blocks (no cache).  x: (B,S,D) -> (B,S,D), aux_loss."""
+    b, s, _ = x.shape
+    positions = _positions(b, s, x.device)
+    causal = not cfg.encoder_only
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            x = _apply_ssm_block(cfg, _select(params["blocks"], l), x)
+        return x, zero
+
+    if cfg.family == "hybrid":
+        n_groups, every = _hybrid_groups(cfg)
+        for g in range(n_groups):
+            for j in range(every):
+                x = _apply_ssm_block(cfg, _select(params["blocks"], g * every + j), x)
+            sp = _select(params["shared"], g % cfg.hybrid_shared_sets)
+            x = _apply_attn_block(cfg, sp, x, positions, 0)[0]
+        return x, zero
+
+    # dense / moe / vlm / audio: one block per layer with its window
+    auxs = []
+    for l, w in enumerate(window_schedule(cfg)):
+        x, _, aux = _apply_attn_block(cfg, _select(params["blocks"], l), x, positions, w,
+                                      causal=causal)
+        auxs.append(aux)
+    return x, torch.stack(auxs).sum()
+
+
+def head_weights(cfg: ModelConfig, params):
+    if "head" in params:
+        return params["head"]
+    return params["embed"].T
+
+
+def forward_logits(cfg: ModelConfig, params, batch):
+    """Full logits (B, S, V) float32 (smoke tests / small models only)."""
+    x, _ = embed_inputs(cfg, params, batch)
+    x, _ = backbone(cfg, params, x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ head_weights(cfg, params).to(x.dtype)).float()
+
+
+def _last_logits(cfg, params, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x[:, -1] @ head_weights(cfg, params).to(x.dtype)).float()
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=COMPUTE_DTYPE, device=None):
+    """Zeroed caches: K/V (layers or groups, B, max_seq, K, Dh) in ``dtype``;
+    SSM conv history in ``dtype`` and state in float32; ``pos`` 0."""
+    dims = _attn_dims(cfg)
+
+    def kv(n):
+        shape = (n, batch, max_seq, dims.n_kv_heads, dims.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    cache = {"pos": 0}
+    if cfg.family in ("ssm", "hybrid"):
+        per = ssm_mod.ssm_init_cache(batch, cfg.d_model, cfg.ssm_expand, cfg.ssm_state, dtype,
+                                     device=device)
+        cache["ssm"] = {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+                        for k, v in per.items()}
+        if cfg.family == "hybrid":
+            cache["k"], cache["v"] = kv(_hybrid_groups(cfg)[0])
+        return cache
+    cache["k"], cache["v"] = kv(cfg.n_layers)
+    return cache
+
+
+def _ssm_decode_layer(cfg, bp, x, cache, l: int):
+    layer_cache = _select(cache["ssm"], l)
+    h, new_c = ssm_mod.ssd_decode_step(
+        bp["ssm"],
+        rms_norm(x, bp["ln1"], cfg.norm_eps),
+        layer_cache,
+        d_model=cfg.d_model,
+        expand=cfg.ssm_expand,
+        state=cfg.ssm_state,
+    )
+    for k, v in new_c.items():
+        cache["ssm"][k][l] = v
+    return x + h
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens):
+    """One decode step.  tokens: (B, 1) -> last-token logits (B, V) float32;
+    ``cache`` advances in place (and is returned, as the reference returns
+    its new cache)."""
+    pos = cache["pos"]
+    b = tokens.shape[0]
+    x = params["embed"][tokens.long()].to(COMPUTE_DTYPE)
+    positions = _positions(b, 1, x.device, start=pos)
+
+    if cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            x = _ssm_decode_layer(cfg, _select(params["blocks"], l), x, cache, l)
+    elif cfg.family == "hybrid":
+        n_groups, every = _hybrid_groups(cfg)
+        for g in range(n_groups):
+            for j in range(every):
+                l = g * every + j
+                x = _ssm_decode_layer(cfg, _select(params["blocks"], l), x, cache, l)
+            sp = _select(params["shared"], g % cfg.hybrid_shared_sets)
+            x, _, _ = _apply_attn_block(cfg, sp, x, positions, 0,
+                                        kv_cache={"k": cache["k"][g], "v": cache["v"][g]},
+                                        cache_pos=pos)
+    else:
+        for l, w in enumerate(window_schedule(cfg)):
+            x, _, _ = _apply_attn_block(cfg, _select(params["blocks"], l), x, positions, w,
+                                        kv_cache={"k": cache["k"][l], "v": cache["v"][l]},
+                                        cache_pos=pos)
+    cache["pos"] = pos + 1
+    return _last_logits(cfg, params, x), cache
+
+
+def _ssm_block_prefill(cfg, bp, x):
+    h, state = ssm_mod.ssd_forward(
+        bp["ssm"],
+        rms_norm(x, bp["ln1"], cfg.norm_eps),
+        d_model=cfg.d_model,
+        expand=cfg.ssm_expand,
+        state=cfg.ssm_state,
+        chunk=cfg.ssm_chunk,
+        return_final_state=True,
+    )
+    return x + h, state
+
+
+def prefill(cfg: ModelConfig, params, batch, max_seq: Optional[int] = None):
+    """Prefill: forward over the prompt, return (last-token logits, cache).
+
+    Attention families: each layer's K/V are written into a cache of
+    ``max_seq`` positions as the forward pass computes them.  SSM/hybrid:
+    the chunked SSD returns the final (conv, state) pair per layer, handing
+    off exactly to ``ssd_decode_step``.
+    """
+    x, _ = embed_inputs(cfg, params, batch)
+    b, s, _ = x.shape
+    positions = _positions(b, s, x.device)
+    max_seq = max_seq or s
+    cache = init_cache(cfg, b, max_seq, device=x.device)
+
+    def ssm_layer(l, x):
+        x, state = _ssm_block_prefill(cfg, _select(params["blocks"], l), x)
+        for k, v in state.items():
+            cache["ssm"][k][l] = v
+        return x
+
+    if cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            x = ssm_layer(l, x)
+    elif cfg.family == "hybrid":
+        n_groups, every = _hybrid_groups(cfg)
+        for g in range(n_groups):
+            for j in range(every):
+                x = ssm_layer(g * every + j, x)
+            sp = _select(params["shared"], g % cfg.hybrid_shared_sets)
+            x, _, _ = _apply_attn_block(cfg, sp, x, positions, 0,
+                                        kv_cache={"k": cache["k"][g], "v": cache["v"][g]},
+                                        cache_pos=0)
+    else:
+        for l, w in enumerate(window_schedule(cfg)):
+            x, _, _ = _apply_attn_block(cfg, _select(params["blocks"], l), x, positions, w,
+                                        kv_cache={"k": cache["k"][l], "v": cache["v"][l]},
+                                        cache_pos=0, causal=not cfg.encoder_only)
+    cache["pos"] = s
+    return _last_logits(cfg, params, x), cache

@@ -18,7 +18,7 @@ import importlib
 
 _EXPORTS = {
     "QuantizedKeyCache": "cache", "row_keys": "cache",
-    "TreeEngine": "engine", "bucket_rows": "engine",
+    "LMEngine": "engine", "TreeEngine": "engine", "bucket_rows": "engine",
     "Gateway": "gateway",
     "MetricsRegistry": "metrics", "ModelMetrics": "metrics",
     "AdmissionError": "queue", "MicroBatcher": "queue",

@@ -1,4 +1,9 @@
-"""TreeEngine: the serving path's shape-bucketing wrapper over one plan.
+"""The serving engines.
+
+``LMEngine``: batched prefill + greedy/temperature decode for the LM archs
+on one device, the caches kept on that device.
+
+``TreeEngine``: the serving path's shape-bucketing wrapper over one plan.
 
     engine -> ExecutionPlan -> backend.predict_partials -> merge -> finalize
 
@@ -15,6 +20,74 @@ import time
 from typing import Optional
 
 import numpy as np
+
+
+class LMEngine:
+    """Batched prefill + greedy or sampled decode for one LM configuration.
+
+    ``params`` are float32 parameters (``models.transformer.init_params``
+    or ``params_from_numpy``).  The engine keeps them on ``device`` (``cuda``
+    unless the caller passes another; without a card it raises) with every
+    matmul weight cast to bf16 once, which gives the bits the reference gets
+    by casting at each use and reads half the bytes per decode step.  On the
+    card TF32 stays off (``models.layers.no_tf32``).
+    """
+
+    def __init__(self, cfg, params, *, max_seq: int = 1024, device=None):
+        from repro_torch.device import resolve_device
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models.layers import no_tf32
+
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            no_tf32()
+        self.params = tfm.cast_matmul_weights(
+            tfm.tree_map(lambda a: a.to(self.device), params))
+
+    def prefill(self, batch: dict):
+        """(last-token logits (B, V) float32, cache) for a batch of numpy
+        arrays or tensors."""
+        import torch
+
+        from repro_torch.models import transformer as tfm
+
+        batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        with torch.inference_mode():
+            return tfm.prefill(self.cfg, self.params, batch, max_seq=self.max_seq)
+
+    def decode(self, cache, tokens):
+        """One step: tokens (B, 1) -> (logits (B, V), cache advanced in place)."""
+        import torch
+
+        from repro_torch.models import transformer as tfm
+
+        with torch.inference_mode():
+            return tfm.decode_step(self.cfg, self.params, cache, tokens)
+
+    def generate(self, batch: dict, n_tokens: int, *, temperature: float = 0.0,
+                 seed: int = 0):
+        """Greedy (T=0) or sampled decode.  Returns (B, n_tokens) int32 on
+        the engine's device.  Sampling draws from a ``torch.Generator`` on
+        the device seeded with ``seed``: the same seed gives the same tokens
+        here, not the reference's (its stream is JAX's)."""
+        import torch
+
+        logits, cache = self.prefill(batch)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        toks = []
+        b = logits.shape[0]
+        for _ in range(n_tokens):
+            if temperature > 0:
+                probs = torch.softmax(logits / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=gen)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            nxt = nxt.to(torch.int32).reshape(b, 1)
+            toks.append(nxt)
+            logits, cache = self.decode(cache, nxt)
+        return torch.cat(toks, dim=1)
 
 
 def bucket_rows(b: int, *, max_bucket: int = 4096) -> int:

@@ -18,7 +18,9 @@ and K5 serving an mmap-registered ITRF artifact; and ``remote_tree_parallel``
 on two workers started on the card, whose span records count K1 and K5
 launched inside them; and host-C shards (``cuda|native_c_table``,
 ``bitvector|native_c_bitvector``) beside K1 and K5, with C backends on the
-CPU whatever device they are given.  Marked
+CPU whatever device they are given; the LM smoke models' prefill and decode
+on the card against the CPU, and ``launch.serve --trees`` on the card.
+Marked
 ``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
 on a machine with a card::
@@ -767,3 +769,57 @@ def test_c_backend_with_no_device_runs_on_the_cpu(card, tmp_path):
     x = np.random.default_rng(11).normal(size=(50, 9)).astype(np.float32)
     ref = TreeEngine(ir, spec="integer:reference", device="cpu")
     np.testing.assert_array_equal(eng.predict_scores(x)[0], ref.predict_scores(x)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma3-27b", "olmoe-1b-7b", "mamba2-370m",
+                                  "zamba2-2.7b", "llava-next-34b"])
+def test_lm_smoke_prefill_and_decode_on_the_card_match_the_cpu(card, arch):
+    """One seeded ``SMOKE`` model served by ``LMEngine`` on the card and on
+    the CPU: prefill's and the decode step's logits within the reference's
+    bf16 tolerance (0.08), argmax equal where the CPU's top-2 margin exceeds
+    twice that."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import LMEngine
+
+    tol = 0.08
+    cfg = smoke_config(arch)
+    params = tfm.init_params(cfg, 1, device="cpu")
+    rng = np.random.default_rng(1)
+    s = 32
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch = {"tokens": batch["tokens"][:, :s - cfg.vision_patches],
+                 "patches": rng.normal(size=(2, cfg.vision_patches, cfg.frontend_dim)
+                                       ).astype(np.float32)}
+    prompt = dict(batch, tokens=batch["tokens"][:, :-1])
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        eng = LMEngine(cfg, params, max_seq=s, device=dev)
+        logits, cache = eng.prefill(prompt)
+        assert logits.device.type == dev.type
+        dec, _ = eng.decode(cache, torch.from_numpy(batch["tokens"][:, -1:]).to(dev))
+        out[dev.type] = (logits.cpu().numpy(), dec.cpu().numpy())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() < tol
+        srt = np.sort(want, axis=-1)
+        sure = srt[:, -1] - srt[:, -2] > 2 * tol
+        assert (got.argmax(-1) == want.argmax(-1))[sure].all()
+
+
+@pytest.mark.cuda
+def test_serve_driver_trees_on_the_card(card, capsys):
+    """``python -m repro_torch.launch.serve --trees`` with its default
+    device: the ``integer-cuda`` row is K1 on the card."""
+    from repro_torch.launch.serve import main
+
+    tt.reset_launches()
+    main(["--trees", "--rows", "4000", "--n-trees", "8", "--depth", "5", "--reps", "1"])
+    torch.cuda.synchronize()
+    out = capsys.readouterr().out
+    assert "integer-cuda" in out
+    rows = [line for line in out.splitlines() if "agree_with_float=" in line]
+    assert rows and all("agree_with_float=1.000000" in line for line in rows)
+    assert tt.LAUNCHES["leaf_major"] + tt.LAUNCHES["gather"] > 0

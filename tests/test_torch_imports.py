@@ -2,8 +2,9 @@
 module of the JAX package.  Every module of the port is imported, and the
 modules of the gateway slice, of the QuickScorer and sharded-plan slice and
 of the deployment slice (ITRF, ``packed_leaf``, the converter, the worker
-fabric) and of the host-C slice (the emitters, the C backends, ``gbt``)
-must be among them."""
+fabric), of the host-C slice (the emitters, the C backends, ``gbt``) and of
+the drivers-and-LM slice (configs, the token pipeline, the serving step, the
+driver, the examples, the LM models) must be among them."""
 import os
 import subprocess
 import sys
@@ -46,12 +47,23 @@ HOST_C_SLICE = [f"repro_torch.{m}" for m in (
     "backends.native_c_table", "backends.native_c_bitvector", "trees.gbt",
 )]
 
+DRIVERS_AND_LM_SLICE = [f"repro_torch.{m}" for m in (
+    "configs", "configs.base", *(f"configs.{a}" for a in (
+        "gemma3_27b", "granite_34b", "granite_3_2b", "hubert_xlarge", "intreeger_rf",
+        "llava_next_34b", "mamba2_370m", "olmoe_1b_7b", "qwen3_moe_30b_a3b",
+        "starcoder2_3b", "zamba2_2_7b")),
+    "data.tokens", "core.serving", "launch", "launch.serve", "examples",
+    "examples.quickstart", "examples.serve_trees_scaled", "models", "models.layers",
+    "models.ssm", "models.moe", "models.transformer",
+)]
+
 
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT),
                            ",".join(GATEWAY_SLICE + QUICKSCORER_AND_PLANS_SLICE
-                                    + DEPLOYMENT_SLICE + HOST_C_SLICE)],
+                                    + DEPLOYMENT_SLICE + HOST_C_SLICE
+                                    + DRIVERS_AND_LM_SLICE)],
                           env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
