@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernels-only [--src DIR]
@@ -105,7 +106,34 @@ with one CUDA card.  It
      model on the card (prefill/decode consistency; a finite forward for
      the encoder); last, alone, ``python -m repro_torch.launch.serve --arch
      granite-3-2b --batch 4 --prompt 32 --tokens 16`` at full width, whose
-     tokens at seed 0 must equal the in-process run's.
+     tokens at seed 0 must equal the in-process run's,
+ 12. trains the LM (the kernels' launch counters set to 0 just before and
+     read just after, in this process and in every process it starts: the
+     training path launches no hand-written kernel, and they must all read
+     0): granite-3-2b at full width, drawn on the card from the seed, takes
+     3 steps of ``make_train_step`` on 8 x 512 tokens in 4 microbatches
+     (finite losses and grad norms, the first loss within 2.0 of ln V, the
+     optimizer's step at 3; the median step beside its bound, the peak
+     memory); its 2-layer cut takes one step on the card and on the host's
+     CPU from the same weights (loss within 2e-3, each gradient leaf within
+     a relative L2 difference of 3e-2, the card's AdamW from the CPU's
+     gradients equal to the CPU's update within 1% of a step, and at most
+     0.1% of the parameters whose |g| is above 1e-3 of their leaf's largest
+     stepping over half a step apart); the cut's training state is saved
+     asynchronously and restored to the card bit for bit, and a
+     ``RestartableLoop`` with a crash injected at step 3 of 6 resumes from
+     its checkpoint (files under ``build/chip_smoke_train/``, removed at the
+     end); while two processes train the cut with
+     ``make_integer_dp_train_step`` over gloo on CUDA tensors (their
+     parameters bit-identical after every step, their ``integer_psum`` of a
+     fixed random tensor equal bit for bit on the card and on the CPU and
+     within ``quantization_error_bound``; the losses printed beside one
+     process's ``make_train_step``), and ``python -m
+     repro_torch.launch.train`` (granite-3-2b smoke, 30 steps; its loss must
+     descend by over 0.2), the same with ``--integer-allreduce``, ``python
+     -m repro_torch.examples.train_lm --steps 100`` and ``python -m
+     repro_torch.examples.integer_allreduce_demo`` run as processes on the
+     card.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -279,6 +307,52 @@ DRIVER_WRAPPER = (
     "runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
     "print('DRIVER_LAUNCHES ' + json.dumps(dict(tt.LAUNCHES)))\n")
 DRIVER_ROWS = ("integer", "integer-leafmajor", "integer-cuda", "integer-c-table")
+
+# the training phase: granite-3-2b at full width trains TRAIN_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens (its configuration's 4 microbatches); its
+# 2-layer cut trains one step of TRAIN_CUT_BATCH x TRAIN_CUT_SEQ on the card
+# and on the host's CPU, is checkpointed and restarted (TRAIN_LOOP_* steps,
+# a crash injected at TRAIN_LOOP_CRASH), and trains TRAIN_DP_STEPS steps in
+# TRAIN_DP_RANKS processes on the card with the integer all-reduce over gloo
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 3
+TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 4, 128
+TRAIN_LOOP_STEPS, TRAIN_LOOP_CRASH, TRAIN_LOOP_EVERY = 6, 3, 2
+TRAIN_LOOP_BATCH, TRAIN_LOOP_SEQ = 2, 64
+TRAIN_DP_RANKS, TRAIN_DP_BATCH, TRAIN_DP_SEQ, TRAIN_DP_STEPS = 2, 8, 128, 3
+TRAIN_PSUM_SIZE = 1 << 20
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+# a first loss within TRAIN_FIRST_LOSS_TOL of ln(vocab) (random weights
+# predict about uniformly); the cut's loss and gradients, card against CPU,
+# within the tolerances the CPU tests hold the port to against the JAX
+# package (tests/test_torch_train.py); AdamW on the card from the CPU's
+# gradients within TRAIN_UPDATE_TOL of a step of the CPU's update; of the
+# parameters whose |g| is above TRAIN_UPDATE_MASK of their leaf's largest, at
+# most TRAIN_STEP_SHARE stepped over half a step apart from their own
+# gradients (those whose gradients differ in sign or sit near AdamW's eps)
+TRAIN_FIRST_LOSS_TOL = 2.0
+TRAIN_LOSS_TOL = 2e-3
+TRAIN_GRAD_REL_L2 = 3e-2
+TRAIN_UPDATE_MASK = 1e-3
+TRAIN_UPDATE_TOL = 1e-2
+TRAIN_STEP_SHARE = 1e-3
+# the drivers as a user runs them: the launcher's loss must descend by more
+# than TRAIN_DRIVER_DESCENT over its 30 steps (tests/test_launchers.py)
+TRAIN_DRIVER_DESCENT = 0.2
+TRAIN_DRIVERS = (
+    ["repro_torch.launch.train", "--arch", LM_ARCH, "--smoke", "--steps", "30", "--batch", "8",
+     "--seq", "64", "--lr", "5e-3", "--device", "cuda"],
+    ["repro_torch.launch.train", "--arch", LM_ARCH, "--smoke", "--steps", "30", "--batch", "8",
+     "--seq", "64", "--lr", "5e-3", "--device", "cuda", "--integer-allreduce"],
+    ["repro_torch.examples.train_lm", "--steps", "100", "--device", "cuda"],
+    ["repro_torch.examples.integer_allreduce_demo", "--device", "cuda"],
+)
+# each rank of step 12d runs this script's ``train_dp_rank`` in its own
+# process
+TRAIN_DP_PROGRAM = (
+    "import sys\n"
+    f"sys.path.insert(0, {str(ROOT)!r})\n"
+    "import chip_smoke\n"
+    "chip_smoke.train_dp_rank(*sys.argv[1:])\n")
 
 
 def fail(message: str, code: int = 1):
@@ -1736,16 +1810,13 @@ def lm_full_width(seed: int, dev, card: str) -> dict:
 def lm_cut_on_card_and_host(seed: int, dev) -> dict:
     """granite-3-2b's full widths cut to LM_CUT_LAYERS layers, the same
     weights on the card and on the host's CPU: the logits agree."""
-    import dataclasses
-
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data.tokens import pipeline_for
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import LMEngine
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CUT_LAYERS)
+    cfg = cut_config()
     params = tfm.init_params(cfg, seed, device=dev)
     batch = {k: torch.from_numpy(v) for k, v in pipeline_for(cfg, LM_BATCH, LM_PROMPT,
                                                                seed=seed).batch_at(0).items()
@@ -1885,6 +1956,435 @@ def drivers_and_lm_phase(seed: int, dev, card: str) -> dict:
                                  serve_lm_s=lm_s)}))
     if launches.get("leaf_major", 0) == 0 or launches.get("gather", 0) == 0:
         fail(f"the drivers launched K1 and K2 {launches}: one of them never ran")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the training phase: granite-3-2b trained at full width, its 2-layer cut on
+# card and CPU, checkpoints and restarts, integer data parallelism over gloo,
+# the training driver and examples
+# ---------------------------------------------------------------------------
+
+def bits(t) -> np.ndarray:
+    """A tensor's bytes as a flat uint8 array, for comparing bit for bit."""
+    return t.detach().cpu().contiguous().numpy().reshape(-1).view(np.uint8)
+
+
+def params_digest(params) -> str:
+    import hashlib
+
+    from repro_torch.train.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for p in tree_leaves(params):
+        h.update(bits(p).tobytes())
+    return h.hexdigest()
+
+
+def cut_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CUT_LAYERS)
+
+
+def train_full_width(seed: int, dev, card: str) -> dict:
+    """Step 12a: granite-3-2b at full width, drawn on the card from the
+    seed, takes TRAIN_STEPS steps of ``make_train_step``; the median step
+    time beside its bound and the peak memory."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step, n_microbatches
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init_params(cfg, seed, device=dev)
+    ostate = opt.init_opt_state(params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    step = make_train_step(cfg, opt.AdamWConfig())
+    pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    losses, gnorms, step_ms = [], [], []
+    for s in range(TRAIN_STEPS):
+        batch = pipe.batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, ostate, m = step(params, ostate, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ln_v = math.log(cfg.vocab_size)
+    if not all(math.isfinite(v) for v in losses + gnorms) or min(gnorms) <= 0:
+        fail(f"{LM_ARCH} training: losses {losses}, grad norms {gnorms}")
+    if abs(losses[0] - ln_v) > TRAIN_FIRST_LOSS_TOL:
+        fail(f"{LM_ARCH} training: first loss {losses[0]}, not within "
+             f"{TRAIN_FIRST_LOSS_TOL} of ln({cfg.vocab_size}) = {ln_v:.4f}")
+    if int(ostate["step"]) != TRAIN_STEPS:
+        fail(f"{LM_ARCH} training: the optimizer's step reads {int(ostate['step'])}")
+    # bounds: 6 N flops a token over the bf16 peak, or the optimizer's bytes
+    # (params, grads, m and v, float32, each read and written once)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop_ms = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+    byte_ms = 8 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (flop_ms, "flops") if flop_ms >= byte_ms else (byte_ms, "bytes")
+    out = dict(arch=LM_ARCH, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               microbatches=n_microbatches(TRAIN_BATCH, cfg.microbatches), losses=losses,
+               grad_norms=gnorms, step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+               bound_ms=bound_ms, bound_by=bound_by, flop_bound_ms=flop_ms,
+               byte_bound_ms=byte_ms, peak_gib=peak / 2**30)
+    print(f"{card} | train {LM_ARCH} full width ({n_params} parameters), {TRAIN_STEPS} steps "
+          f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {out['microbatches']} microbatches: "
+          f"losses {[round(v, 4) for v in losses]} (ln V = {ln_v:.4f}), grad norms "
+          f"{[round(v, 4) for v in gnorms]}; step {out['median_step_ms']:.1f} ms median "
+          f"(each {[round(v, 1) for v in step_ms]}), bound {bound_ms:.3f} ms by {bound_by} "
+          f"(6 N tokens over {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s: {flop_ms:.3f} ms; "
+          f"{8 * 4 * n_params} optimizer bytes over {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+          f"{byte_ms:.3f} ms); peak memory {out['peak_gib']:.3f} GiB; host clock")
+    return out
+
+
+def train_cut_on_card_and_host(seed: int, dev) -> tuple:
+    """Step 12b: the 2-layer cut, the same weights and batch, one step on
+    the card and on the host's CPU.  Returns (numbers, the card's params and
+    optimizer state after the step)."""
+    import torch
+
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import accumulate_grads, n_microbatches
+    from repro_torch.train.tree import (flatten_with_paths, path_key, tree_leaves, tree_map,
+                                        unflatten_like)
+
+    cfg = cut_config()
+    params = tfm.init_params(cfg, seed, device=dev)
+    batch = pipeline_for(cfg, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, seed=seed).batch_at(0)
+    n_micro = n_microbatches(TRAIN_CUT_BATCH, cfg.microbatches)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = tree_map(lambda a: a.detach().to(where, copy=True), params)
+        t0 = time.perf_counter()
+        loss, _ = accumulate_grads(cfg, p, {k: torch.from_numpy(v).to(where)
+                                            for k, v in batch.items()}, n_micro)
+        grads = {path_key(k): q.grad.detach().cpu().clone() for k, q in flatten_with_paths(p)}
+        ostate = opt.init_opt_state(p)
+        p, ostate, m = opt.adamw_update(opt.AdamWConfig(), tree_map(lambda q: q.grad, p),
+                                        ostate, p)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs.append(dict(loss=float(loss), grads=grads, params=p, opt=ostate,
+                         lr=float(m["lr"]), seconds=seconds))
+    card_run, cpu_run = runs
+    loss_err = abs(card_run["loss"] - cpu_run["loss"])
+    rel = {}
+    for key, want in cpu_run["grads"].items():
+        got = card_run["grads"][key].double()
+        want = want.double()
+        rel[key] = float((got - want).norm() / want.norm())
+    worst = max(rel, key=rel.get)
+    # AdamW's arithmetic: the card's update from the CPU's gradients equals
+    # the CPU's within TRAIN_UPDATE_TOL of a step, on every parameter
+    lr = cpu_run["lr"]
+    p_same = tree_map(lambda a: a.detach().to(dev, copy=True), params)
+    grads_same = unflatten_like(p_same, {k: g.to(dev) for k, g in cpu_run["grads"].items()})
+    opt.adamw_update(opt.AdamWConfig(), grads_same, opt.init_opt_state(p_same), p_same)
+    same_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(tree_leaves(p_same), tree_leaves(cpu_run["params"])))
+    del p_same, grads_same
+    # each device's own step: one AdamW step moves a parameter by about
+    # lr * g / (|g| + eps), so where the two gradients differ in sign, or sit
+    # near eps, the steps differ by up to 2 lr; counted where |g| is above
+    # TRAIN_UPDATE_MASK of its leaf's largest
+    card_params = {path_key(k): v for k, v in flatten_with_paths(card_run["params"])}
+    compared = moved = opposite = 0
+    for key, p_cpu in flatten_with_paths(cpu_run["params"]):
+        key = path_key(key)
+        g, g_card = cpu_run["grads"][key], card_run["grads"][key]
+        mask = g.abs() > TRAIN_UPDATE_MASK * g.abs().max()
+        diff = (card_params[key].detach().cpu() - p_cpu.detach()).abs()
+        compared += int(mask.sum())
+        moved += int((mask & (diff > lr / 2)).sum())
+        opposite += int((mask & (torch.sign(g_card) != torch.sign(g))).sum())
+    moved_share = moved / max(compared, 1)
+    out = dict(loss_card=card_run["loss"], loss_cpu=cpu_run["loss"], loss_abs_diff=loss_err,
+               grad_rel_l2=rel, worst_leaf=worst, lr=lr, same_grads_max_diff=same_diff,
+               compared=compared, moved=moved, moved_share=moved_share, opposite=opposite,
+               card_s=card_run["seconds"], cpu_s=cpu_run["seconds"])
+    print(f"train {LM_ARCH} cut to {LM_CUT_LAYERS} layers (full widths), one step of "
+          f"{TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ} tokens ({n_micro} microbatches) on the card and "
+          f"on the host's CPU from the same weights: loss {card_run['loss']:.6f} against "
+          f"{cpu_run['loss']:.6f} (|difference| {loss_err:.2e}, tolerance {TRAIN_LOSS_TOL}); "
+          f"gradient relative L2 difference worst {rel[worst]:.4e} ({worst}; tolerance "
+          f"{TRAIN_GRAD_REL_L2}); AdamW on the card from the CPU's gradients: max |difference| "
+          f"{same_diff:.3e} (tolerance {TRAIN_UPDATE_TOL} x lr {lr:.3e}); each device's own "
+          f"step where |g| > {TRAIN_UPDATE_MASK} of the leaf's max: {compared} compared, "
+          f"{moved} ({moved_share:.2e}; limit {TRAIN_STEP_SHARE}) apart by over half a step, "
+          f"{opposite} with gradients of opposite sign; {card_run['seconds']:.2f} s on the "
+          f"card, {cpu_run['seconds']:.2f} s on the CPU")
+    if loss_err > TRAIN_LOSS_TOL or rel[worst] > TRAIN_GRAD_REL_L2 or \
+            same_diff > TRAIN_UPDATE_TOL * lr or moved_share > TRAIN_STEP_SHARE:
+        fail(f"{LM_ARCH} cut: the card's training step differs from the CPU's: {out}")
+    return out, card_run["params"], card_run["opt"]
+
+
+def train_checkpoints(params, ostate, seed: int, dev) -> dict:
+    """Step 12c: an async save of the cut's training state and its restore
+    to the card, bit for bit; a ``RestartableLoop`` with a crash injected at
+    step TRAIN_LOOP_CRASH resumes from its checkpoint."""
+    import torch
+
+    from repro_torch.checkpoint.fault_tolerance import RestartableLoop, StepWatchdog
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = cut_config()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    state = {"params": params, "opt": ostate}
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    mgr = CheckpointManager(TRAIN_DIR / "save")
+    t0 = time.perf_counter()
+    mgr.save(1, state, blocking=False)
+    handed_s = time.perf_counter() - t0
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = mgr.restore(1, tree_map(lambda t: torch.empty(0), state), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(r.device.type == dev.type and r.dtype == t.dtype and
+               np.array_equal(bits(r), bits(t))
+               for r, t in zip(tree_leaves(restored), tree_leaves(state)))
+    if not same:
+        fail("the cut's training state restored from its checkpoint differs from what was saved")
+    del restored
+
+    train_step = make_train_step(cfg, opt.AdamWConfig())
+    pipe = pipeline_for(cfg, TRAIN_LOOP_BATCH, TRAIN_LOOP_SEQ, seed=seed)
+    crash = {"armed": True}
+
+    def step_fn(st, step):
+        if step == TRAIN_LOOP_CRASH and crash["armed"]:
+            crash["armed"] = False
+            raise RuntimeError("injected failure")
+        p, o, _ = train_step(st["params"], st["opt"], pipe.batch_at(step))
+        return {"params": p, "opt": o}
+
+    t0 = time.perf_counter()
+    loop = RestartableLoop(CheckpointManager(TRAIN_DIR / "loop"), ckpt_every=TRAIN_LOOP_EVERY)
+    state, info = loop.run(state, step_fn, TRAIN_LOOP_STEPS, watchdog=StepWatchdog())
+    loop_s = time.perf_counter() - t0
+    # the state came in after one step (12b), so the optimizer has taken
+    # one step more than the loop
+    if info != {"restarts": 1, "steps": TRAIN_LOOP_STEPS} or \
+            int(state["opt"]["step"]) != TRAIN_LOOP_STEPS + 1:
+        fail(f"the restartable loop ended with {info}, optimizer step "
+             f"{int(state['opt']['step'])}")
+    latest = loop.manager.latest_step()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out = dict(state_bytes=state_bytes, save_handed_s=handed_s, save_s=save_s,
+               restore_s=restore_s, loop=info, loop_s=loop_s, latest=latest)
+    print(f"train checkpoint of the cut's state ({state_bytes} bytes): async save handed "
+          f"back in {handed_s:.2f} s, written in {save_s:.2f} s, restored to the card in "
+          f"{restore_s:.2f} s, bit-identical; RestartableLoop of {TRAIN_LOOP_STEPS} steps of "
+          f"{TRAIN_LOOP_BATCH} x {TRAIN_LOOP_SEQ} tokens, checkpoint every {TRAIN_LOOP_EVERY}, "
+          f"crash injected at step {TRAIN_LOOP_CRASH}: {info}, latest checkpoint {latest}, "
+          f"{loop_s:.2f} s")
+    return out
+
+
+def psum_inputs(seed: int) -> np.ndarray:
+    """Step 12d's fixed random tensor of each rank, (ranks, TRAIN_PSUM_SIZE)
+    float32."""
+    return np.random.default_rng(seed + 12).normal(
+        size=(TRAIN_DP_RANKS, TRAIN_PSUM_SIZE)).astype(np.float32)
+
+
+def train_dp_rank(rank: str, store: str, seed: str, device: str = "cuda") -> None:
+    """One rank of step 12d, in its own process: TRAIN_DP_STEPS steps of
+    ``make_integer_dp_train_step`` on the cut over a gloo group with CUDA
+    tensors, then ``integer_psum`` of its row of ``psum_inputs`` on the card
+    and on the CPU; prints one ``DP_RANK`` JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.kernels import tree_traverse as tt
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.intreeger_allreduce import integer_psum, quantization_error_bound
+    from repro_torch.train.step import make_integer_dp_train_step
+
+    rank, seed = int(rank), int(seed)
+    dist.init_process_group("gloo", store=dist.FileStore(store, TRAIN_DP_RANKS), rank=rank,
+                            world_size=TRAIN_DP_RANKS)
+    try:
+        tt.reset_launches()
+        dev = torch.device(device)
+        cfg = cut_config()
+        params = tfm.init_params(cfg, seed, device=dev)
+        ostate = opt.init_opt_state(params)
+        step = make_integer_dp_train_step(cfg, opt_cfg=opt.AdamWConfig())
+        pipe = pipeline_for(cfg, TRAIN_DP_BATCH, TRAIN_DP_SEQ, seed=seed)
+        losses, digests, step_ms = [], [], []
+        for s in range(TRAIN_DP_STEPS):
+            t0 = time.perf_counter()
+            params, ostate, m = step(params, ostate, pipe.batch_at(s))
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            digests.append(params_digest(params))
+        xs = psum_inputs(seed)
+        on_card = integer_psum(torch.from_numpy(xs[rank]).to(dev)).cpu().numpy()
+        on_cpu = integer_psum(torch.from_numpy(xs[rank])).numpy()
+        exact = xs.astype(np.float64).sum(axis=0)
+        print("DP_RANK " + json.dumps(dict(
+            rank=rank, losses=losses, digests=digests, step_ms=step_ms,
+            psum_card_equals_cpu=bool(np.array_equal(on_card.view(np.uint32),
+                                                     on_cpu.view(np.uint32))),
+            psum_digest=params_digest({"x": torch.from_numpy(on_card)}),
+            psum_err=float(np.abs(on_card - exact).max()),
+            psum_bound=quantization_error_bound(TRAIN_DP_RANKS, float(np.abs(xs).max())),
+            launches=dict(tt.LAUNCHES))), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_dp_result(outs: list, single: list, card: str) -> tuple:
+    """Step 12d's checks on the ranks' lines, beside the single-process
+    losses of the same batches.  Returns (numbers, each rank's kernel
+    launches)."""
+    ranks = []
+    for out in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("DP_RANK ")]
+        if not lines:
+            fail(f"a rank of the integer data-parallel run printed no result:\n{out[-3000:]}")
+        ranks.append(json.loads(lines[-1].split(" ", 1)[1]))
+    first = ranks[0]
+    if any(r["digests"] != first["digests"] for r in ranks[1:]):
+        fail("the integer data-parallel ranks' parameters differ after a step: "
+             + str([r["digests"] for r in ranks]))
+    if not all(r["psum_card_equals_cpu"] for r in ranks) or \
+            len({r["psum_digest"] for r in ranks}) != 1:
+        fail("integer_psum on the card ranks differs from the same on the CPU, or across ranks")
+    if any(r["psum_err"] > r["psum_bound"] for r in ranks):
+        fail(f"integer_psum error {first['psum_err']} above the bound {first['psum_bound']}")
+    if not all(np.isfinite(r["losses"]).all() for r in ranks):
+        fail(f"integer data-parallel losses {first['losses']}")
+    out = dict(losses=first["losses"], single_process_losses=single,
+               step_ms=[r["step_ms"] for r in ranks], psum_err=first["psum_err"],
+               psum_bound=first["psum_bound"])
+    print(f"{card} | train integer data parallel on the cut: {TRAIN_DP_RANKS} processes on the "
+          f"card over gloo (CUDA tensors), {TRAIN_DP_STEPS} steps of {TRAIN_DP_BATCH} x "
+          f"{TRAIN_DP_SEQ} tokens: losses {[round(v, 6) for v in first['losses']]} beside "
+          f"{[round(v, 6) for v in single]} in one process (make_train_step); the ranks' "
+          f"parameters bit-identical after every step; step ms per rank {out['step_ms']}; "
+          f"integer_psum of {TRAIN_PSUM_SIZE} floats a rank: the card ranks' result equals "
+          f"the CPU ranks' bit for bit, max error {first['psum_err']:.3e} (bound "
+          f"{first['psum_bound']:.3e})")
+    return out, [r["launches"] for r in ranks]
+
+
+def train_single_process(seed: int, dev) -> list:
+    """The losses of TRAIN_DP_STEPS steps of ``make_train_step`` on step
+    12d's batches, in this process."""
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = cut_config()
+    params = tfm.init_params(cfg, seed, device=dev)
+    ostate = opt.init_opt_state(params)
+    step = make_train_step(cfg, opt.AdamWConfig())
+    pipe = pipeline_for(cfg, TRAIN_DP_BATCH, TRAIN_DP_SEQ, seed=seed)
+    losses = []
+    for s in range(TRAIN_DP_STEPS):
+        params, ostate, m = step(params, ostate, pipe.batch_at(s))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def train_drivers_result(outs: list, card: str) -> list:
+    """Step 12e's checks on the drivers' output; their launch counts."""
+    launches = []
+    for args, out in zip(TRAIN_DRIVERS, outs):
+        launches.append(driver_launches(out, args))
+        name = args[0].rsplit(".", 1)[1]
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith(("done:", "integer psum", "float32"))]
+        if name == "train":
+            done = [ln for ln in out.splitlines() if ln.startswith("done:")]
+            first, last = (float(v) for v in done[-1].split("loss ", 1)[1].split(";")[0]
+                           .split(" -> ")) if done else (0.0, 0.0)
+            if not done or not last < first - TRAIN_DRIVER_DESCENT:
+                fail(f"python -m {' '.join(args)}: the loss did not descend by "
+                     f"{TRAIN_DRIVER_DESCENT}:\n{out[-3000:]}")
+        elif name == "train_lm":
+            if "with 1 recovered crash(es)" not in out:
+                fail(f"python -m {' '.join(args)}:\n{out[-3000:]}")
+        elif "bit-identical True" not in out:
+            fail(f"python -m {' '.join(args)}:\n{out[-3000:]}")
+        print(f"{card} | python -m {' '.join(args)}: " + "; ".join(lines)
+              + f"; kernel launches {launches[-1]}")
+    return launches
+
+
+def train_phase(seed: int, dev, card: str) -> dict:
+    """Phase 12.  The full-width model trains first and alone (its memory
+    and times are the card's and this process's only), then the cut's card
+    and CPU step; then the drivers and the two data-parallel ranks run as
+    processes while this process checkpoints and restarts the cut and runs
+    the single-process comparison.  Returns the kernel launches of the
+    whole phase, which must all be 0: the training path runs no hand-written
+    kernel."""
+    import torch
+
+    from repro_torch.kernels import tree_traverse as tt
+
+    t_phase = time.perf_counter()
+    tt.reset_launches()
+    full = train_full_width(seed, dev, card)
+    torch.cuda.empty_cache()
+    cut, params, ostate = train_cut_on_card_and_host(seed, dev)
+
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    store = TRAIN_DIR / "dp_store"
+    store.unlink(missing_ok=True)
+    drivers = start_modules([list(a) for a in TRAIN_DRIVERS], wrapper=DRIVER_WRAPPER)
+    ranks = start_modules([[str(r), str(store), str(seed)] for r in range(TRAIN_DP_RANKS)],
+                          wrapper=TRAIN_DP_PROGRAM)
+    ckpt = train_checkpoints(params, ostate, seed, dev)
+    del params, ostate
+    torch.cuda.empty_cache()
+    single = train_single_process(seed, dev)
+    here = dict(tt.LAUNCHES)
+    dp, dp_launches = train_dp_result(finish_modules(ranks), single, card)
+    driver_counts = train_drivers_result(finish_modules(drivers), card)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    launches = dict(here)
+    for counts in (*dp_launches, *driver_counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    seconds = time.perf_counter() - t_phase
+    print(f"{card} | training phase: {seconds:.2f} s; kernel launches {launches}")
+    print(json.dumps({"train": dict(full=full, cut={k: v for k, v in cut.items()
+                                                    if k != "grad_rel_l2"},
+                                    checkpoint=ckpt, dp=dp, phase_s=seconds)}))
+    if any(launches.values()):
+        fail(f"the training path launched a hand-written kernel: {launches}")
     return launches
 
 
@@ -2193,10 +2693,14 @@ def main() -> None:
 
     # 11. the drivers (their launches counted in their processes) and the LM
     drivers = drivers_and_lm_phase(args.seed, dev, card)
+    torch.cuda.empty_cache()
+
+    # 12. training, with the launch counters read around it (all 0)
+    train = train_phase(args.seed, dev, card)
 
     paths = {"engine": launches, "gateway": gw_launches, "plan_gateway": plan_launches,
              **deploy, "host_c": host_c["mixed"], "host_c_gateway": host_c["gateway"],
-             "drivers": drivers}
+             "drivers": drivers, "train": train}
     kernels_out = [dict(rows_out[name], launches=sum(p.get(name, 0) for p in paths.values()),
                         launches_by_path={k: p.get(name, 0) for k, p in paths.items()})
                    for name in REPLACES]

@@ -14,6 +14,10 @@ it, nor JAX.  The serving path is
          K3 and the QuickScorer scorer K5 -> uint32 partials (merged)
       -> numpy finalize (core.ensemble.finalize_partials) -> (scores, preds)
 
+Beside it, the LM scaffold (``models``, ``serve.engine.LMEngine``) and its
+training half (``train``: AdamW, the fixed-point integer all-reduce, the
+train steps; ``checkpoint``; ``launch.train``) run as plain torch calls.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card they raise instead of carrying on on the CPU.
 """

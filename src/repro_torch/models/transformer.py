@@ -1,4 +1,4 @@
-"""Unified model definition for all assigned LM families: the serving half.
+"""Unified model definition for all assigned LM families.
 
 The PyTorch counterpart of the JAX package's ``models/transformer.py`` on
 one device.  One functional model covers dense / moe / ssm / hybrid / vlm /
@@ -11,7 +11,9 @@ audio:
   * vlm/audio prepend/replace inputs with stub frontend embeddings through a
     linear projector,
   * gemma3's local layers mask keys older than the sliding window; every
-    ``global_every``-th layer attends to all keys (window 0).
+    ``global_every``-th layer attends to all keys (window 0),
+  * the LM loss never materializes (B, S, V) logits: cross-entropy is
+    computed in sequence chunks, each recomputed in the backward pass.
 
 Params are plain nested dicts.  ``init_params`` draws them from a seeded
 ``torch.Generator`` on the device it is given; ``params_from_numpy`` takes
@@ -25,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
@@ -71,6 +75,15 @@ def tree_map(fn, tree, *rest):
 
 def _select(tree, idx: int):
     return tree_map(lambda a: a[idx], tree)
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` sets stacked on the leading axis of ``tree``'s leaves, as a
+    list of trees of views.  In the backward pass one unbind stacks every
+    set's gradient once; indexing a set at a time would build a zero-filled
+    gradient of the whole stack for each set."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -248,32 +261,58 @@ def embed_inputs(cfg: ModelConfig, params, batch):
     return tok, 0
 
 
-def backbone(cfg: ModelConfig, params, x):
-    """Run all blocks (no cache).  x: (B,S,D) -> (B,S,D), aux_loss."""
+def _checkpointed(fn, remat: bool):
+    """``fn``, or ``fn`` whose activations are recomputed in the backward
+    pass (``jax.checkpoint``'s counterpart) when ``remat``."""
+    if not remat:
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def backbone(cfg: ModelConfig, params, x, *, remat: bool = True):
+    """Run all blocks (no cache).  x: (B,S,D) -> (B,S,D), aux_loss.
+
+    With ``remat`` (training) each block keeps only its input for the
+    backward pass and recomputes the rest, as the reference's
+    ``jax.checkpoint`` per scanned block does.  The reference also fences
+    the scan carry with an XLA scheduling barrier (``_fence``, identity
+    derivative) so its compiler cannot hoist casts out of the loop; eager
+    PyTorch runs the blocks in order, so nothing stands in for it here.
+    """
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     causal = not cfg.encoder_only
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
+    if cfg.family in ("ssm", "hybrid"):
+        ssm_block = _checkpointed(lambda bp, x: _apply_ssm_block(cfg, bp, x), remat)
+
+    blocks = _unbind(params["blocks"], cfg.n_layers)
     if cfg.family == "ssm":
-        for l in range(cfg.n_layers):
-            x = _apply_ssm_block(cfg, _select(params["blocks"], l), x)
+        for bp in blocks:
+            x = ssm_block(bp, x)
         return x, zero
 
     if cfg.family == "hybrid":
         n_groups, every = _hybrid_groups(cfg)
+        shared_block = _checkpointed(
+            lambda sp, x: _apply_attn_block(cfg, sp, x, positions, 0)[0], remat)
+        shared = _unbind(params["shared"], cfg.hybrid_shared_sets)
         for g in range(n_groups):
             for j in range(every):
-                x = _apply_ssm_block(cfg, _select(params["blocks"], g * every + j), x)
-            sp = _select(params["shared"], g % cfg.hybrid_shared_sets)
-            x = _apply_attn_block(cfg, sp, x, positions, 0)[0]
+                x = ssm_block(blocks[g * every + j], x)
+            x = shared_block(shared[g % cfg.hybrid_shared_sets], x)
         return x, zero
 
     # dense / moe / vlm / audio: one block per layer with its window
+    def block(bp, x, w):
+        h, _, aux = _apply_attn_block(cfg, bp, x, positions, w, causal=causal)
+        return h, aux
+
+    block = _checkpointed(block, remat)
     auxs = []
     for l, w in enumerate(window_schedule(cfg)):
-        x, _, aux = _apply_attn_block(cfg, _select(params["blocks"], l), x, positions, w,
-                                      causal=causal)
+        x, aux = block(blocks[l], x, w)
         auxs.append(aux)
     return x, torch.stack(auxs).sum()
 
@@ -284,10 +323,52 @@ def head_weights(cfg: ModelConfig, params):
     return params["embed"].T
 
 
+def chunked_cross_entropy(cfg, params, x, labels, *, chunk: int = 512, label_offset: int = 0):
+    """Mean CE over positions without materializing (B, S, V) logits: the
+    sequence is cut into chunks (padded with label -1, which counts for
+    nothing), and each chunk's logits are recomputed in the backward pass."""
+    if label_offset:
+        x = x[:, label_offset:]
+    b, s, d = x.shape
+    w = head_weights(cfg, params).to(COMPUTE_DTYPE)
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    labels = labels.long()
+
+    def one(xi, li, w):
+        logits = (xi @ w).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(li, min=0)[..., None])[..., 0]
+        valid = li >= 0
+        return torch.where(valid, logz - gold, 0.0).sum(), valid.sum(dtype=torch.int32)
+
+    one = _checkpointed(one, True)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=x.device)
+    for start in range(0, x.shape[1], chunk):
+        loss, valid = one(x[:, start:start + chunk], labels[:, start:start + chunk], w)
+        tot, cnt = tot + loss, cnt + valid
+    return tot / torch.clamp(cnt, min=1)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
+    """(CE + ``aux_weight`` x the MoE load-balancing loss, {"ce", "aux"}) of
+    a batch of tensors: ``tokens`` (or ``frames``; ``patches`` for the vlm)
+    and ``labels`` (-1 where a position has no target)."""
+    x, label_offset = embed_inputs(cfg, params, batch)
+    x, aux = backbone(cfg, params, x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ce = chunked_cross_entropy(cfg, params, x, batch["labels"], label_offset=label_offset)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
 def forward_logits(cfg: ModelConfig, params, batch):
     """Full logits (B, S, V) float32 (smoke tests / small models only)."""
     x, _ = embed_inputs(cfg, params, batch)
-    x, _ = backbone(cfg, params, x)
+    x, _ = backbone(cfg, params, x, remat=False)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ head_weights(cfg, params).to(x.dtype)).float()
 

@@ -19,7 +19,10 @@ on two workers started on the card, whose span records count K1 and K5
 launched inside them; and host-C shards (``cuda|native_c_table``,
 ``bitvector|native_c_bitvector``) beside K1 and K5, with C backends on the
 CPU whatever device they are given; the LM smoke models' prefill and decode
-on the card against the CPU, and ``launch.serve --trees`` on the card.
+on the card against the CPU, and ``launch.serve --trees`` on the card;
+the LM smoke models' training step on the card against the CPU, and
+``integer_psum`` on two gloo ranks holding CUDA tensors against two CPU
+ranks.
 Marked
 ``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
@@ -29,7 +32,8 @@ on a machine with a card::
 
 This file imports no JAX, so it runs where only PyTorch is installed.  It
 takes K5's random clear sets from ``chip_smoke.random_span_tables``, the
-generator the smoke run uses.
+generator the smoke run uses, and its process-group ranks from
+``torch_dist_ranks``.
 """
 import asyncio
 import sys
@@ -823,3 +827,64 @@ def test_serve_driver_trees_on_the_card(card, capsys):
     rows = [line for line in out.splitlines() if "agree_with_float=" in line]
     assert rows and all("agree_with_float=1.000000" in line for line in rows)
     assert tt.LAUNCHES["leaf_major"] + tt.LAUNCHES["gather"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b"])
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    """One seeded ``SMOKE`` model's training step (2 microbatches) on the
+    card and on the CPU from the same weights: the loss within 2e-3, each
+    gradient leaf within a relative L2 difference of 3e-2 (the CPU tests'
+    tolerances against the JAX package), the optimizer's step counted on
+    the card, and no hand-written kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import accumulate_grads, make_train_step
+    from repro_torch.train.tree import flatten_with_paths, path_key, tree_map
+
+    cfg = dataclasses.replace(smoke_config(arch), microbatches=2)
+    params = tfm.init_params(cfg, 1, device="cpu")
+    batch = pipeline_for(cfg, 4, 40, seed=1).batch_at(0)
+    runs = {}
+    tt.reset_launches()
+    for dev in (torch.device("cpu"), card):
+        p = tree_map(lambda a: a.to(dev, copy=True), params)
+        loss, _ = accumulate_grads(cfg, p, {k: torch.from_numpy(v).to(dev)
+                                            for k, v in batch.items()}, 2)
+        runs[dev.type] = (loss.item(), {path_key(k): q.grad.cpu().double()
+                                        for k, q in flatten_with_paths(p)})
+        _, ostate, m = make_train_step(cfg, opt.AdamWConfig())(p, opt.init_opt_state(p), batch)
+        assert ostate["step"].device.type == dev.type and int(ostate["step"]) == 1
+        assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    torch.cuda.synchronize()
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) < 2e-3
+    for key, want in runs["cpu"][1].items():
+        got = runs["cuda"][1][key]
+        assert float((got - want).norm() / want.norm()) <= 3e-2, key
+    assert not any(tt.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_integer_psum_on_card_ranks_equals_cpu_ranks(card, tmp_path):
+    """``integer_psum`` on two gloo ranks holding CUDA tensors gives the
+    bits two CPU ranks give, within the reference's error bound."""
+    from repro_torch.train.intreeger_allreduce import quantization_error_bound
+    from torch_dist_ranks import psum_rank, run_ranks
+
+    data = np.random.default_rng(4).normal(scale=5.0, size=(2, 1 << 16)).astype(np.float32)
+    np.save(tmp_path / "data.npy", data)
+    sums = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        out.mkdir()
+        run_ranks(psum_rank, 2, str(tmp_path / "data.npy"), str(out), dev, [[0, 1], [1, 0]])
+        sums[dev] = np.stack([np.load(out / f"psum_{r}.npy") for r in range(2)])
+    assert sums["cuda"].view(np.uint32).tobytes() == sums["cpu"].view(np.uint32).tobytes()
+    assert all(np.array_equal(s.view(np.uint32), sums["cpu"][0, 0].view(np.uint32))
+               for s in sums["cpu"].reshape(-1, data.shape[1]))
+    err = np.abs(sums["cuda"][0, 0] - data.astype(np.float64).sum(axis=0)).max()
+    assert err <= quantization_error_bound(2, float(np.abs(data).max()))

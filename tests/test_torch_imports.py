@@ -57,13 +57,20 @@ DRIVERS_AND_LM_SLICE = [f"repro_torch.{m}" for m in (
     "models.ssm", "models.moe", "models.transformer",
 )]
 
+TRAIN_SLICE = [f"repro_torch.{m}" for m in (
+    "train", "train.tree", "train.optimizer", "train.compression",
+    "train.intreeger_allreduce", "train.step", "checkpoint", "checkpoint.manager",
+    "checkpoint.fault_tolerance", "launch.mesh", "launch.train", "examples.train_lm",
+    "examples.integer_allreduce_demo",
+)]
+
 
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT),
                            ",".join(GATEWAY_SLICE + QUICKSCORER_AND_PLANS_SLICE
                                     + DEPLOYMENT_SLICE + HOST_C_SLICE
-                                    + DRIVERS_AND_LM_SLICE)],
+                                    + DRIVERS_AND_LM_SLICE + TRAIN_SLICE)],
                           env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
