@@ -133,7 +133,28 @@ with one CUDA card.  It
      descend by over 0.2), the same with ``--integer-allreduce``, ``python
      -m repro_torch.examples.train_lm --steps 100`` and ``python -m
      repro_torch.examples.integer_allreduce_demo`` run as processes on the
-     card.
+     card; the full-width steps run under ``use_mesh(make_host_mesh())``,
+     their parameters placed by ``params_shardings``, as the reference
+     launcher runs, and ``launch.train`` runs under its host mesh too,
+ 13. runs the mesh branches (the kernels' launch counters set to 0 just
+     before and read just after, in this process and in every rank: the
+     mesh branches launch no hand-written kernel, and they must all read
+     0): the paper's ``tree_serve_step`` on serve_1m's 1,048,576 rows of
+     the full-width forest in 4 processes on the card as a (data 2, model
+     2) mesh over gloo, each rank's rows bit-identical to one process's
+     step and no collective inside the step, its device time per rank and
+     end to end; then two processes on the card: granite-3-2b at full width
+     as (data 1, model 2), the heads split over ``model``, its prefill and
+     16 decode steps against the same engine without a mesh, and its
+     2-layer cut at batch 1 as (data 2, model 1), the decode's KV sequence
+     split over ``data`` (flash decode); one olmoe-1b-7b block at full
+     width under expert parallelism over ``model`` against ``moe_block``
+     without a mesh, and its 2-layer cut's prefill; one train step of the
+     granite cut as (data 2, model 1) against the step in one process;
+     meanwhile, in this process, the granite cut's train step under a 1 x 1
+     NCCL mesh, bit for bit against the step without a mesh.  The
+     collectives the ranks staged through the host (CUDA tensors on gloo)
+     are printed.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -314,7 +335,14 @@ DRIVER_ROWS = ("integer", "integer-leafmajor", "integer-cuda", "integer-c-table"
 # and on the host's CPU, is checkpointed and restarted (TRAIN_LOOP_* steps,
 # a crash injected at TRAIN_LOOP_CRASH), and trains TRAIN_DP_STEPS steps in
 # TRAIN_DP_RANKS processes on the card with the integer all-reduce over gloo
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 3
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+# the full-width steps in order: the first under the host mesh (its warm-up),
+# then the same step without a mesh and under it, interleaved, so the two are
+# timed in one run on one card; then one step of each mode, untimed, with
+# its torch operations counted
+TRAIN_MODES = ("mesh",) + ("plain", "mesh", "mesh", "plain") * 2
+TRAIN_COUNTED = ("mesh", "plain")
+TRAIN_STEPS = len(TRAIN_MODES) + len(TRAIN_COUNTED)
 TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 4, 128
 TRAIN_LOOP_STEPS, TRAIN_LOOP_CRASH, TRAIN_LOOP_EVERY = 6, 3, 2
 TRAIN_LOOP_BATCH, TRAIN_LOOP_SEQ = 2, 64
@@ -354,6 +382,50 @@ TRAIN_DP_PROGRAM = (
     "import chip_smoke\n"
     "chip_smoke.train_dp_rank(*sys.argv[1:])\n")
 
+# the mesh phase: the paper's serving step on serve_1m's rows
+# (launch/shapes.py) over a (data 2, model 2) mesh of 4 processes on the
+# card over gloo, timed over MESH_TREE_REPS runs; 2 processes for
+# granite-3-2b at full width over (data 1, model 2), its cut at batch 1 over
+# (data 2, model 1), one olmoe-1b-7b block at full width on MESH_MOE_TOKENS
+# under expert parallelism (and its cut's prefill and MESH_MOE_DECODE
+# steps), and the cut's train step over (data 2, model 1).  Tolerances: the
+# logits within the reference's own bf16 tolerance for its smoke models
+# (LM_SMOKE_TOL) where the heads split (each head's arithmetic unchanged),
+# and within LM_HOST_TOL where the decode's softmax is combined from
+# sequence shards (another order of float32 sums, as the card against the
+# host's CPU is); the MoE block within 4 bf16 ulps of its largest output
+# (the port sums a token's expert rows in float32 and rounds once, the
+# sum over ranks adds them in another order); the train step's loss within
+# the reference's 5e-2 (tests/test_distributed.py).  The train step runs
+# with MESH_TRAIN_OPT, whose first step moves each parameter by g / (|g| + 1)
+# of its clipped gradient g (the default AdamW's first step, about
+# lr * sign(g), hides the gradient's scale): the sharded step's update to
+# every leaf within MESH_TRAIN_UPDATE_TOL (relative L2) of one process's, and
+# its global gradient norm within MESH_TRAIN_NORM_TOL (relative), as
+# tests/test_torch_mesh.py holds it on the CPU, where a step that drops rows,
+# skips the gradients' mean or takes it over the wrong axis misses both
+MESH_TREE_ROWS = 1 << 20
+MESH_TREE_SHAPE = (2, 2)
+MESH_TREE_REPS = 5
+MESH_TABLES = ("feature", "threshold_key", "left", "right", "leaf_fixed")
+MESH_LM_RANKS = 2
+MESH_MOE_ARCH = "olmoe-1b-7b"
+MESH_MOE_TOKENS = (4, 128)
+MESH_MOE_DECODE = 4
+MESH_REPS = 5
+MESH_LOGITS_TOL = LM_SMOKE_TOL
+MESH_SEQ_TOL = LM_HOST_TOL
+MESH_MOE_REL_TOL = 2.0 ** -6
+MESH_TRAIN_TOL = 5e-2
+MESH_TRAIN_OPT = dict(lr=1.0, eps=1.0, weight_decay=0.0, warmup_steps=1)
+MESH_TRAIN_UPDATE_TOL = 2e-2
+MESH_TRAIN_NORM_TOL = 1e-3
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_PROGRAM = (
+    "import sys\n"
+    f"sys.path.insert(0, {str(ROOT)!r})\n"
+    "import chip_smoke\n"
+    "chip_smoke.mesh_rank(*sys.argv[1:])\n")
 
 def fail(message: str, code: int = 1):
     print(f"chip_smoke: FAIL: {message}", file=sys.stderr)
@@ -1991,36 +2063,62 @@ def cut_config():
 
 def train_full_width(seed: int, dev, card: str) -> dict:
     """Step 12a: granite-3-2b at full width, drawn on the card from the
-    seed, takes TRAIN_STEPS steps of ``make_train_step``; the median step
-    time beside its bound and the peak memory."""
+    seed, takes TRAIN_STEPS steps of ``make_train_step``, each under the host
+    mesh or without a mesh as TRAIN_MODES and TRAIN_COUNTED say (step 13a's
+    first half): the two modes' median step times beside the bound, the
+    torch operations a step of each mode dispatches, and the peak memory."""
     import math
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import use_mesh
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step, n_microbatches
-    from repro_torch.train.tree import tree_leaves
+    from repro_torch.train.tree import tree_leaves, tree_map
 
     cfg = get_config(LM_ARCH)
     torch.cuda.reset_peak_memory_stats(dev)
-    params = tfm.init_params(cfg, seed, device=dev)
-    ostate = opt.init_opt_state(params)
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    step = make_train_step(cfg, opt.AdamWConfig())
-    pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
-    losses, gnorms, step_ms = [], [], []
-    for s in range(TRAIN_STEPS):
-        batch = pipe.batch_at(s)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, ostate, m = step(params, ostate, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
+    # as the reference launcher runs: under the host mesh (1 x 1, an NCCL
+    # group of this process alone), the parameters placed by the rules; a
+    # "plain" step runs without a mesh on the same storage, the DTensors'
+    # local tensors, as the launcher ran before it had a mesh
+    with make_host_mesh(device=dev) as mesh:
+        params = tfm.init_params(cfg, seed, device=dev)
+        params = rules.place(params, rules.params_shardings(params, mesh))
+        ostate = opt.init_opt_state(params)
+        with torch.no_grad():
+            plain = tree_map(lambda t: t.to_local(), params)
+            plain_moments = {k: tree_map(lambda t: t.to_local(), ostate[k]) for k in ("m", "v")}
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        step = make_train_step(cfg, opt.AdamWConfig())
+        pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+        losses, gnorms, step_ms, ops = [], [], [], {}
+
+        def run(mode, s):
+            nonlocal ostate
+            batch = pipe.batch_at(s)
+            if mode == "mesh":
+                with use_mesh(mesh):
+                    _, ostate, m = step(params, ostate, batch)
+            else:
+                _, o, m = step(plain, {**plain_moments, "step": ostate["step"]}, batch)
+                ostate = {**ostate, "step": o["step"]}
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+
+        for s, mode in enumerate(TRAIN_MODES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(mode, s)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        for s, mode in enumerate(TRAIN_COUNTED, len(TRAIN_MODES)):
+            ops[mode] = count_ops(lambda: run(mode, s))
     peak = torch.cuda.max_memory_allocated(dev)
     ln_v = math.log(cfg.vocab_size)
     if not all(math.isfinite(v) for v in losses + gnorms) or min(gnorms) <= 0:
@@ -2036,20 +2134,46 @@ def train_full_width(seed: int, dev, card: str) -> dict:
     flop_ms = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
     byte_ms = 8 * 4 * n_params / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = (flop_ms, "flops") if flop_ms >= byte_ms else (byte_ms, "bytes")
+    # the modes' medians leave out the first step (the warm-up)
+    by_mode = {mode: statistics.median(t for t, m in zip(step_ms[1:], TRAIN_MODES[1:])
+                                       if m == mode) for mode in ("mesh", "plain")}
     out = dict(arch=LM_ARCH, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                microbatches=n_microbatches(TRAIN_BATCH, cfg.microbatches), losses=losses,
-               grad_norms=gnorms, step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+               grad_norms=gnorms, modes=list(TRAIN_MODES), step_ms=step_ms,
+               median_step_ms=by_mode["mesh"], plain_median_step_ms=by_mode["plain"],
+               ops_a_step=ops,
                bound_ms=bound_ms, bound_by=bound_by, flop_bound_ms=flop_ms,
                byte_bound_ms=byte_ms, peak_gib=peak / 2**30)
     print(f"{card} | train {LM_ARCH} full width ({n_params} parameters), {TRAIN_STEPS} steps "
           f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {out['microbatches']} microbatches: "
           f"losses {[round(v, 4) for v in losses]} (ln V = {ln_v:.4f}), grad norms "
-          f"{[round(v, 4) for v in gnorms]}; step {out['median_step_ms']:.1f} ms median "
-          f"(each {[round(v, 1) for v in step_ms]}), bound {bound_ms:.3f} ms by {bound_by} "
+          f"{[round(v, 4) for v in gnorms]}; step under the 1 x 1 mesh "
+          f"{out['median_step_ms']:.1f} ms median, without a mesh "
+          f"{out['plain_median_step_ms']:.1f} (after the first; each "
+          f"{[(m, round(v, 1)) for m, v in zip(TRAIN_MODES, step_ms)]}); torch operations a "
+          f"step {ops}; bound "
+          f"{bound_ms:.3f} ms by {bound_by} "
           f"(6 N tokens over {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s: {flop_ms:.3f} ms; "
           f"{8 * 4 * n_params} optimizer bytes over {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
           f"{byte_ms:.3f} ms); peak memory {out['peak_gib']:.3f} GiB; host clock")
     return out
+
+
+def count_ops(fn) -> int:
+    """The torch operations ``fn()`` dispatches (forward and backward),
+    counted by a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
 
 
 def train_cut_on_card_and_host(seed: int, dev) -> tuple:
@@ -2388,6 +2512,457 @@ def train_phase(seed: int, dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: the sharding slice's mesh branches on the card
+# ---------------------------------------------------------------------------
+
+def mesh_tree_keys(seed: int, n_features: int, dev):
+    """Step 13b's rows: MESH_TREE_ROWS x ``n_features`` normal(0, 1) floats
+    drawn on the card from the seed (the same bits in every process on the
+    card), as FlInt keys."""
+    import torch
+
+    from repro_torch.core.flint import float_to_key
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    return float_to_key(torch.randn((MESH_TREE_ROWS, n_features), generator=gen, device=dev))
+
+
+def mesh_rank(role: str, rank: str, world: str, store: str, seed: str, out_dir: str,
+              device: str = "cuda") -> None:
+    """One rank of step 13b (``role`` "tree") or of steps 13c to 13e ("lm"),
+    in its own process of a gloo group of ``world`` processes with CUDA
+    tensors; prints one ``MESH_RANK`` JSON line with its numbers, its
+    kernel launches and its host-staged collectives."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import tree_traverse as tt
+    from repro_torch.sharding.ops import STAGED
+
+    rank, world, seed = int(rank), int(world), int(seed)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        tt.reset_launches()
+        run = mesh_tree_rank if role == "tree" else mesh_lm_rank
+        out = run(rank, seed, Path(out_dir), torch.device(device))
+        print("MESH_RANK " + json.dumps(dict(out, role=role, rank=rank,
+                                             launches=dict(tt.LAUNCHES),
+                                             staged=dict(STAGED))), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_tree_rank(rank: int, seed: int, out_dir: Path, dev) -> dict:
+    """Step 13b in one rank: ``tree_serve_step`` under the (data 2, model
+    2) mesh on the full rows; its rows' scores and predictions saved for the
+    main process; the collectives inside the step counted; the step's
+    device time on this rank and its time end to end (from a barrier until
+    every rank is done)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.core.serving import tree_serve_step
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.sharding.ops import use_mesh
+
+    mesh = compat_make_mesh(MESH_TREE_SHAPE, ("data", "model"), device=dev)
+    t = np.load(out_dir / "tables.npz")
+    tables = {k: torch.from_numpy(t[k]).to(dev) for k in MESH_TABLES}
+    depth = int(t["depth"])
+    keys = mesh_tree_keys(seed, int(t["n_features"]), dev)
+    step = lambda: tree_serve_step(tables, keys, depth, device=dev)
+    with use_mesh(mesh):
+        step()
+        torch.cuda.synchronize()
+        with CommDebugMode() as cm:
+            acc, preds = step()
+            torch.cuda.synchronize()
+        rank_ms = cuda_ms(step, MESH_TREE_REPS)
+        e2e = []
+        for _ in range(MESH_TREE_REPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            dist.barrier()
+            e2e.append((time.perf_counter() - t0) * 1e3)
+    acc, preds = acc.to_local(), preds.to_local()
+    np.save(out_dir / f"acc_{rank}.npy", acc.view(torch.int32).cpu().numpy())
+    np.save(out_dir / f"preds_{rank}.npy", preds.cpu().numpy())
+    return dict(coords=[mesh.axis_index(a) for a in mesh.axis_names], rows=acc.shape[0],
+                comms=cm.get_total_counts(), rank_ms=rank_ms, e2e_ms=statistics.median(e2e))
+
+
+def mesh_logits_run(engine, batch: dict, mesh, n_tokens: int) -> dict:
+    """A prefill and ``n_tokens`` greedy decode steps without a mesh (after
+    one warm-up run), then the same prefill and steps under ``mesh`` fed the
+    same tokens: the
+    largest |logits difference| over the prefill and every step, the
+    argmax agreement, the collectives of the prefill and of one step under
+    the mesh, and both runs' host-clock times."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.sharding.ops import use_mesh
+
+    def run(feed):
+        out, times = [], []
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        out.append(logits)
+        for i in range(n_tokens):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None] if feed is None \
+                else feed[i]
+            t0 = time.perf_counter()
+            logits, cache = engine.decode(cache, nxt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            out.append(logits)
+        return out, times
+
+    run(None)  # warm-up: the first call pays for the allocator and cuBLAS handles
+    ref, ref_times = run(None)
+    feed = [torch.argmax(lg, dim=-1).to(torch.int32)[:, None] for lg in ref[:-1]]
+    with use_mesh(mesh):
+        with CommDebugMode() as cm:
+            _, cache = engine.prefill(batch)
+        prefill_comms = cm.get_total_counts()
+        with CommDebugMode() as cm:
+            engine.decode(cache, feed[0])
+        decode_comms = cm.get_total_counts()
+        del cache
+        got, times = run(feed)
+    errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)]
+    agree = float(np.mean([torch.equal(g.argmax(-1), r.argmax(-1)) for g, r in zip(got, ref)]))
+    return dict(max_err=max(errs), errs=errs, argmax_agree=agree, prefill_comms=prefill_comms,
+                decode_comms=decode_comms, prefill_ms=times[0] * 1e3,
+                decode_ms=statistics.median(times[1:]) * 1e3, ref_prefill_ms=ref_times[0] * 1e3,
+                ref_decode_ms=statistics.median(ref_times[1:]) * 1e3)
+
+
+def mesh_lm_rank(rank: int, seed: int, out_dir: Path, dev) -> dict:
+    """Steps 13c to 13e in one of two ranks: granite-3-2b at full width over
+    (data 1, model 2) against the same engine without a mesh; its 2-layer
+    cut at batch 1 over (data 2, model 1), the decode sequence-sharded; one
+    olmoe-1b-7b block at full width under expert parallelism over model 2
+    against ``moe_block`` without a mesh, and the olmoe 2-layer cut's
+    prefill; one train step of the granite cut over (data 2, model 1)
+    against the step without a mesh."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import Init
+    from repro_torch.models.moe import moe_block, moe_params
+    from repro_torch.serve.engine import LMEngine
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import gather, use_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import flatten_with_paths, path_key, tree_leaves
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    tp = compat_make_mesh((1, MESH_LM_RANKS), ("data", "model"), device=dev)
+    dp = compat_make_mesh((MESH_LM_RANKS, 1), ("data", "model"), device=dev)
+    out = {}
+    t_step = time.perf_counter()
+
+    # 13c: granite-3-2b at full width, heads over model; its cut's decode
+    # at batch 1 with the cache's sequence over data
+    cfg = get_config(LM_ARCH)
+    batch = {k: v for k, v in pipeline_for(cfg, LM_BATCH, LM_PROMPT, seed=seed)
+             .batch_at(0).items() if k != "labels"}
+    engine = LMEngine(cfg, tfm.init_params(cfg, seed, device=dev),
+                      max_seq=LM_PROMPT + LM_TOKENS, device=dev)
+    out["granite"] = mesh_logits_run(engine, batch, tp, LM_TOKENS)
+    del engine
+    torch.cuda.empty_cache()
+    cut = cut_config()
+    engine = LMEngine(cut, tfm.init_params(cut, seed, device=dev),
+                      max_seq=LM_PROMPT + LM_TOKENS, device=dev)
+    out["granite_cut_batch1"] = mesh_logits_run(engine, {"tokens": batch["tokens"][:1]}, dp,
+                                                LM_TOKENS)
+    del engine
+    out["granite_s"] = time.perf_counter() - t_step
+
+    # 13d: one olmoe-1b-7b block at full width, experts over model, and
+    # its 2-layer cut's prefill
+    t_step = time.perf_counter()
+    moe_cfg = dataclasses.replace(get_config(MESH_MOE_ARCH), n_layers=LM_CUT_LAYERS)
+    init = Init(torch.Generator(device=dev).manual_seed(seed + 7), dev)
+    params = tfm.cast_matmul_weights(moe_params(init, moe_cfg.d_model, moe_cfg.n_experts,
+                                                moe_cfg.d_ff))
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    x = torch.randn(MESH_MOE_TOKENS + (moe_cfg.d_model,), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kw = dict(n_experts=moe_cfg.n_experts, k=moe_cfg.experts_per_token, act=moe_cfg.act,
+              capacity_factor=moe_cfg.moe_capacity_factor)
+    with torch.inference_mode():
+        y_ref, aux_ref = moe_block(params, x, **kw)
+        ref_ms = cuda_ms(lambda: moe_block(params, x, **kw), MESH_REPS)
+        with use_mesh(tp):
+            with CommDebugMode() as cm:
+                y, aux = moe_block(params, x, **kw)
+            mesh_ms = cuda_ms(lambda: moe_block(params, x, **kw), MESH_REPS)
+    out["moe"] = dict(max_err=float((y.float() - y_ref.float()).abs().max()),
+                      max_abs=float(y_ref.float().abs().max()),
+                      aux_err=float((aux - aux_ref).abs()), comms=cm.get_total_counts(),
+                      ms=mesh_ms, ref_ms=ref_ms, tokens=list(MESH_MOE_TOKENS))
+    del params, x, y, y_ref
+    engine = LMEngine(moe_cfg, tfm.init_params(moe_cfg, seed, device=dev),
+                      max_seq=LM_PROMPT + MESH_MOE_DECODE, device=dev)
+    out["moe_cut"] = mesh_logits_run(
+        engine, {"tokens": batch["tokens"] % moe_cfg.vocab_size}, tp, MESH_MOE_DECODE)
+    del engine
+    torch.cuda.empty_cache()
+    out["moe_s"] = time.perf_counter() - t_step
+
+    # 13e: one train step of the granite cut, the batch over data, with
+    # MESH_TRAIN_OPT, whose first step shows the gradients in the parameters
+    t_step = time.perf_counter()
+    tbatch = pipeline_for(cut, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, seed=seed).batch_at(0)
+    step = make_train_step(cut, opt.AdamWConfig(**MESH_TRAIN_OPT))
+    before = tfm.init_params(cut, seed, device=dev)
+    single = tfm.init_params(cut, seed, device=dev)
+    _, _, m1 = step(single, opt.init_opt_state(single), tbatch)
+    placed = tfm.init_params(cut, seed, device=dev)
+    placed = rules.place(placed, rules.params_shardings(placed, dp))
+    ostate = opt.init_opt_state(placed)
+    local_bytes = sum(p.to_local().numel() * 4 for p in tree_leaves(placed))
+    with use_mesh(dp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed, ostate, m2 = step(placed, ostate, tbatch)
+        torch.cuda.synchronize()
+        mesh_step_ms = (time.perf_counter() - t0) * 1e3
+    # each leaf's update against one process's, relative L2
+    gaps = {}
+    for (path, p), q, p0 in zip(flatten_with_paths(placed), tree_leaves(single),
+                                tree_leaves(before)):
+        want = q.detach().double()
+        gaps[path_key(path)] = float((gather(p).detach().double() - want).norm()
+                                     / (want - p0.double()).norm())
+    worst = max(gaps, key=gaps.get)
+    del before
+    gn, single_gn = float(m2["grad_norm"]), float(m1["grad_norm"])
+    out["train"] = dict(loss=float(m2["loss"]), single_loss=float(m1["loss"]),
+                        step=int(ostate["step"]), step_ms=mesh_step_ms,
+                        update_gap=gaps[worst], worst_leaf=worst, grad_norm=gn,
+                        single_grad_norm=single_gn, norm_gap=abs(gn - single_gn) / single_gn,
+                        lr=float(m2["lr"]),
+                        local_param_bytes=local_bytes,
+                        param_bytes=sum(p.numel() * 4 for p in tree_leaves(single)))
+    out["train_s"] = time.perf_counter() - t_step
+    return out
+
+
+def mesh_one_card(seed: int, dev, card: str) -> dict:
+    """Step 13a: one train step of the granite cut under a (1, 1) mesh on
+    the card (an NCCL group of this process alone), its parameters placed
+    by ``params_shardings``, against the same step without a mesh: the loss
+    and every parameter bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import gather, use_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import tree_map
+
+    cfg = cut_config()
+    batch = pipeline_for(cfg, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, seed=seed).batch_at(0)
+    step = make_train_step(cfg, opt.AdamWConfig())
+    plain = tfm.init_params(cfg, seed, device=dev)
+    plain, _, m1 = step(plain, opt.init_opt_state(plain), batch)
+    want = (bits(m1["loss"]).tobytes(), params_digest(plain))
+    del plain
+    with make_host_mesh(device=dev) as mesh, use_mesh(mesh):
+        backend = dist.get_backend()
+        placed = tfm.init_params(cfg, seed, device=dev)
+        placed = rules.place(placed, rules.params_shardings(placed, mesh))
+        placed, _, m2 = step(placed, opt.init_opt_state(placed), batch)
+        got = (bits(m2["loss"]).tobytes(), params_digest(tree_map(gather, placed)))
+    del placed
+    torch.cuda.empty_cache()
+    if got != want:
+        fail(f"the cut's train step under the 1 x 1 mesh differs from the step without a "
+             f"mesh: loss {float(m2['loss'])!r} against {float(m1['loss'])!r}, parameters "
+             f"{got[1][:16]} against {want[1][:16]}")
+    print(f"{card} | mesh 13a: {LM_ARCH} cut to {LM_CUT_LAYERS} layers, one train step of "
+          f"{TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ} tokens under a 1 x 1 mesh ({backend} group of "
+          f"this process alone, parameters placed by params_shardings): loss "
+          f"{float(m2['loss']):.6f} and every parameter bit-identical to the step without a "
+          f"mesh")
+    return dict(loss=float(m2["loss"]), backend=backend, bit_identical=True)
+
+
+def mesh_tree_check(outs: list, ref: tuple, ref_ms: float, card: str) -> dict:
+    """Step 13b's checks on the tree ranks' lines and files against the
+    one-process step's result."""
+    acc_ref, preds_ref = (t.cpu().numpy() for t in ref)
+    acc_ref = acc_ref.view(np.int32)
+    ranks = mesh_rank_lines(outs, "tree")
+    per = MESH_TREE_ROWS // len(ranks)
+    for r in ranks:
+        i = r["rank"]
+        acc = np.load(MESH_DIR / f"acc_{i}.npy")
+        preds = np.load(MESH_DIR / f"preds_{i}.npy")
+        lo, hi = i * per, (i + 1) * per
+        if r["rows"] != per or not np.array_equal(acc, acc_ref[lo:hi]) or \
+                not np.array_equal(preds, preds_ref[lo:hi]):
+            fail(f"tree_serve_step on the mesh: rank {i} (coordinates {r['coords']}) differs "
+                 f"from the one-process step on rows [{lo}, {hi})")
+        if r["comms"]:
+            fail(f"tree_serve_step on the mesh ran {r['comms']} collectives on rank {i}")
+    out = dict(rows=MESH_TREE_ROWS, mesh=list(MESH_TREE_SHAPE),
+               rank_ms=[r["rank_ms"] for r in ranks], e2e_ms=max(r["e2e_ms"] for r in ranks),
+               one_process_ms=ref_ms, comms=[r["comms"] for r in ranks])
+    print(f"{card} | mesh 13b: tree_serve_step of the full-width forest on {MESH_TREE_ROWS} "
+          f"rows ({MESH_TREE_ROWS * N_FEATURES * 4} bytes of keys), {len(ranks)} processes on "
+          f"the card as (data {MESH_TREE_SHAPE[0]}, model {MESH_TREE_SHAPE[1]}) over gloo: "
+          f"every rank's {per} rows bit-identical to the "
+          f"one-process step, collectives inside the step {out['comms']}; device ms per rank "
+          f"{[round(v, 3) for v in out['rank_ms']]} (median of {MESH_TREE_REPS}), end to end "
+          f"{out['e2e_ms']:.3f} ms (barrier to barrier, host clock); one process on all rows "
+          f"{ref_ms:.3f} ms (device)")
+    return out
+
+
+def mesh_rank_lines(outs: list, role: str) -> list:
+    ranks = []
+    for out in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("MESH_RANK ")]
+        if not lines:
+            fail(f"a {role} rank of the mesh phase printed no result:\n{out[-3000:]}")
+        ranks.append(json.loads(lines[-1].split(" ", 1)[1]))
+    return sorted(ranks, key=lambda r: r["rank"])
+
+
+def mesh_lm_check(outs: list, card: str) -> dict:
+    """Steps 13c to 13e's checks on the two LM ranks' lines."""
+    ranks = mesh_rank_lines(outs, "lm")
+    r = ranks[0]
+    for name, tol in (("granite", MESH_LOGITS_TOL), ("granite_cut_batch1", MESH_SEQ_TOL),
+                      ("moe_cut", MESH_LOGITS_TOL)):
+        for rk in ranks:
+            run = rk[name]
+            if not run["max_err"] <= tol or run["decode_comms"] == 0 and name != "moe_cut" \
+                    or run["prefill_comms"] == 0 and name != "granite_cut_batch1":
+                fail(f"mesh {name} on rank {rk['rank']}: {run} (logits tolerance {tol})")
+    moe = [rk["moe"] for rk in ranks]
+    if any(not m["max_err"] <= MESH_MOE_REL_TOL * m["max_abs"] or m["aux_err"] > 1e-4
+           or m["comms"] == 0 for m in moe):
+        fail(f"olmoe block under expert parallelism: {moe} (tolerance {MESH_MOE_REL_TOL} of "
+             "the largest |output|)")
+    tr = [rk["train"] for rk in ranks]
+    if any(abs(t["loss"] - t["single_loss"]) > MESH_TRAIN_TOL or t["step"] != 1
+           or not t["update_gap"] <= MESH_TRAIN_UPDATE_TOL
+           or not t["norm_gap"] <= MESH_TRAIN_NORM_TOL for t in tr):
+        fail(f"the sharded train step: {tr} (loss tolerance {MESH_TRAIN_TOL}, update "
+             f"{MESH_TRAIN_UPDATE_TOL}, gradient norm {MESH_TRAIN_NORM_TOL})")
+    g, c, m, mc, t = r["granite"], r["granite_cut_batch1"], r["moe"], r["moe_cut"], r["train"]
+    print(f"{card} | mesh 13c: {LM_ARCH} at full width, 2 processes on the card as (data 1, "
+          f"model 2) over gloo, batch {LM_BATCH} x prompt {LM_PROMPT} then {LM_TOKENS} greedy "
+          f"tokens fed alike: logits max |mesh - no mesh| {g['max_err']:.4g} (tolerance "
+          f"{MESH_LOGITS_TOL}), argmax agreement {g['argmax_agree']:.3f}, collectives "
+          f"{g['prefill_comms']} in the prefill and {g['decode_comms']} in a decode step; "
+          f"prefill {g['prefill_ms']:.1f} ms against {g['ref_prefill_ms']:.1f} without the mesh, "
+          f"decode {g['decode_ms']:.1f} ms a token against {g['ref_decode_ms']:.1f} (host clock, "
+          f"rank 0)")
+    print(f"{card} | mesh 13c: {LM_ARCH} cut to {LM_CUT_LAYERS} layers at batch 1 as (data 2, "
+          f"model 1), the decode's cache sequence over data (flash decode, pmax + psum): "
+          f"logits max |mesh - no mesh| {c['max_err']:.4g} (tolerance {MESH_SEQ_TOL}), "
+          f"collectives in a decode step "
+          f"{c['decode_comms']}; decode {c['decode_ms']:.1f} ms a token against "
+          f"{c['ref_decode_ms']:.1f}")
+    print(f"{card} | mesh 13d: {MESH_MOE_ARCH} block at full width ({MESH_MOE_TOKENS[0]} x "
+          f"{MESH_MOE_TOKENS[1]} tokens, capacity factor from its config) under expert "
+          f"parallelism over model 2: max |mesh - no mesh| {m['max_err']:.4g} of outputs up to "
+          f"{m['max_abs']:.4g} (tolerance {MESH_MOE_REL_TOL} of that), aux {m['aux_err']:.2e} "
+          f"apart, {m['comms']} collectives; {m['ms']:.3f} ms against {m['ref_ms']:.3f} ms "
+          f"(device); its {LM_CUT_LAYERS}-layer cut's prefill and {MESH_MOE_DECODE} decode "
+          f"steps: logits max |difference| {mc['max_err']:.4g}")
+    print(f"{card} | mesh 13e: {LM_ARCH} cut, one train step of {TRAIN_CUT_BATCH} x "
+          f"{TRAIN_CUT_SEQ} tokens as (data 2, model 1): loss {t['loss']:.6f} against "
+          f"{t['single_loss']:.6f} in one process (tolerance {MESH_TRAIN_TOL}); with AdamW "
+          f"{MESH_TRAIN_OPT}: the update to every leaf within {t['update_gap']:.3e} (relative "
+          f"L2, worst {t['worst_leaf']}; tolerance {MESH_TRAIN_UPDATE_TOL}) of the one-process "
+          f"step's, gradient norm {t['grad_norm']:.6f} against {t['single_grad_norm']:.6f} "
+          f"({t['norm_gap']:.2e} apart; tolerance {MESH_TRAIN_NORM_TOL}); "
+          f"{t['local_param_bytes']} of {t['param_bytes']} parameter bytes on each rank; step "
+          f"{t['step_ms']:.1f} ms (host clock)")
+    print(f"{card} | mesh ranks' seconds: granite {[rk['granite_s'] for rk in ranks]}, olmoe "
+          f"{[rk['moe_s'] for rk in ranks]}, train {[rk['train_s'] for rk in ranks]}; "
+          f"collectives staged through the host {[rk['staged'] for rk in ranks]}")
+    return dict(granite=g, granite_cut_batch1=c, moe=m, moe_cut=mc, train=t,
+                staged=[rk["staged"] for rk in ranks])
+
+
+def mesh_phase(ir, seed: int, dev, card: str) -> dict:
+    """Phase 13.  The tree ranks run first (this process computes the
+    one-process step meanwhile), then the two LM ranks while this process
+    runs step 13a.  Returns the kernel launches of the whole phase, which
+    must all be 0: the mesh branches run no hand-written kernel."""
+    import torch
+
+    from repro_torch.core.serving import tree_serve_step
+    from repro_torch.kernels import tree_traverse as tt
+
+    t_phase = time.perf_counter()
+    tt.reset_launches()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    lm = ir.materialize("leaf_major")
+    np.savez(MESH_DIR / "tables.npz", depth=lm.max_depth, n_features=N_FEATURES,
+             **{k: getattr(lm, k) for k in MESH_TABLES})
+    n = MESH_TREE_SHAPE[0] * MESH_TREE_SHAPE[1]
+    trees = start_modules([["tree", str(r), str(n), str(MESH_DIR / "tree_store"), str(seed),
+                            str(MESH_DIR)] for r in range(n)], wrapper=MESH_PROGRAM)
+    keys = mesh_tree_keys(seed, N_FEATURES, dev)
+    tables = {k: torch.from_numpy(getattr(lm, k)).to(dev) for k in MESH_TABLES}
+    ref = tree_serve_step(tables, keys, lm.max_depth, device=dev)
+    ref_ms = cuda_ms(lambda: tree_serve_step(tables, keys, lm.max_depth, device=dev),
+                     MESH_TREE_REPS)
+    del keys, tables
+    tree_outs = finish_modules(trees)
+    tree = mesh_tree_check(tree_outs, ref, ref_ms, card)
+    del ref
+    torch.cuda.empty_cache()
+
+    lms = start_modules([["lm", str(r), str(MESH_LM_RANKS), str(MESH_DIR / "lm_store"),
+                          str(seed), str(MESH_DIR)] for r in range(MESH_LM_RANKS)],
+                        wrapper=MESH_PROGRAM)
+    one_card = mesh_one_card(seed, dev, card)
+    here = dict(tt.LAUNCHES)
+    lm_outs = finish_modules(lms)
+    lm_out = mesh_lm_check(lm_outs, card)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+
+    launches = dict(here)
+    for r in mesh_rank_lines(tree_outs, "tree") + mesh_rank_lines(lm_outs, "lm"):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    seconds = time.perf_counter() - t_phase
+    print(f"{card} | mesh phase: {seconds:.2f} s; kernel launches {launches}")
+    print(json.dumps({"mesh": dict(one_card=one_card, tree=tree, lm=lm_out, phase_s=seconds)}))
+    if any(launches.values()):
+        fail(f"the mesh branches launched a hand-written kernel: {launches}")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2697,10 +3272,14 @@ def main() -> None:
 
     # 12. training, with the launch counters read around it (all 0)
     train = train_phase(args.seed, dev, card)
+    torch.cuda.empty_cache()
+
+    # 13. the mesh, with the launch counters read around it (all 0)
+    mesh = mesh_phase(ir, args.seed, dev, card)
 
     paths = {"engine": launches, "gateway": gw_launches, "plan_gateway": plan_launches,
              **deploy, "host_c": host_c["mixed"], "host_c_gateway": host_c["gateway"],
-             "drivers": drivers, "train": train}
+             "drivers": drivers, "train": train, "mesh": mesh}
     kernels_out = [dict(rows_out[name], launches=sum(p.get(name, 0) for p in paths.values()),
                         launches_by_path={k: p.get(name, 0) for k, p in paths.items()})
                    for name in REPLACES]

@@ -15,10 +15,12 @@ Contract (the reference's):
   * the newest ``keep`` committed steps are kept.
 
 Tensors are copied to the host before an async save's thread starts, so the
-caller may go on updating them in place.  ``restore`` puts each leaf on the
-device of the target's leaf (or on ``device``).  numpy has no bfloat16, so a
-bf16 leaf is refused rather than widened: training state is float32 and
-int32.
+caller may go on updating them in place; a ``DTensor`` is gathered whole
+first.  ``restore`` puts each leaf on the device of the target's leaf (or
+on ``device``) and, given ``shardings`` (``sharding.rules.NamedSharding``
+leaves), places it by its sharding: the elastic re-mesh path restores onto
+whatever mesh the restarted job has.  numpy has no bfloat16, so a bf16 leaf
+is refused rather than widened: training state is float32 and int32.
 """
 from __future__ import annotations
 
@@ -43,6 +45,9 @@ def _to_host(key: str, leaf) -> np.ndarray:
     """A copy of ``leaf`` as a numpy array (never a view of a tensor the
     caller may update while the save runs)."""
     if torch.is_tensor(leaf):
+        from repro_torch.sharding.ops import gather
+
+        leaf = gather(leaf)
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"checkpoint leaf {key!r} is bfloat16, which numpy cannot hold; "
                             "save float32 (the training state is float32 and int32)")
@@ -127,20 +132,31 @@ class CheckpointManager:
         steps = self._committed_steps()
         return max(steps) if steps else None
 
-    def restore(self, step: int, target_tree, device=None):
+    def restore(self, step: int, target_tree, shardings=None, device=None):
         """Restore into the structure of ``target_tree``: a tensor leaf
         comes back as a tensor on ``device`` or, by default, on the target
-        leaf's device; any other leaf as a numpy array."""
+        leaf's device, and as a ``DTensor`` placed by its sharding where
+        ``shardings`` (a tree of ``NamedSharding``, or a part of one) has
+        one; any other leaf as a numpy array."""
+        from repro_torch.sharding import ops
+
         d = self.dir / f"step_{step:09d}"
         manifest = json.loads((d / "MANIFEST.json").read_text())
         flat_target = _flatten(target_tree)
+        flat_shard = _flatten(shardings) if shardings is not None else {}
         missing = set(flat_target) - set(manifest["leaves"])
         if missing:
             raise KeyError(f"checkpoint at step {step} missing leaves: {sorted(missing)[:5]}")
         restored = {}
         for key, want in flat_target.items():
             arr = np.load(d / manifest["leaves"][key]["file"])
-            if torch.is_tensor(want):
-                arr = torch.from_numpy(arr).to(want.device if device is None else device)
+            s = flat_shard.get(key)
+            if torch.is_tensor(want) or s is not None:
+                where = device if device is not None else (
+                    want.device if torch.is_tensor(want) else s.mesh.device_type)
+                arr = torch.from_numpy(arr).to(where)
+            if s is not None:
+                arr = ops.from_local(ops.local_block(arr, s.mesh, s.spec).contiguous(), s.mesh,
+                                     s.spec)
             restored[key] = arr
         return unflatten_like(target_tree, restored)

@@ -1,13 +1,18 @@
 """Runnable training driver: the PyTorch counterpart of
-``repro.launch.train``, on one device per process.
+``repro.launch.train`` (CPU smoke scale to the production mesh, one code
+path).
 
-Composes the stack: config -> parameters drawn on the device -> data
-pipeline -> train step (microbatching, or the integer data-parallel reduce)
--> checkpoint manager + watchdog.  Runs on ``--device`` (default ``cuda``;
-without a card it raises).  ``--integer-allreduce`` trains through
-``make_integer_dp_train_step`` over a gloo process group of this process
-alone.  The production mesh and launches of several ranks are not here yet:
-they need the sharding slice (ROADMAP item 13c).
+Composes the stack: config -> mesh -> parameters drawn on the device and
+placed by the sharding rules -> data pipeline -> train step (microbatching,
+or the integer data-parallel reduce) -> checkpoint manager + watchdog.  It
+always runs under a mesh: ``make_host_mesh()`` (1 x 1, a process group of
+this process alone) by default, ``make_production_mesh()`` with
+``--production-mesh``, which needs a process group of 256 ranks (one rank
+per card) and raises with the count it finds otherwise.  Runs on
+``--device`` (default ``cuda``; without a card it raises).
+``--integer-allreduce`` trains through ``make_integer_dp_train_step`` over
+the mesh's ``data`` axis, with the parameters replicated, as that mode
+keeps them.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b --smoke \
@@ -19,25 +24,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
-import contextlib
-import os
-import tempfile
 import time
-
-
-@contextlib.contextmanager
-def process_group():
-    """A gloo process group of this process alone, made through a temporary
-    file (no TCP port), destroyed on exit."""
-    import torch.distributed as dist
-
-    with tempfile.TemporaryDirectory(prefix="repro_torch_pg_") as tmp:
-        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                                rank=0, world_size=1)
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -53,32 +40,36 @@ def main(argv=None):
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--integer-allreduce", action="store_true",
-                    help="reduce gradients with the fixed-point integer all-reduce (over a "
-                         "process group of this process alone)")
+                    help="reduce gradients with the fixed-point integer all-reduce over the "
+                         "mesh's data axis")
     ap.add_argument("--device", default="cuda",
                     help="where the model trains (default cuda; cpu runs on the host)")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise SystemExit("--production-mesh: the device mesh is not ported yet; it comes "
-                         "with the sharding slice (ROADMAP item 13c)")
 
     from repro_torch.checkpoint.fault_tolerance import StepWatchdog
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.data.tokens import pipeline_for
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import use_mesh
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_integer_dp_train_step, make_train_step
 
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    mesh = (make_production_mesh(device=device) if args.production_mesh
+            else make_host_mesh(device=device))
     opt_cfg = opt.AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps)
 
-    with process_group() if args.integer_allreduce else contextlib.nullcontext():
-        step_fn = (make_integer_dp_train_step(cfg, opt_cfg=opt_cfg) if args.integer_allreduce
+    with mesh, use_mesh(mesh):
+        step_fn = (make_integer_dp_train_step(cfg, mesh, opt_cfg) if args.integer_allreduce
                    else make_train_step(cfg, opt_cfg))
         params = tfm.init_params(cfg, 0, device=device)
+        if not args.integer_allreduce:
+            params = rules.place(params, rules.params_shardings(params, mesh))
         opt_state = opt.init_opt_state(params)
         pipe = pipeline_for(cfg, args.batch, args.seq)
 

@@ -1,8 +1,13 @@
 """Shared transformer building blocks (plain functions, params as dicts).
 
-The PyTorch counterpart of the JAX package's ``models/layers.py``, its
-single-device branches only (no mesh: the sharded attention core and the
-sequence-sharded flash decode wait for the sharding slice).
+The PyTorch counterpart of the JAX package's ``models/layers.py``.  Under
+an active mesh (``sharding.ops.use_mesh``) the attention core runs as the
+reference's ``shard_map`` does: batch x heads split over the mesh, or the
+KV sequence split with a partial-softmax combine (distributed flash
+decode); see ``_attn_core``.  Activations are plain tensors, the same
+global values on every rank, so the reference's ``constrain`` calls on
+q/k/v, which steer its compiler's placement, have nothing to act on here:
+the placements they pin are the core's in specs.
 
 Conventions, as in the reference:
   * activations are bf16 in compute; params are float32 as drawn, and every
@@ -183,6 +188,67 @@ def _chunked_softmax_attn(q, k, v, *, causal: bool, window: int, q_chunk: int,
     return torch.cat(outs, dim=1)
 
 
+def _flash_decode_partial(q, k, v, window: int, q_offset: int, kv_len: int, seq_axis, mesh):
+    """Exact attention over a sequence-sharded KV cache (distributed flash
+    decode): each shard computes unnormalized (m, l, o) over its local keys;
+    a pmax/psum pair over ``seq_axis`` combines them.  q: (B,Sq,KH,G,Dh),
+    k/v local: (B,S_loc,KH,Dh)."""
+    from repro_torch.sharding.ops import axis_index, pmax, psum
+
+    b, sq, kh, g, dh = q.shape
+    s_loc = k.shape[1]
+    scale = 1.0 / np.sqrt(dh)
+    offset = axis_index(seq_axis, mesh) * s_loc
+    kpos = offset + torch.arange(s_loc, device=q.device)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    mask = kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    mask &= (kpos < kv_len)[None, :]
+    scores = torch.where(mask, scores, -torch.inf)
+    m_loc = scores.amax(dim=-1)  # (B,KH,G,Sq)
+    p = torch.exp(scores - m_loc[..., None])
+    p = torch.where(torch.isfinite(scores), p, 0.0)  # all-masked shard -> zeros
+    l_loc = p.sum(dim=-1)
+    o_loc = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    m = pmax(m_loc, seq_axis, mesh)
+    corr = torch.where(torch.isfinite(m_loc), torch.exp(m_loc - m), 0.0)
+    l = psum(l_loc * corr, seq_axis, mesh)
+    o = psum(o_loc * corr[..., None], seq_axis, mesh)
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    # (B,KH,G,Sq,Dh) -> (B,Sq,KH,G,Dh)
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)
+
+
+def _attn_specs(mesh, b, kh, g, skv, sq):
+    """(batch_axes, kv_sharded, seq_axis) placement decisions shared with
+    ``repro_torch.sharding.rules.cache_shardings``: keep the two in sync.
+
+    Sequence sharding (partial-softmax combine) pays a psum of the (.., Sq,
+    Dh) output per call, so it is taken for decode only (sq == 1): over
+    ``model`` where the kv heads do not divide it, and over ``data`` for a
+    long cache at batch 1."""
+    tp = mesh.shape.get("model", 1)
+    batch_axes = []
+    total = 1
+    for a in ("pod", "data"):
+        size = mesh.shape.get(a, 1)
+        if size > 1 and b % (total * size) == 0:
+            batch_axes.append(a)
+            total *= size
+    kv_sharded = tp > 1 and kh % tp == 0
+    seq_axis = None
+    if sq == 1:
+        if not kv_sharded and tp > 1 and skv is not None and skv % tp == 0:
+            seq_axis = "model"
+        if skv is not None and "data" not in batch_axes and mesh.shape.get("data", 1) > 1 \
+                and skv % (mesh.shape["data"] * (tp if seq_axis else 1)) == 0 and b == 1:
+            # long-context decode at batch 1: shard the cache seq over data
+            seq_axis = seq_axis or "data"
+    return tuple(batch_axes), kv_sharded, seq_axis
+
+
 def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int = 0,
               rope_theta=10000.0, q_chunk=512, kv_cache=None, cache_pos: Optional[int] = None):
     """Full attention layer.  x: (B, S, D).
@@ -191,15 +257,25 @@ def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int 
     new K/V are written into it at ``cache_pos`` (slice assignment, in
     place) and attention runs over the cache with its tail beyond
     ``cache_pos + S`` masked.  Returns (out, the cache or None).
+
+    Under an active mesh the score/softmax core runs per rank
+    (``_attn_core``).  Where the kv heads do not divide the ``model`` axis
+    but the query heads do, K/V are repeated to one head per query head
+    before a prefill core, so the merged heads split over ``model``.
     """
+    from repro_torch.sharding.ops import current_mesh
+
     b, s, _ = x.shape
     h, kh, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
     g = h // kh
+    mesh = current_mesh()
+    tp = mesh.shape.get("model", 1) if mesh else 1
     xq = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, dh)
     xk = (x @ params["wk"].to(x.dtype)).reshape(b, s, kh, dh)
     xv = (x @ params["wv"].to(x.dtype)).reshape(b, s, kh, dh)
-    xq = apply_rope(xq, positions, rope_theta).reshape(b, s, kh, g, dh)
+    xq = apply_rope(xq, positions, rope_theta)
     xk = apply_rope(xk, positions, rope_theta)
+    merged_tp = tp > 1 and h % tp == 0 and kh % tp != 0
 
     if kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
@@ -208,12 +284,69 @@ def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int 
                              f"at position {cache_pos}")
         ck[:, cache_pos:cache_pos + s] = xk.to(ck.dtype)
         cv[:, cache_pos:cache_pos + s] = xv.to(cv.dtype)
-        out = _chunked_softmax_attn(xq, ck, cv, causal=causal, window=window, q_chunk=q_chunk,
-                                    q_offset=cache_pos, kv_len=cache_pos + s)
+        out = _attn_core(xq.reshape(b, s, kh, g, dh), ck, cv, causal=causal, window=window,
+                         q_chunk=q_chunk, q_offset=cache_pos, kv_len=cache_pos + s, mesh=mesh)
     else:
-        out = _chunked_softmax_attn(xq, xk, xv, causal=causal, window=window, q_chunk=q_chunk)
+        if merged_tp and s > 1:
+            # repeat KV to one head per query head; merged heads shard cleanly
+            xk = torch.repeat_interleave(xk, g, dim=2)
+            xv = torch.repeat_interleave(xv, g, dim=2)
+            xq = xq.reshape(b, s, h, 1, dh)
+        else:
+            xq = xq.reshape(b, s, kh, g, dh)
+        out = _attn_core(xq, xk, xv, causal=causal, window=window, q_chunk=q_chunk, mesh=mesh)
     out = out.reshape(b, s, h * dh)
     return out @ params["wo"].to(x.dtype), kv_cache
+
+
+def _attn_core(xq, xk, xv, *, causal=True, window: int = 0, q_chunk=512, q_offset: int = 0,
+               kv_len: Optional[int] = None, mesh=None):
+    """Dispatch: local chunked attention, or the per-rank core (batch x
+    heads split over the mesh; the seq-sharded partial-softmax flash decode
+    where ``_attn_specs`` picks a sequence axis).  Under a mesh whose every
+    axis is 1 the local path runs.  The per-rank result is gathered, so the
+    return is a plain global tensor on every rank."""
+    from repro_torch.sharding.ops import P, gather, is_trivial, shard_map
+
+    b, sq, kh, g, dh = xq.shape
+    skv = xk.shape[1]
+    if is_trivial(mesh):
+        return _chunked_softmax_attn(xq, xk, xv, causal=causal, window=window, q_chunk=q_chunk,
+                                     q_offset=q_offset, kv_len=kv_len)
+    batch_axes, kv_sharded, seq_axis = _attn_specs(mesh, b, kh, g, skv, sq)
+    tp = mesh.shape.get("model", 1)
+    if sq > 1 and not kv_sharded:
+        if tp > 1 and (kh * g) % tp == 0:
+            # merged-head TP: kh doesn't divide the model axis but H = kh*g
+            # does: repeat KV to one head per query head and split merged
+            # heads
+            xk = torch.repeat_interleave(xk, g, dim=2)
+            xv = torch.repeat_interleave(xv, g, dim=2)
+            out = _attn_core(xq.reshape(b, sq, kh * g, 1, dh), xk, xv, causal=causal,
+                             window=window, q_chunk=q_chunk, q_offset=q_offset, kv_len=kv_len,
+                             mesh=mesh)
+            return out.reshape(b, sq, kh, g, dh)
+        # MQA/small-GQA fallback: the local core, the same on every rank
+        return _chunked_softmax_attn(xq, xk, xv, causal=causal, window=window, q_chunk=q_chunk,
+                                     q_offset=q_offset, kv_len=kv_len)
+    bax = batch_axes or None
+    head_kh = "model" if kv_sharded else None
+    head_g = "model" if (not kv_sharded and g % tp == 0 and tp > 1
+                         and seq_axis != "model") else None
+    q_spec = P(bax, None, head_kh, head_g, None)
+    kv_spec = P(bax, seq_axis, head_kh, None)
+
+    if seq_axis is None:
+        def body(q, k, v):
+            return _chunked_softmax_attn(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+                                         q_offset=q_offset, kv_len=kv_len)
+    else:
+        def body(q, k, v):
+            return _flash_decode_partial(q, k, v, window, q_offset,
+                                         skv if kv_len is None else kv_len, seq_axis, mesh)
+
+    fn = shard_map(body, mesh=mesh, in_specs=(q_spec, kv_spec, kv_spec), out_specs=q_spec)
+    return gather(fn(xq, xk, xv))
 
 
 # ---------------------------------------------------------------------------

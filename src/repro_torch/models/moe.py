@@ -1,11 +1,12 @@
 """Mixture-of-Experts layer: FlInt top-k routing + capacity-factor dispatch.
 
-The PyTorch counterpart of the JAX package's ``models/moe.py``, its
-single-program path (the expert-parallel path waits for the sharding
-slice).  Expert selection only needs the *order* of router logits, so top-k
-runs on FlInt int32 keys (``repro_torch.core.flint``): a stable descending
-sort of the keys, which puts the lower expert index first among equal keys,
-as ``lax.top_k`` does (``torch.topk`` promises no order on ties).
+The PyTorch counterpart of the JAX package's ``models/moe.py``: the
+single-program path, and under a mesh with a ``model`` axis the
+expert-parallel path (``moe_block_ep``).  Expert selection only needs the
+*order* of router logits, so top-k runs on FlInt int32 keys
+(``repro_torch.core.flint``): a stable descending sort of the keys, which
+puts the lower expert index first among equal keys, as ``lax.top_k`` does
+(``torch.topk`` promises no order on ties).
 
 Dispatch is scatter-based: each (token, expert) pair lands in an (E, C, d)
 buffer at (expert, slot), its slot the count of earlier pairs routed to the
@@ -54,8 +55,27 @@ def _aux_loss(logits, ids, n_experts):
 
 def moe_block(params, x, *, n_experts: int, k: int, act: str = "silu",
               capacity_factor: float = 1.25):
-    """x: (B, S, D) -> (B, S, D), plus the aux load-balancing loss.  One
-    card has no mesh, so this is always the single-program path."""
+    """x: (B, S, D) -> (B, S, D), plus the aux load-balancing loss.
+
+    Dispatches to the expert-parallel path when a mesh with a non-trivial
+    ``model`` axis is active (``moe_block_ep``); otherwise the
+    single-program scatter path below (CPU tests, 1-device meshes).
+    """
+    from repro_torch.sharding.ops import current_mesh
+
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("model", 1) > 1 and n_experts % mesh.shape["model"] == 0:
+        # EP only pays off when the per-shard expert batch amortizes the
+        # weight gather and keeps capacity sane; at decode (a few tokens per
+        # shard) the single-program path is both faster and drop-free.
+        b, s, _ = x.shape
+        dp = 1
+        for a in ("pod", "data"):
+            dp *= mesh.shape.get(a, 1)
+        t_loc = (b * s) // max(dp, 1)
+        if t_loc * k >= 4 * n_experts:
+            return moe_block_ep(params, x, n_experts=n_experts, k=k, act=act,
+                                capacity_factor=capacity_factor, mesh=mesh)
     return _moe_block_jit(params, x, n_experts=n_experts, k=k, act=act,
                           capacity_factor=capacity_factor)
 
@@ -112,3 +132,100 @@ def _moe_block_jit(params, x, *, n_experts: int, k: int, act: str, capacity_fact
     y = (yrep.reshape(t, k, d).float() * gates[..., None].to(x.dtype).float()).sum(dim=1)
     y = y.to(x.dtype)
     return y.reshape(b, s, d), aux_loss
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel path
+# ---------------------------------------------------------------------------
+#
+# Rank (i, j) of a (data, model) mesh owns data shard i's tokens AND model
+# shard j's experts, so dispatch, the expert FFN and the partial combine are
+# local; the one collective is a sum of the combined output over `model`
+# (and a mean of the aux loss over the batch axes).  No all-to-all.
+
+def ep_dispatch(ids, gates, lo: int, e_loc: int, capacity: int):
+    """The compact dispatch of a rank holding experts [lo, lo + e_loc):
+    (src_tok (e_loc, capacity) int64, the token of each (expert, slot) or
+    t where the slot is empty; gate_slot (e_loc, capacity) float32, its
+    gate weight).  A pair's slot is its exclusive prefix count among the
+    local pairs of its expert, in pair order; pairs of other ranks' experts
+    and pairs at slot >= capacity land nowhere (the reference's scatter
+    with ``mode="drop"``)."""
+    t = ids.shape[0]
+    k = ids.shape[1]
+    ids_loc = torch.where((ids >= lo) & (ids < lo + e_loc), ids - lo, e_loc)
+    ids_flat = ids_loc.reshape(-1)  # (t*k,): e_loc == "not mine"
+    slot_flat = dispatch_slots(ids_flat, e_loc + 1)
+    # dropped pairs go to a spare row and column that are cut off
+    keep = (ids_flat < e_loc) & (slot_flat < capacity)
+    row = torch.where(keep, ids_flat, e_loc)
+    col = torch.where(keep, slot_flat, capacity)
+    pair_tok = torch.arange(t * k, device=ids.device) // k
+    src_tok = torch.full((e_loc + 1, capacity + 1), t, dtype=torch.int64, device=ids.device)
+    src_tok[row, col] = pair_tok
+    gate_slot = torch.zeros((e_loc + 1, capacity + 1), dtype=torch.float32, device=ids.device)
+    gate_slot[row, col] = gates.reshape(-1).float()
+    return src_tok[:e_loc, :capacity], gate_slot[:e_loc, :capacity]
+
+
+def _ep_body(wr, wg, wu, wd, xb, *, n_experts, e_loc, k, act, capacity_factor, batch_axes, mesh):
+    from repro_torch.sharding.ops import axis_index, pmean, psum
+
+    b, s, d = xb.shape
+    t = b * s
+    xt = xb.reshape(t, d)
+    logits, gates, ids = route({"w_router": wr}, xt, k)  # (t_loc, E): full expert range
+    aux = pmean(_aux_loss(logits, ids, n_experts), batch_axes, mesh)  # alike over `model`
+
+    # capacity from the local token count, as the reference's
+    capacity = int(max(1, (t * k * capacity_factor) // n_experts))
+    src_tok, gate_slot = ep_dispatch(ids, gates, axis_index("model", mesh) * e_loc, e_loc,
+                                     capacity)
+    # gather the landed rows (row t is the empty slots' zero row)
+    xt_pad = torch.cat([xt, torch.zeros((1, d), dtype=xt.dtype, device=xt.device)], dim=0)
+    buf = xt_pad[src_tok]  # (e_loc, capacity, d)
+
+    a = act_fn(act)
+    gate = a(torch.einsum("ecd,edf->ecf", buf, wg.to(xb.dtype)))
+    up = torch.einsum("ecd,edf->ecf", buf, wu.to(xb.dtype))
+    out_e = torch.einsum("ecf,efd->ecd", gate * up, wd.to(xb.dtype))
+
+    # combine: the gated expert rows added into their tokens in float32
+    # (row t takes the empty slots), summed over `model`, rounded once
+    contrib = out_e.float() * gate_slot.to(xb.dtype).float()[..., None]
+    y = torch.zeros((t + 1, d), dtype=torch.float32, device=xb.device)
+    y.index_add_(0, src_tok.reshape(-1), contrib.reshape(-1, d))
+    y = psum(y[:t], "model", mesh)
+    return y.to(xb.dtype).reshape(b, s, d), aux
+
+
+def moe_block_ep(params, x, *, n_experts: int, k: int, act: str, capacity_factor: float, mesh):
+    """The expert-parallel MoE block: each rank routes its data shard's
+    tokens (the router replicated), runs its ``model`` shard's experts and
+    the combined output is summed over ``model``.  Returns (y, aux) as
+    plain global tensors on every rank."""
+    from repro_torch.sharding.ops import P, gather, shard_map
+
+    tp = mesh.shape["model"]
+    e_loc = n_experts // tp
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    bspec = P(batch_axes, None, None)
+
+    def body(wr, wg, wu, wd, xb):
+        return _ep_body(wr, wg, wu, wd, xb, n_experts=n_experts, e_loc=e_loc, k=k, act=act,
+                        capacity_factor=capacity_factor, batch_axes=batch_axes, mesh=mesh)
+
+    fn = shard_map(
+        body,
+        mesh=mesh,
+        in_specs=(
+            P(),  # router weight: replicated (tiny)
+            P("model", None, None),  # expert weights: local experts, full d
+            P("model", None, None),
+            P("model", None, None),
+            bspec,  # tokens: local batch shard, replicated over model
+        ),
+        out_specs=(bspec, P()),
+    )
+    y, aux = fn(params["w_router"], params["w_gate_e"], params["w_up_e"], params["w_down_e"], x)
+    return gather(y), aux.to_local()

@@ -144,6 +144,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     return params
 
 
+def param_shapes(cfg: ModelConfig):
+    """The parameters' shapes and dtypes as ``meta`` tensors (no memory),
+    for the sharding rules and the cost models."""
+    return init_params(cfg, device="meta")
+
+
 def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
     """The JAX package's ``init_params(cfg, key)`` output, as numpy arrays
     (blocks stacked on a leading ``n_layers`` axis), as this package's
@@ -152,7 +158,7 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
-    want = init_params(cfg, device="meta")
+    want = param_shapes(cfg)
 
     def convert(w, path, node):
         if isinstance(w, dict):

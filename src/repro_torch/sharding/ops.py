@@ -1,0 +1,355 @@
+"""The device mesh, activation sharding with logical axis names, and
+per-rank bodies: the PyTorch counterpart of the JAX package's
+``sharding/ops.py``.
+
+Model code calls ``constrain(x, "batch", None, "tp")``, mesh-agnostic
+logical names resolved against the ambient mesh (set by ``use_mesh``):
+
+  * "batch" -> ("pod", "data") (whichever exist; divisibility-checked),
+  * "tp"    -> "model",
+  * "seq"   -> "data" (sequence parallelism),
+  * None    -> replicated.
+
+How the port runs a mesh.  Every rank runs the same program.  A plain
+tensor is a global value held whole, and alike, on every rank; a
+``DTensor`` is a global value sharded over the mesh.  ``constrain``
+redistributes a ``DTensor`` to the placements its logical names resolve to
+and leaves a plain tensor as it is; outside ``use_mesh`` it is a no-op, so
+the same model code runs everywhere.  The mesh branches of the models and
+of the serving step are explicit per-rank bodies, as the reference's
+``shard_map`` bodies are: ``shard_map`` cuts each rank's block of every
+input by its spec (no communication for a plain tensor), runs the body on
+the blocks, and returns the outputs as ``DTensor``s with the out specs'
+placements (no communication).  A body names its collectives itself
+(``psum``, ``pmax``, ``pmean`` over mesh axes, ``axis_index``), and
+``gather`` makes a ``DTensor`` whole again.
+
+A spec is a ``P``, a tuple with one entry per tensor dimension (trailing
+dimensions left out replicate): ``None``, a mesh axis name, or a tuple of
+names, the first the most significant, as ``jax.sharding.PartitionSpec``
+entries are.
+
+Every collective goes through ``_collective``.  gloo carries CPU tensors;
+a CUDA tensor on a gloo group (several ranks on one card, where NCCL
+refuses a second rank) is copied to the host, reduced or gathered there
+and copied back, and ``STAGED`` counts those calls by collective.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from collections import Counter
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+_ACTIVE: list = []
+
+_LOGICAL = {
+    "batch": ("pod", "data"),
+    "tp": ("model",),
+    "seq": ("data",),
+    "expert": ("model",),
+    "rows": ("pod", "data", "model"),  # tabular serving: rows over everything
+}
+
+# host-staged collectives by name ("all_reduce", "all_gather") in this
+# process; read by the smoke run, reset by the caller
+STAGED: Counter = Counter()
+
+
+class P(tuple):
+    """A partition spec: ``P(None, "data", ("pod", "data"))``, a tuple of
+    its entries (``PartitionSpec``'s counterpart).  As there, an entry of
+    one axis is that axis's name and an empty entry is ``None``."""
+
+    def __new__(cls, *entries):
+        def canonical(e):
+            if isinstance(e, (tuple, list)):
+                return None if not e else e[0] if len(e) == 1 else tuple(e)
+            return e
+
+        return super().__new__(cls, (canonical(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+class Mesh:
+    """A ``torch.distributed.device_mesh.DeviceMesh`` with named axes.
+
+    ``shape`` maps each axis name to its size, in mesh order, as a JAX
+    mesh's ``shape`` does, so the sharding rules read a ``Mesh`` and a
+    duck-typed mesh alike.  A mesh that made its process's group (a world
+    of one, ``launch.mesh.compat_make_mesh``) destroys it in ``close``;
+    ``with mesh:`` closes it on exit.
+    """
+
+    def __init__(self, device_mesh, *, owns_world: bool = False):
+        self.device_mesh = device_mesh
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.shape = {a: int(n) for a, n in zip(self.axis_names, device_mesh.mesh.shape)}
+        self.device_type = device_mesh.device_type
+        self._owns_world = owns_world
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.device_mesh.get_local_rank(mesh_dim=axis)
+
+    def group(self, axis: str):
+        """The process group of the ranks that differ from this one only
+        along ``axis``."""
+        return self.device_mesh.get_group(mesh_dim=axis)
+
+    def close(self) -> None:
+        if self._owns_world and dist.is_initialized():
+            dist.destroy_process_group()
+        self._owns_world = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {self.device_type})"
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    _ACTIVE.append(mesh)
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+
+
+def current_mesh() -> Optional[Mesh]:
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def is_trivial(mesh) -> bool:
+    """No mesh, or one whose every axis has size 1 (the local path runs)."""
+    return mesh is None or all(n <= 1 for n in mesh.shape.values())
+
+
+# ---------------------------------------------------------------------------
+# specs and placements
+# ---------------------------------------------------------------------------
+
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, most significant first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def resolve(mesh, shape, logical) -> tuple:
+    """The spec of logical names ``logical`` for a tensor of ``shape`` on
+    ``mesh``: each name's axes kept while the dimension divides their
+    running product (the reference's ``constrain`` rule)."""
+    spec = []
+    for dim, item in zip(shape, logical):
+        if item is None:
+            spec.append(None)
+            continue
+        axes, total = [], 1
+        for ax in _LOGICAL.get(item, (item,)):
+            size = mesh.shape.get(ax, 1)
+            if size > 1 and dim % (total * size) == 0:
+                axes.append(ax)
+                total *= size
+        spec.append(tuple(axes) if len(axes) > 1 else (axes[0] if axes else None))
+    return P(*spec)
+
+
+def placements(mesh: Mesh, spec) -> tuple:
+    """DTensor placements of ``spec``, one per mesh axis: ``Shard(d)`` where
+    the axis shards dimension d, else ``Replicate()``.  Two axes on one
+    dimension shard it in mesh order (the outer axis the most significant),
+    which is the order a spec entry must list them in."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = {a: Replicate() for a in mesh.axis_names}
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        order = [mesh.axis_names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"spec entry {entry!r} lists mesh axes out of the mesh's order "
+                             f"{mesh.axis_names}")
+        for a in axes:
+            out[a] = Shard(d)
+    return tuple(out[a] for a in mesh.axis_names)
+
+
+def local_block(x: torch.Tensor, mesh: Mesh, spec) -> torch.Tensor:
+    """This rank's block of the global tensor ``x`` under ``spec`` (a view;
+    no communication).  Each sharded dimension must divide evenly."""
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        n = math.prod(mesh.shape[a] for a in axes)
+        if x.shape[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(x.shape)} does not split over "
+                             f"{axes} ({n} shards)")
+        idx = 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + mesh.axis_index(a)
+        size = x.shape[d] // n
+        x = x.narrow(d, idx * size, size)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and "nccl" not in str(dist.get_backend(group))
+
+
+def _collective(name: str, t: torch.Tensor, group, **kw):
+    """``all_reduce`` (``op=``) or ``all_gather`` of ``t`` over ``group``,
+    on a copy: returns the reduced tensor, or the list of every rank's
+    tensor in rank order.  A CUDA tensor on a group without NCCL is staged
+    through the host."""
+    staged = _staged(t, group)
+    if staged:
+        STAGED[name] += 1
+    if name == "all_reduce":
+        work = t.detach().to("cpu", copy=True) if staged else t.detach().clone()
+        dist.all_reduce(work, op=kw["op"], group=group)
+        return work.to(t.device) if staged else work
+    # gloo has no unsigned type wider than a byte: gather the bits as the
+    # signed type of their width
+    work = (t.detach().cpu() if staged else t.detach()).contiguous()
+    work = work.view(_SIGNED.get(work.dtype, work.dtype))
+    parts = [torch.empty_like(work) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, work, group=group)
+    return [p.view(t.dtype).to(t.device) for p in parts]
+
+
+def _reduce(x, axes, op, mesh):
+    mesh = mesh or current_mesh()
+    for a in entry_axes(axes):
+        if mesh.shape.get(a, 1) > 1:
+            x = _collective("all_reduce", x, mesh.group(a), op=op)
+    return x
+
+
+def psum(x, axes, mesh: Optional[Mesh] = None):
+    """The sum of ``x`` over the ranks along mesh ``axes`` (``lax.psum``)."""
+    return _reduce(x, axes, dist.ReduceOp.SUM, mesh)
+
+
+def pmax(x, axes, mesh: Optional[Mesh] = None):
+    """The elementwise max of ``x`` over mesh ``axes`` (``lax.pmax``)."""
+    return _reduce(x, axes, dist.ReduceOp.MAX, mesh)
+
+
+def pmean(x, axes, mesh: Optional[Mesh] = None):
+    """The mean of ``x`` over mesh ``axes`` (``lax.pmean``)."""
+    mesh = mesh or current_mesh()
+    n = math.prod(mesh.shape.get(a, 1) for a in entry_axes(axes))
+    return psum(x, axes, mesh) / n
+
+
+def axis_index(axis: str, mesh: Optional[Mesh] = None) -> int:
+    """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
+    return (mesh or current_mesh()).axis_index(axis)
+
+
+def gather(x) -> torch.Tensor:
+    """A ``DTensor`` as a plain global tensor, gathered along every sharded
+    mesh axis, the innermost first; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    dm = x.device_mesh
+    out = x.to_local()
+    for i in reversed(range(dm.ndim)):
+        p = x.placements[i]
+        if isinstance(p, Shard):
+            out = torch.cat(_collective("all_gather", out, dm.get_group(i)), dim=p.dim)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"cannot gather a DTensor placed {x.placements}")
+    return out
+
+
+def to_local(x, mesh: Mesh, spec) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec``: a plain global tensor is
+    cut (no communication), a ``DTensor`` already placed so gives its local
+    tensor, any other ``DTensor`` is gathered and cut."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        if tuple(x.placements) == placements(mesh, spec):
+            return x.to_local()
+        x = gather(x)
+    return local_block(x, mesh, spec)
+
+
+def from_local(x: torch.Tensor, mesh: Mesh, spec):
+    """A ``DTensor`` of this rank's block ``x`` placed by ``spec`` (every
+    rank's block of one shape; no communication)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x, mesh.device_mesh, placements(mesh, spec), run_check=False)
+
+
+def _tree(fn, tree, spec):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v, spec) for k, v in tree.items()}
+    return fn(tree, spec) if torch.is_tensor(tree) else tree
+
+
+def _out_tree(fn, tree, spec):
+    if not isinstance(spec, P):  # a tuple of specs for a tuple of outputs
+        return tuple(_out_tree(fn, t, s) for t, s in zip(tree, spec))
+    return _tree(fn, tree, spec)
+
+
+def shard_map(f, *, mesh: Mesh, in_specs: tuple, out_specs):
+    """``compat_shard_map``'s counterpart: ``f`` runs on each rank's blocks.
+
+    ``in_specs`` holds one ``P`` per argument, applied to every tensor of a
+    dict argument; other arguments (Python scalars) pass as they are.
+    ``out_specs`` is one ``P``, or a tuple of them for a tuple of outputs;
+    the outputs come back as ``DTensor``s (``from_local``).  Blocks are cut
+    by ``to_local``: no communication for plain tensors or for ``DTensor``s
+    already placed by their spec.
+    """
+    def run(*args):
+        if len(args) != len(in_specs):
+            raise TypeError(f"{len(args)} arguments for {len(in_specs)} in_specs")
+        blocks = [_tree(lambda t, s: to_local(t, mesh, s), a, s)
+                  for a, s in zip(args, in_specs)]
+        out = f(*blocks)
+        return _out_tree(lambda t, s: from_local(t, mesh, s), out, out_specs)
+
+    return run
+
+
+def constrain(x, *logical):
+    """Place a ``DTensor`` by logical names; a plain tensor, or any tensor
+    outside a mesh, is returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = resolve(mesh, x.shape, logical)  # trailing unlisted dims replicate
+    if tuple(x.placements) == placements(mesh, spec):
+        return x
+    return from_local(local_block(gather(x), mesh, spec), mesh, spec)

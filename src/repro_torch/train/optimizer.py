@@ -52,10 +52,11 @@ def lr_at(cfg: AdamWConfig, step):
 
 
 def init_opt_state(params):
-    """Zero float32 moments beside each parameter, and ``step`` 0 (int32)
-    on the parameters' device."""
+    """Zero float32 moments beside each parameter (placed as it is, for a
+    ``DTensor`` parameter), and ``step`` 0 (int32) on the parameters'
+    device."""
     device = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -65,8 +66,8 @@ def global_norm(tree):
     return torch.sqrt(sq)
 
 
-def _clip_scale(grads, max_norm: float):
-    norm = global_norm(grads)
+def _clip_scale(grads, max_norm: float, norm=None):
+    norm = global_norm(grads) if norm is None else norm
     return torch.clamp(max_norm / (norm + 1e-9), max=1.0), norm
 
 
@@ -78,11 +79,13 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
+def adamw_update(cfg: AdamWConfig, grads, opt_state, params, *, grad_norm=None):
     """One AdamW step, in place.  Returns (params, opt_state with its new
     ``step``, {"lr", "grad_norm"}): the same parameter and moment tensors,
-    overwritten.  ``grads`` are scaled by the clip factor in place."""
-    scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+    overwritten.  ``grads`` are scaled by the clip factor in place.  Where
+    the trees hold one rank's blocks of sharded tensors, ``grad_norm`` is
+    the global norm of the whole gradients."""
+    scale, gnorm = _clip_scale(grads, cfg.grad_clip, grad_norm)
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -1,15 +1,25 @@
 """Train step factories: loss -> grads -> (clip, optional integer DP reduce)
 -> AdamW -> new state.  The PyTorch counterpart of the JAX package's
-``train/step.py``, on one device per process.
+``train/step.py``.
 
 The parameters are float32 leaf tensors; a step gives each ``requires_grad``,
 lets autograd accumulate the microbatches' gradients in its ``.grad`` (the
 float32 adds of the reference's scan, in microbatch order, with no second
 buffer beside the gradients), updates the parameters, ``m`` and ``v`` in
-place and drops the gradients.  ``make_integer_dp_train_step`` is the
-reference's data-parallel variant over a ``torch.distributed`` process group
-in place of a mesh axis: each rank takes its slice of the global batch, and
-the gradients are combined with the paper's fixed-point integer all-reduce.
+place and drops the gradients.
+
+Under a mesh (``sharding.ops.use_mesh``) ``make_train_step`` is the
+reference's FSDP layout done by hand: the parameters and the optimizer
+state are ``DTensor``s placed by ``sharding.rules.params_shardings``, the
+batch is split over ``pod`` x ``data`` by ``batch_shardings``; each rank
+gathers the whole parameters, takes the gradients of its rows (the model
+runs without the mesh inside the step, the ``model`` axis repeating the
+compute of its ``data`` shard), averages them over the batch axes with an
+all-reduce a leaf, and updates its own blocks of the parameters and moments.
+``make_integer_dp_train_step`` is the reference's data-parallel variant over
+a mesh's ``data`` axis or a ``torch.distributed`` process group: each rank
+takes its slice of the global batch, and the gradients are combined with
+the paper's fixed-point integer all-reduce.
 """
 from __future__ import annotations
 
@@ -22,7 +32,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.train import optimizer as opt
 from repro_torch.train.intreeger_allreduce import group_size, integer_pmean
-from repro_torch.train.tree import tree_leaves, tree_map
+from repro_torch.train.tree import (flatten_with_paths, path_key, tree_leaves, tree_map,
+                                    unflatten_like)
 
 
 def n_microbatches(b: int, microbatches: int, dp: int = 1) -> int:
@@ -85,44 +96,107 @@ def _apply(opt_cfg, params, opt_state):
     return params, opt_state, om
 
 
+def _batch_extent(mesh) -> int:
+    """The (pod x data) extent the batch splits over: 1 without a mesh."""
+    dp = 1
+    if mesh is not None:
+        for a in ("pod", "data"):
+            dp *= mesh.shape.get(a, 1)
+    return dp
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[opt.AdamWConfig] = None):
     """Single-step factory with microbatched gradient accumulation.
 
     ``cfg.microbatches > 1`` splits the global batch on the leading axis and
     accumulates each slice's float32 gradients; activation memory shrinks by
-    the microbatch factor while the arithmetic is unchanged.  The count
-    follows the reference's rule with ``dp`` the size of the default process
-    group (1 when none exists).
+    the microbatch factor while the arithmetic is unchanged.  Each
+    microbatch must still fill every batch shard, so the count follows the
+    reference's rule with ``dp`` the active mesh's (pod x data) extent, 1
+    without a mesh.  Under a mesh whose every axis is 1 the step is the
+    one-device step, on the ``DTensor``s' local tensors.
     """
+    from repro_torch.sharding.ops import current_mesh, is_trivial
+
     opt_cfg = opt_cfg or opt.AdamWConfig()
 
     def train_step(params, opt_state, batch):
-        device = tree_leaves(params)[0].device
-        batch = _on_device(batch, device)
-        n_micro = n_microbatches(tree_leaves(batch)[0].shape[0], cfg.microbatches,
-                                 group_size())
-        loss, parts = accumulate_grads(cfg, params, batch, n_micro)
-        params, opt_state, om = _apply(opt_cfg, params, opt_state)
-        return params, opt_state, {"loss": loss, **parts, **om}
+        mesh = current_mesh()
+        b = tree_leaves(batch)[0].shape[0]
+        n_micro = n_microbatches(b, cfg.microbatches, _batch_extent(mesh))
+        if not is_trivial(mesh):
+            return _sharded_step(cfg, opt_cfg, mesh, n_micro, params, opt_state, batch)
+        local = _locals(params)
+        device = tree_leaves(local)[0].device
+        loss, parts = accumulate_grads(cfg, local, _on_device(batch, device), n_micro)
+        _, ostate, om = _apply(opt_cfg, local, _locals(opt_state))
+        return params, {**opt_state, "step": ostate["step"]}, {"loss": loss, **parts, **om}
 
     return train_step
 
 
-def make_integer_dp_train_step(cfg: ModelConfig, group=None,
-                               opt_cfg: Optional[opt.AdamWConfig] = None):
-    """Variant with the paper-math integer all-reduce over ``group`` (the
-    world by default).
+def _locals(tree):
+    """Each ``DTensor`` leaf's local tensor (a view, so updates in place
+    reach the ``DTensor``); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    with torch.no_grad():
+        return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
+
+
+def _sharded_step(cfg, opt_cfg, mesh, n_micro, params, opt_state, batch):
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import gather, local_block, pmean, to_local, use_mesh
+
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    batch = _on_device(batch, torch.device(mesh.device_type))
+    bsh = rules.batch_shardings(mesh, batch)
+    rows = {k: to_local(v, mesh, bsh[k].spec) for k, v in batch.items()}
+    specs = [s.spec for s in tree_leaves(rules.params_shardings(params, mesh))]
+    with torch.no_grad():
+        whole = tree_map(lambda p: gather(p).detach(), params)
+    with use_mesh(None):  # this rank's rows through the one-device model
+        loss, parts = accumulate_grads(cfg, whole, rows, n_micro)
+    leaves = tree_leaves(whole)
+    with torch.no_grad():
+        # each gradient averaged over the batch axes, a leaf at a time (a
+        # flat copy of them all would double the gradients' memory)
+        for p in leaves:
+            p.grad = pmean(p.grad, batch_axes, mesh)
+        grads = [p.grad for p in leaves]
+        norm = opt.global_norm(grads)
+        loss = pmean(loss, batch_axes, mesh)
+        parts = {k: pmean(v, batch_axes, mesh) for k, v in parts.items()}
+        local_grads = [local_block(g, mesh, spec) for g, spec in zip(grads, specs)]
+    del whole, leaves, grads
+    local = _locals(params)
+    grads = unflatten_like(local, {path_key(path): g for (path, _), g in
+                                   zip(flatten_with_paths(local), local_grads)})
+    _, ostate, om = opt.adamw_update(opt_cfg, grads, _locals(opt_state), local, grad_norm=norm)
+    return params, {**opt_state, "step": ostate["step"]}, {"loss": loss, **parts, **om}
+
+
+def make_integer_dp_train_step(cfg: ModelConfig, mesh=None,
+                               opt_cfg: Optional[opt.AdamWConfig] = None, *, group=None):
+    """Variant with the paper-math integer all-reduce over ``mesh``'s
+    ``data`` axis, or over ``group`` (the world by default) without a mesh.
 
     Every rank passes the same global batch and holds the same parameters;
-    rank r computes the gradients of rows ``[r * b/n, (r + 1) * b/n)``, as a
-    batch sharded over the reference's ``data`` axis is split.  Each
-    gradient is combined with ``integer_pmean`` and the loss with a float
-    all-reduce mean; every rank then applies the same AdamW update, so the
-    ranks' parameters stay bit-identical (pure data parallelism).
+    the rank at ``data`` coordinate r (rank r of the group) computes the
+    gradients of rows ``[r * b/n, (r + 1) * b/n)``, as a batch sharded over
+    the reference's ``data`` axis is split.  Each gradient is combined with
+    ``integer_pmean`` and the loss with a float all-reduce mean; every rank
+    then applies the same AdamW update, so the ranks' parameters stay
+    bit-identical (pure data parallelism; the parameters replicate).
     """
+    from repro_torch.sharding.ops import use_mesh
+
     opt_cfg = opt_cfg or opt.AdamWConfig()
-    n = group_size(group)
-    rank = dist.get_rank(group) if dist.is_initialized() else 0
+    if mesh is not None:
+        group, n, rank = mesh.group("data"), mesh.shape["data"], mesh.axis_index("data")
+    else:
+        n = group_size(group)
+        rank = dist.get_rank(group) if dist.is_initialized() else 0
 
     def train_step(params, opt_state, batch):
         device = tree_leaves(params)[0].device
@@ -131,7 +205,8 @@ def make_integer_dp_train_step(cfg: ModelConfig, group=None,
             raise ValueError(f"global batch of {b} rows does not split over {n} ranks")
         lo, hi = rank * b // n, (rank + 1) * b // n
         local = _on_device({k: v[lo:hi] for k, v in batch.items()}, device)
-        loss, _ = accumulate_grads(cfg, params, local)
+        with use_mesh(None):  # this rank's rows through the one-device model
+            loss, _ = accumulate_grads(cfg, params, local)
         with torch.no_grad():
             for p in tree_leaves(params):
                 p.grad = integer_pmean(p.grad, group, n)

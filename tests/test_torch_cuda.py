@@ -22,7 +22,8 @@ CPU whatever device they are given; the LM smoke models' prefill and decode
 on the card against the CPU, and ``launch.serve --trees`` on the card;
 the LM smoke models' training step on the card against the CPU, and
 ``integer_psum`` on two gloo ranks holding CUDA tensors against two CPU
-ranks.
+ranks; a one-card NCCL mesh against no mesh, bit for bit, and the mesh
+branches on four gloo ranks holding CUDA tensors against four CPU ranks.
 Marked
 ``cuda``; each
 test asks the ``card`` fixture, which skips when no card is present.  Run
@@ -888,3 +889,75 @@ def test_integer_psum_on_card_ranks_equals_cpu_ranks(card, tmp_path):
                for s in sums["cpu"].reshape(-1, data.shape[1]))
     err = np.abs(sums["cuda"][0, 0] - data.astype(np.float64).sum(axis=0)).max()
     assert err <= quantization_error_bound(2, float(np.abs(data).max()))
+
+
+@pytest.mark.cuda
+def test_one_card_nccl_mesh_gives_the_bits_of_no_mesh(card):
+    """A (1, 1) mesh over an NCCL group of this process alone on the card:
+    the tree serving step (through the mesh's ``DTensor``s) and each
+    ``_attn_core`` case give the bits they give without a mesh, with no
+    collective."""
+    import torch.distributed as dist
+
+    from repro_torch.core.serving import tree_serve_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import _attn_core
+    from repro_torch.sharding.ops import gather, use_mesh
+    from torch_dist_ranks import ATTN_CASES, comm_count
+
+    rng = np.random.default_rng(5)
+    keys = float_to_key(torch.from_numpy(rng.normal(size=(4096, 12)).astype(np.float32)))
+    packed = _forest(6, 16, 8, 12, 4).materialize("padded")
+    tables = {k: getattr(packed, k) for k in ("feature", "threshold_key", "left", "right",
+                                              "leaf_fixed")}
+    attn = {name: [torch.from_numpy(rng.normal(size=s)).to(card, torch.bfloat16)
+                   for s in (qs, ks, ks)] for name, (qs, ks, _) in ATTN_CASES.items()}
+
+    def run(mesh):
+        out = {}
+        (acc, preds), comms = comm_count(
+            lambda: tree_serve_step(tables, keys, packed.max_depth, device=card))
+        out["acc"], out["preds"] = gather(acc).view(torch.int32), gather(preds)
+        out["tree_comms"] = comms
+        for name, (_, _, kw) in ATTN_CASES.items():
+            out[name] = _attn_core(*attn[name], mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    want = run(None)
+    with make_host_mesh(device=card) as mesh, use_mesh(mesh):
+        assert dist.get_backend() != "gloo" and mesh.device_type == "cuda"
+        got = run(mesh)
+    assert not dist.is_initialized()
+    assert got["tree_comms"] == want["tree_comms"] == 0
+    for key in ("acc", "preds", *ATTN_CASES):
+        assert got[key].device.type == "cuda"
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.cuda
+def test_mesh_branches_on_card_ranks_match_cpu_ranks(card, tmp_path):
+    """Four gloo ranks as a (data 2, model 2) mesh, holding CUDA tensors
+    (their collectives staged through the host), against four CPU ranks on
+    the same inputs: the tree step bit for bit with no collective, each
+    attention core within the reference's 0.02, the MoE block within 0.05,
+    the train step's loss within 2e-3 (the card-against-CPU tolerance of
+    the training tests)."""
+    from torch_dist_ranks import ATTN_CASES, MOE_CAPACITY, mesh_rank, run_ranks, write_mesh_inputs
+
+    write_mesh_inputs(tmp_path / "in")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        out.mkdir()
+        run_ranks(mesh_rank, 4, str(tmp_path / "in"), str(out), (2, 2), ("data", "model"), dev)
+        runs[dev] = [dict(np.load(out / f"mesh_{r}.npz")) for r in range(4)]
+    for c, g in zip(runs["cpu"], runs["cuda"]):
+        assert g["tree_comms"] == 0 and g["staged"] > 0 and c["staged"] == 0
+        assert np.array_equal(g["tree_acc"], c["tree_acc"])
+        assert np.array_equal(g["tree_preds"], c["tree_preds"])
+        for name in ATTN_CASES:
+            assert np.abs(g[f"attn_{name}"] - c[f"attn_{name}"]).max() < 0.02, name
+        for cf in MOE_CAPACITY:
+            assert np.abs(g[f"moe_y_{cf}"] - c[f"moe_y_{cf}"]).max() < 0.05, cf
+        assert abs(float(g["train_loss"]) - float(c["train_loss"])) < 2e-3

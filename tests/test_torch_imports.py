@@ -2,9 +2,11 @@
 module of the JAX package.  Every module of the port is imported, and the
 modules of the gateway slice, of the QuickScorer and sharded-plan slice and
 of the deployment slice (ITRF, ``packed_leaf``, the converter, the worker
-fabric), of the host-C slice (the emitters, the C backends, ``gbt``) and of
+fabric), of the host-C slice (the emitters, the C backends, ``gbt``), of
 the drivers-and-LM slice (configs, the token pipeline, the serving step, the
-driver, the examples, the LM models) must be among them."""
+driver, the examples, the LM models), of the training slice and of the mesh
+slice (``sharding``, the mesh constructors, shapes, roofline, and the
+modules with mesh branches) must be among them."""
 import os
 import subprocess
 import sys
@@ -65,12 +67,20 @@ TRAIN_SLICE = [f"repro_torch.{m}" for m in (
 )]
 
 
+MESH_SLICE = [f"repro_torch.{m}" for m in (
+    "sharding", "sharding.ops", "sharding.rules", "launch.mesh", "launch.shapes",
+    "launch.roofline", "models.layers", "models.moe", "core.serving", "train.step",
+    "train.optimizer", "launch.train", "checkpoint.manager",
+)]
+
+
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT),
                            ",".join(GATEWAY_SLICE + QUICKSCORER_AND_PLANS_SLICE
                                     + DEPLOYMENT_SLICE + HOST_C_SLICE
-                                    + DRIVERS_AND_LM_SLICE + TRAIN_SLICE)],
+                                    + DRIVERS_AND_LM_SLICE + TRAIN_SLICE
+                                    + MESH_SLICE)],
                           env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,0 +1,338 @@
+"""The port's mesh branches against the JAX package's, on the CPU: the
+attention core's layouts, expert-parallel MoE, the sharded tree serving
+step and the sharded train step.
+
+The port runs on 8 gloo ranks of one spawned group as a (data 2, model 4)
+mesh (``torch_dist_ranks.mesh_rank``); the reference runs in one
+subprocess on 8 forced host devices as the same mesh, as
+``tests/test_distributed.py`` runs it, and writes the inputs the ranks
+read.  Both start together in a module fixture.
+
+Tolerances: the attention core within the reference's own 0.02 of its
+mesh result (``tests/test_distributed.py``); the MoE block's bf16 output
+within 0.03 of the reference's (a few bf16 ulps of outputs of magnitude
+about 1: the port adds each token's gated expert rows in float32 and rounds
+once, the reference adds them in bf16), with equal expert ids and equal
+dispatch tables (so the same pairs are dropped); the tree step bit for bit
+with no collective; the train step's loss within the reference's 5e-2 of
+the single-device step's and of the reference's mesh loss, and its gradient
+norm and updated parameters near both (``NORM_TOL``, ``UPDATE_TOL``).  Fault
+C's two-rank case and the (1, 1) mesh's bits are here too.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.models import transformer as tfm
+from repro_torch.train import optimizer as opt
+from repro_torch.train.step import make_train_step
+from repro_torch.train.tree import flatten_with_paths, path_key
+from torch_dist_ranks import (ATTN_CASES, MOE_CAPACITY, MOE_SHAPE, TRAIN_OPT, _unflatten,
+                              mesh_cases, mesh_rank, microbatch_rank, run_ranks)
+
+ROOT = Path(__file__).resolve().parents[1]
+RANKS, SHAPE, AXES = 8, (2, 4), ("data", "model")
+ATTN_TOL, MOE_TOL, LOSS_TOL = 0.02, 0.03, 5e-2
+# the train step's global gradient norm (relative) and each leaf's update
+# (relative L2), set from readings: the port's single-device step 2.9e-5 and
+# 2.4e-3 apart, the reference's steps up to 2.6e-4 and 1.35e-2 (bf16
+# activation gradients rounded in another order); a step that takes half the
+# batch's rows misses by 0.38 and 0.78
+NORM_TOL, UPDATE_TOL, UPDATE_REF_TOL = 1e-3, 2e-2, 5e-2
+
+# the reference side: writes every input and its own results to argv[1]
+JAX_SIDE = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import functools, json
+import jax, jax.numpy as jnp, numpy as np
+from pathlib import Path
+from repro.launch.mesh import compat_make_mesh
+from repro.sharding.ops import use_mesh
+from repro.sharding import rules
+from repro.models.layers import _attn_core
+from repro.models import moe as jmoe, transformer as jtfm
+from repro.configs.base import smoke_config
+from repro.core.serving import tree_serve_step
+from repro.core.packing import pack_forest
+from repro.core.flint import float_to_key
+from repro.data.tabular import make_shuttle_like
+from repro.data.tokens import pipeline_for
+from repro.trees.forest import RandomForestClassifier
+from repro.train import optimizer as opt
+from repro.train.step import make_train_step
+
+out = Path(sys.argv[1])
+cases = json.loads(sys.argv[2])
+capacities = json.loads(sys.argv[3])
+moe_shape = json.loads(sys.argv[4])
+mesh = compat_make_mesh((2, 4), ("data", "model"))
+f32 = lambda a: np.asarray(a, np.float32)
+
+rng = np.random.default_rng(0)
+for name, (qs, ks, kw) in cases.items():
+    q = jnp.asarray(rng.normal(size=qs), jnp.bfloat16)
+    k = jnp.asarray(rng.normal(size=ks), jnp.bfloat16)
+    v = jnp.asarray(rng.normal(size=ks), jnp.bfloat16)
+    ref = _attn_core(q, k, v, **kw)
+    with mesh, use_mesh(mesh):
+        got = jax.jit(lambda a, b, c: _attn_core(a, b, c, mesh=mesh, **kw))(q, k, v)
+    np.savez(out / f"attn_{name}.npz", q=f32(q), k=f32(k), v=f32(v), ref_local=f32(ref),
+             ref_mesh=f32(got))
+
+cfg = smoke_config("olmoe-1b-7b")
+e, kk, d = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+p = jmoe.moe_params(jax.random.PRNGKey(3), d, e, cfg.d_ff)
+x = jnp.asarray(np.random.default_rng(1).normal(size=tuple(moe_shape) + (d,)), jnp.bfloat16)
+res = {k: f32(v) for k, v in p.items()}
+res["x"] = f32(x)
+
+@jax.jit
+def route(xb, wr):
+    xt = xb.reshape(-1, d)
+    return jmoe.flint_topk(xt @ wr.astype(xt.dtype), kk)
+
+def dispatch(ids, lo, e_loc, capacity):
+    # the compact dispatch's lines of the reference's _ep_body
+    t = ids.shape[0]
+    ids_loc = jnp.where((ids >= lo) & (ids < lo + e_loc), ids - lo, e_loc)
+    ids_flat = ids_loc.reshape(-1)
+    onehot = jax.nn.one_hot(ids_flat, e_loc + 1, dtype=jnp.int32)
+    slots = jnp.cumsum(onehot, axis=0) - onehot
+    slot_flat = jnp.take_along_axis(slots, ids_flat[:, None], axis=1)[:, 0]
+    pair_tok = jnp.arange(t * kk, dtype=jnp.int32) // kk
+    src_tok = jnp.full((e_loc, capacity), t, jnp.int32)
+    return src_tok.at[ids_flat, slot_flat].set(pair_tok, mode="drop")
+
+for cf in capacities:
+    fn = functools.partial(jmoe.moe_block, n_experts=e, k=kk, act=cfg.act, capacity_factor=cf)
+    y_loc, aux_loc = jax.jit(fn)(p, x)
+    with mesh, use_mesh(mesh):
+        y, aux = jax.jit(fn)(p, x)
+    res[f"y_local_{cf}"], res[f"aux_local_{cf}"] = f32(y_loc), float(aux_loc)
+    res[f"y_mesh_{cf}"], res[f"aux_mesh_{cf}"] = f32(y), float(aux)
+    half = moe_shape[0] // 2
+    for i in range(2):
+        _, ids = route(x[i * half:(i + 1) * half], p["w_router"])
+        capacity = int(max(1, (ids.shape[0] * kk * cf) // e))
+        res[f"ids_{cf}_{i}"] = np.asarray(ids)
+        for j in range(4):
+            res[f"src_tok_{cf}_{i}_{j}"] = np.asarray(dispatch(ids, j * (e // 4), e // 4,
+                                                               capacity))
+np.savez(out / "moe.npz", **res)
+
+X, y = make_shuttle_like(n=3000, seed=1)
+rf = RandomForestClassifier(n_estimators=8, max_depth=5, seed=0).fit(X, y)
+packed = pack_forest(rf)
+names = ("feature", "threshold_key", "left", "right", "leaf_fixed")
+tables = {k: jnp.asarray(getattr(packed, k)) for k in names}
+keys = float_to_key(jnp.asarray(X[:1024]))
+acc_ref, preds_ref = tree_serve_step(tables, keys, packed.max_depth)
+with mesh, use_mesh(mesh):
+    acc, preds = jax.jit(lambda t, k: tree_serve_step(t, k, packed.max_depth))(tables, keys)
+np.savez(out / "trees.npz", keys=np.asarray(keys), depth=packed.max_depth,
+         acc_local=np.asarray(acc_ref).view(np.int32), acc_mesh=np.asarray(acc).view(np.int32),
+         preds_mesh=np.asarray(preds), **{k: np.asarray(getattr(packed, k)) for k in names})
+
+cfg = smoke_config("granite-3-2b")
+batch = {k: jnp.asarray(v) for k, v in pipeline_for(cfg, 8, 64).batch_at(0).items()}
+params = jtfm.init_params(cfg, jax.random.PRNGKey(0))
+step = make_train_step(cfg, opt.AdamWConfig(**json.loads(sys.argv[5])))
+p1, _, m1 = jax.jit(step)(params, opt.init_opt_state(params), batch)
+with mesh, use_mesh(mesh):
+    pp = jax.tree.map(jax.device_put, params, rules.params_shardings(params, mesh))
+    bb = jax.tree.map(jax.device_put, batch, rules.batch_shardings(mesh, batch))
+    p2, _, m2 = jax.jit(step)(pp, opt.init_opt_state(pp), bb)
+flat = lambda tree: {"/".join(str(k.key) for k in path): np.asarray(v)
+                     for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+np.savez(out / "train.npz", tokens=np.asarray(batch["tokens"]),
+         labels=np.asarray(batch["labels"]), loss_single=float(m1["loss"]),
+         loss_mesh=float(m2["loss"]), norm_single=float(m1["grad_norm"]),
+         norm_mesh=float(m2["grad_norm"]), **{"p:" + k: v for k, v in flat(params).items()},
+         **{"p1:" + k: v for k, v in flat(p1).items()},
+         **{"p2:" + k: v for k, v in flat(p2).items()})
+"""
+
+
+@pytest.fixture(scope="module")
+def sides(tmp_path_factory):
+    """(the reference's directory, the 8 ranks' results): the JAX side
+    writes every input and its own results, then the port's ranks read
+    the inputs."""
+    ref = tmp_path_factory.mktemp("jax")
+    proc = subprocess.run(
+        [sys.executable, "-c", JAX_SIDE, str(ref), json.dumps(ATTN_CASES),
+         json.dumps(MOE_CAPACITY), json.dumps(MOE_SHAPE), json.dumps(TRAIN_OPT)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = tmp_path_factory.mktemp("ranks")
+    run_ranks(mesh_rank, RANKS, str(ref), str(out), SHAPE, AXES)
+    return ref, [dict(np.load(out / f"mesh_{r}.npz")) for r in range(RANKS)]
+
+
+@pytest.mark.parametrize("name", list(ATTN_CASES))
+def test_attention_core_matches_the_reference_mesh(name, sides):
+    ref, ranks = sides
+    a = np.load(ref / f"attn_{name}.npz")
+    for r in ranks:
+        err = np.abs(r[f"attn_{name}"] - a["ref_mesh"]).max()
+        assert err < ATTN_TOL, (name, err)
+        assert np.array_equal(r[f"attn_{name}"], ranks[0][f"attn_{name}"])
+    # the reference's own check: the mesh result within 0.02 of local
+    assert np.abs(a["ref_mesh"] - a["ref_local"]).max() < ATTN_TOL
+    # the per-rank core ran collectives, except the replicated fallback
+    comms = ranks[0][f"attn_{name}_comms"]
+    assert (comms == 0) == (name == "prefill_mqa_fallback"), comms
+
+
+def test_constrain_places_a_dtensor_by_logical_names(sides):
+    """``constrain(x, "batch", "tp")`` on an (8, 12) ``DTensor`` split over
+    (data, model) rows moves it to rows over data and columns over model
+    (the reference's rule), its value unchanged; a plain tensor is kept."""
+    from torch.distributed.tensor import Shard
+
+    _, ranks = sides
+    for r in ranks:
+        assert r["constrain_plain_kept"] and r["constrain_same"]
+        assert r["constrain_placements"] == repr((Shard(0), Shard(1)))
+        assert r["constrain_comms"] > 0
+
+
+@pytest.mark.parametrize("cf", MOE_CAPACITY)
+def test_moe_block_matches_the_reference_mesh(cf, sides):
+    ref, ranks = sides
+    m = np.load(ref / "moe.npz")
+    for rank, r in enumerate(ranks):
+        i, j = divmod(rank, 4)  # (data, model) coordinates
+        assert np.array_equal(r[f"moe_ids_{cf}"], m[f"ids_{cf}_{i}"])
+        src = r[f"moe_src_tok_{cf}"]
+        assert np.array_equal(src, m[f"src_tok_{cf}_{i}_{j}"]), (cf, i, j)
+        err = np.abs(r[f"moe_y_{cf}"] - m[f"y_mesh_{cf}"]).max()
+        assert err < MOE_TOL, (cf, err)
+        assert abs(r[f"moe_aux_{cf}"] - m[f"aux_mesh_{cf}"]) < 1e-5
+        assert r[f"moe_comms_{cf}"] > 0  # the psum over model, the aux mean
+    # which pairs landed: every (token, k) pair of data shard i is in one
+    # model shard's table, or in none when its expert's slots were full
+    t = MOE_SHAPE[0] * MOE_SHAPE[1] // 2
+    for i in range(2):
+        landed = np.concatenate([m[f"src_tok_{cf}_{i}_{j}"].ravel() for j in range(4)])
+        landed = landed[landed < t]
+        dropped = t * 2 - landed.size
+        assert (dropped == 0) == (cf == MOE_CAPACITY[0]), dropped
+
+
+def test_tree_serve_step_is_bit_identical_and_runs_no_collective(sides):
+    ref, ranks = sides
+    t = np.load(ref / "trees.npz")
+    assert np.array_equal(t["acc_mesh"], t["acc_local"])
+    for r in ranks:
+        assert r["tree_comms"] == 0
+        assert r["tree_local_rows"] == t["keys"].shape[0] // RANKS
+        assert np.array_equal(r["tree_acc"], t["acc_mesh"])
+        assert np.array_equal(r["tree_preds"], t["preds_mesh"])
+
+
+def _update_gaps(got: dict, want: dict, before: dict) -> dict:
+    """Per leaf, the relative L2 distance of one step's update to the
+    parameters, ``got - before`` against ``want - before``."""
+    gaps = {}
+    for key, p0 in before.items():
+        step = want[key].astype(np.float64) - p0
+        assert np.linalg.norm(step) > 0, key
+        gaps[key] = float(np.linalg.norm(got[key] - want[key].astype(np.float64))
+                          / np.linalg.norm(step))
+    return gaps
+
+
+def test_sharded_train_step_matches_single_device_and_the_reference(sides):
+    """The (2, 4) mesh's train step against the port's single-device step
+    and the reference's steps on one device and on its mesh: the loss, the
+    global gradient norm and every parameter after the step.  The AdamW
+    config (``TRAIN_OPT``) makes a first step move each parameter by
+    g / (|g| + 1) of its clipped gradient, so a step that loses rows, skips
+    the gradients' mean or takes it over the wrong axis moves the
+    parameters elsewhere."""
+    ref, ranks = sides
+    tr = np.load(ref / "train.npz")
+    cfg = smoke_config("granite-3-2b")
+    before = {k[2:]: tr[k].astype(np.float64) for k in tr.files if k.startswith("p:")}
+    params = tfm.params_from_numpy(
+        cfg, _unflatten({k[2:]: tr[k] for k in tr.files if k.startswith("p:")}), device="cpu")
+    batch = {k: tr[k] for k in ("tokens", "labels")}
+    single, _, m = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))(
+        params, opt.init_opt_state(params), batch)
+    single = {path_key(k): p.detach().numpy() for k, p in flatten_with_paths(single)}
+    got = {k: ranks[0][f"train_p:{k}"] for k in single}
+    assert set(single) == set(before)
+    for r in ranks:
+        assert r["train_step"] == 1
+        assert abs(r["train_loss"] - float(m["loss"])) < LOSS_TOL
+        assert abs(r["train_loss"] - float(tr["loss_mesh"])) < LOSS_TOL
+        assert abs(r["train_loss"] - float(tr["loss_single"])) < LOSS_TOL
+    norm = ranks[0]["train_grad_norm"]
+    for name, want in (("port", float(m["grad_norm"])), ("reference", float(tr["norm_single"])),
+                       ("reference mesh", float(tr["norm_mesh"]))):
+        assert abs(norm - want) / want < NORM_TOL, (name, norm, want)
+    for name, want, tol in (
+            ("port", single, UPDATE_TOL),
+            ("reference", {k: tr["p1:" + k] for k in single}, UPDATE_REF_TOL),
+            ("reference mesh", {k: tr["p2:" + k] for k in single}, UPDATE_REF_TOL)):
+        gaps = _update_gaps(got, want, before)
+        worst = max(gaps, key=gaps.get)
+        assert gaps[worst] < tol, (name, worst, gaps[worst])
+    for r in ranks:
+        assert all(np.array_equal(r[f"train_p:{k}"], got[k]) for k in single)
+
+
+def test_checkpoint_restores_onto_another_mesh(sides):
+    """``CheckpointManager.restore(shardings=)``: the (2, 4) mesh's trained
+    parameters, saved whole, come back on an (8, 1) mesh placed by its
+    rules, bit for bit."""
+    _, ranks = sides
+    for r in ranks:
+        assert r["remesh_placed"] and r["remesh_same"]
+        assert r["remesh_sharded"] > 0
+
+
+def test_fault_c_two_ranks_accumulate_the_reference_microbatches(tmp_path):
+    """Two gloo ranks, no mesh, microbatches=4, a batch of 4 rows: the
+    reference accumulates 4 microbatches (its dp is the mesh's, 1 without
+    one); the port counted the group's 2 ranks and accumulated 2."""
+    run_ranks(microbatch_rank, 2, str(tmp_path), "granite-3-2b", 4, 4, 32)
+    for r in range(2):
+        got = np.load(tmp_path / f"micro_{r}.npz")
+        assert int(got["world"]) == 2
+        assert got["counts"].tolist() == [4]
+        assert np.isfinite(got["loss"])
+
+
+def test_one_by_one_mesh_gives_the_bits_of_no_mesh(sides):
+    """Every branch under a (1, 1) mesh (a process group of this process
+    alone, destroyed as the mesh closes) against the same call without a
+    mesh, bit for bit, and no collective."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    ref, _ = sides
+    with make_host_mesh(device="cpu") as mesh:
+        assert mesh.shape == {"data": 1, "model": 1}
+        on_mesh = mesh_cases(str(ref), mesh, "cpu")
+    assert not dist.is_initialized()
+    no_mesh = mesh_cases(str(ref), None, "cpu")
+    common = set(on_mesh) & set(no_mesh)
+    assert len(common) > 20
+    for key in sorted(common):
+        if key.endswith("_comms"):
+            assert on_mesh[key] == no_mesh[key] == 0, key
+        else:
+            assert np.array_equal(np.asarray(on_mesh[key]), np.asarray(no_mesh[key])), key

@@ -317,7 +317,9 @@ def test_train_driver_checkpoints(tmp_path):
 
 
 def test_train_driver_refuses_the_production_mesh():
+    """The production mesh needs 256 ranks; a process without a group
+    raises with the count it found, and never trains on a smaller mesh."""
     from repro_torch.launch.train import main
 
-    with pytest.raises(SystemExit, match="13c"):
+    with pytest.raises(RuntimeError, match=r"needs a process group of 256 ranks; found none"):
         main(["--arch", "granite-3-2b", "--production-mesh", "--device", "cpu"])

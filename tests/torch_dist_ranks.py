@@ -86,3 +86,248 @@ def dp_train_rank(rank, n, out_dir, arch, batch, seq, steps, lr, device):
         digests.append(params_digest(params))
     np.savez(os.path.join(out_dir, f"dp_{rank}.npz"), losses=np.array(losses),
              digests=np.array(digests))
+
+
+# ---------------------------------------------------------------------------
+# the mesh branches (test_torch_mesh on the CPU, test_torch_cuda on the card)
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = {
+    # name: (q shape, kv shape, _attn_core keywords); the first three are
+    # tests/test_distributed.py's, the last two the merged-head split and
+    # the MQA fallback of a prefill whose kv heads do not divide `model`
+    "train_gqa": ((4, 32, 4, 2, 16), (4, 32, 4, 16), dict(causal=True, window=0, q_chunk=8)),
+    "decode_mqa_seqshard": ((4, 1, 1, 8, 16), (4, 64, 1, 16),
+                            dict(causal=True, window=0, q_chunk=8, q_offset=40, kv_len=41)),
+    "decode_long_batch1": ((1, 1, 4, 2, 16), (1, 128, 4, 16),
+                           dict(causal=True, window=24, q_chunk=8, q_offset=100, kv_len=101)),
+    "prefill_merged_heads": ((4, 16, 2, 4, 16), (4, 16, 2, 16),
+                             dict(causal=True, window=0, q_chunk=8)),
+    "prefill_mqa_fallback": ((2, 16, 1, 2, 16), (2, 16, 1, 16),
+                             dict(causal=True, window=5, q_chunk=8)),
+}
+MOE_CAPACITY = (4.0, 1.0)  # the smoke model's (dropless), and one that drops
+MOE_SHAPE = (4, 16)  # batch, seq of the olmoe smoke block's input
+# the train case's AdamW: with eps 1, no warmup and no weight decay, the
+# first step moves each parameter by g / (|g| + 1) of the clipped gradient g
+# (the default config's first step is about lr * sign(g), which hides the
+# gradient's scale), so the updated parameters show the gradients
+TRAIN_OPT = dict(lr=1.0, eps=1.0, weight_decay=0.0, warmup_steps=1)
+
+
+def comm_count(fn):
+    """(fn(), the collectives it ran by ``CommDebugMode``'s count)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    with CommDebugMode() as cm:
+        out = fn()
+    return out, cm.get_total_counts()
+
+
+def mesh_cases(data_dir: str, mesh, device: str) -> dict:
+    """The mesh branches on the inputs in ``data_dir`` (written by the JAX
+    side of ``test_torch_mesh``): each ``_attn_core`` case, the MoE block of
+    the olmoe smoke model with its dispatch tables, the tree serving step and
+    one train step of the granite smoke model, under ``mesh`` (or without
+    one, for ``mesh=None``).  Returns numpy results; ``*_comms`` count the
+    collectives each ran."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.serving import tree_serve_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import _attn_core
+    from repro_torch.models.moe import ep_dispatch, moe_block, route
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import P, constrain, from_local, gather, local_block, use_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import flatten_with_paths, path_key
+
+    d = Path(data_dir)
+    bf16 = lambda a: torch.from_numpy(a).to(device, torch.bfloat16)
+    out = {}
+    with use_mesh(mesh):
+        # constrain: a DTensor moved to its logical names' placements, a
+        # plain tensor left as it is
+        full = torch.arange(8 * 12, dtype=torch.float32, device=device).reshape(8, 12)
+        out["constrain_plain_kept"] = constrain(full, "batch", "tp") is full
+        if mesh is not None:
+            rows = P(("data", "model"))
+            x = from_local(local_block(full, mesh, rows).contiguous(), mesh, rows)
+            (y, comms) = comm_count(lambda: constrain(x, "batch", "tp"))
+            out["constrain_placements"] = repr(tuple(y.placements))
+            out["constrain_same"] = torch.equal(gather(y), full)
+            out["constrain_comms"] = comms
+        for name, (_, _, kw) in ATTN_CASES.items():
+            a = np.load(d / f"attn_{name}.npz")
+            got, comms = comm_count(lambda: _attn_core(bf16(a["q"]), bf16(a["k"]), bf16(a["v"]),
+                                                       mesh=mesh, **kw))
+            out[f"attn_{name}"] = got.float().cpu().numpy()
+            out[f"attn_{name}_comms"] = comms
+
+        cfg = smoke_config("olmoe-1b-7b")
+        moe = np.load(d / "moe.npz")
+        mp_ = {k: torch.from_numpy(moe[k]).to(device) for k in
+               ("w_router", "w_gate_e", "w_up_e", "w_down_e")}
+        x = bf16(moe["x"])
+        for cf in MOE_CAPACITY:
+            (y, aux), comms = comm_count(lambda: moe_block(
+                mp_, x, n_experts=cfg.n_experts, k=cfg.experts_per_token, act=cfg.act,
+                capacity_factor=cf))
+            out[f"moe_y_{cf}"] = y.float().cpu().numpy()
+            out[f"moe_aux_{cf}"] = float(aux)
+            out[f"moe_comms_{cf}"] = comms
+            if mesh is None:
+                continue
+            # this rank's dispatch table: its data shard's tokens, its experts
+            e_loc = cfg.n_experts // mesh.shape["model"]
+            xt = local_block(x, mesh, P("data")).reshape(-1, cfg.d_model)
+            _, gates, ids = route(mp_, xt, cfg.experts_per_token)
+            capacity = int(max(1, (xt.shape[0] * cfg.experts_per_token * cf) // cfg.n_experts))
+            src_tok, _ = ep_dispatch(ids, gates, mesh.axis_index("model") * e_loc, e_loc,
+                                     capacity)
+            out[f"moe_ids_{cf}"] = ids.cpu().numpy()
+            out[f"moe_src_tok_{cf}"] = src_tok.cpu().numpy()
+
+        t = np.load(d / "trees.npz")
+        tables = {k: t[k] for k in ("feature", "threshold_key", "left", "right", "leaf_fixed")}
+        (acc, preds), comms = comm_count(lambda: tree_serve_step(
+            tables, t["keys"], int(t["depth"]), device=device))
+        out["tree_comms"] = comms
+        out["tree_local_rows"] = (acc if mesh is None else acc.to_local()).shape[0]
+        out["tree_acc"] = gather(acc).view(torch.int32).cpu().numpy()
+        out["tree_preds"] = gather(preds).cpu().numpy()
+
+        cfg = smoke_config("granite-3-2b")
+        tr = np.load(d / "train.npz")
+        params = tfm.params_from_numpy(
+            cfg, _unflatten({k[2:]: tr[k] for k in tr.files if k.startswith("p:")}),
+            device=device)
+        if mesh is not None:
+            params = rules.place(params, rules.params_shardings(params, mesh))
+        ostate = opt.init_opt_state(params)
+        batch = {k: tr[k] for k in ("tokens", "labels")}
+        params, ostate, m = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))(
+            params, ostate, batch)
+        out["train_loss"] = float(m["loss"])
+        out["train_grad_norm"] = float(m["grad_norm"])
+        out["train_step"] = int(ostate["step"])
+        for path, p in flatten_with_paths(params):
+            out[f"train_p:{path_key(path)}"] = gather(p).detach().cpu().numpy()
+    if mesh is not None:
+        out.update(_remesh_restore(d / f"ckpt_{dist.get_rank()}", params, mesh, device))
+    return out
+
+
+def _remesh_restore(directory, params, mesh, device) -> dict:
+    """The sharded parameters saved (gathered whole) and restored onto a
+    mesh of another shape, every rank on ``data`` (the elastic re-mesh
+    path): each leaf comes back placed by that mesh's rule, its value the
+    saved one."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import gather
+    from repro_torch.train.tree import tree_leaves
+
+    mgr = CheckpointManager(directory)
+    mgr.save(1, {"params": params})
+    other = compat_make_mesh((mesh.size, 1), ("data", "model"), device=device)
+    shardings = rules.params_shardings(params, other)
+    back = mgr.restore(1, {"params": params}, shardings={"params": shardings})["params"]
+    pairs = list(zip(tree_leaves(back), tree_leaves(params), tree_leaves(shardings)))
+    return {"remesh_placed": all(b.device_mesh is other.device_mesh
+                                 and tuple(b.placements) == s.placements for b, _, s in pairs),
+            "remesh_same": all(torch.equal(gather(b), gather(p).detach()) for b, p, _ in pairs),
+            "remesh_sharded": sum(any(e is not None for e in s.spec) for _, _, s in pairs)}
+
+
+def _unflatten(flat: dict) -> dict:
+    """{"a/b": x} -> {"a": {"b": x}}."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *head, last = key.split("/")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return tree
+
+
+def mesh_rank(rank, n, data_dir, out_dir, shape, axes, device="cpu"):
+    """Rank r of a ``shape`` mesh over ``axes`` on ``device``:
+    ``mesh_cases``, and the collectives staged through the host, saved as
+    ``mesh_<r>.npz``."""
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.sharding.ops import STAGED
+
+    mesh = compat_make_mesh(shape, axes, device=device)
+    out = mesh_cases(data_dir, mesh, device)
+    np.savez(os.path.join(out_dir, f"mesh_{rank}.npz"), staged=sum(STAGED.values()), **out)
+
+
+def write_mesh_inputs(data_dir, seed: int = 0) -> None:
+    """``mesh_cases``' inputs made by this package alone (numpy and the
+    port; no JAX): random bf16 attention inputs, the olmoe smoke block's
+    drawn weights, a small forest's packed tables and keys, and the granite
+    smoke model's drawn weights with a token batch."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.flint import float_to_key
+    from repro_torch.core.packing import pack_forest
+    from repro_torch.data.tabular import make_shuttle_like
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import Init
+    from repro_torch.models.moe import moe_params
+    from repro_torch.train.tree import flatten_with_paths, path_key
+    from repro_torch.trees.forest import RandomForestClassifier
+
+    d = Path(data_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    bf16 = lambda shape: torch.from_numpy(rng.normal(size=shape)).to(torch.bfloat16).float().numpy()
+    for name, (qs, ks, _) in ATTN_CASES.items():
+        np.savez(d / f"attn_{name}.npz", q=bf16(qs), k=bf16(ks), v=bf16(ks))
+    cfg = smoke_config("olmoe-1b-7b")
+    init = Init(torch.Generator().manual_seed(seed), torch.device("cpu"))
+    mp_ = moe_params(init, cfg.d_model, cfg.n_experts, cfg.d_ff)
+    np.savez(d / "moe.npz", x=bf16(MOE_SHAPE + (cfg.d_model,)),
+             **{k: v.numpy() for k, v in mp_.items()})
+    X, y = make_shuttle_like(n=3000, seed=1)
+    packed = pack_forest(RandomForestClassifier(n_estimators=8, max_depth=5, seed=0).fit(X, y))
+    np.savez(d / "trees.npz", keys=float_to_key(torch.from_numpy(X[:1024])).numpy(),
+             depth=packed.max_depth, **{k: getattr(packed, k) for k in
+                                        ("feature", "threshold_key", "left", "right",
+                                         "leaf_fixed")})
+    cfg = smoke_config("granite-3-2b")
+    params = tfm.init_params(cfg, seed, device="cpu")
+    np.savez(d / "train.npz", **pipeline_for(cfg, 8, 64).batch_at(0),
+             **{"p:" + path_key(p): t.numpy() for p, t in flatten_with_paths(params)})
+
+
+def microbatch_rank(rank, n, out_dir, arch, microbatches, batch, seq):
+    """One ``make_train_step`` step of ``arch``'s smoke model with
+    ``microbatches`` in a process group without a mesh, the microbatch
+    count recorded where ``accumulate_grads`` is called; saved as
+    ``micro_<r>.npz``."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+
+    counts = []
+    real = step_mod.accumulate_grads
+
+    def spy(cfg, params, b, n_micro=1):
+        counts.append(n_micro)
+        return real(cfg, params, b, n_micro)
+
+    step_mod.accumulate_grads = spy
+    cfg = dataclasses.replace(smoke_config(arch), microbatches=microbatches)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    _, _, m = step_mod.make_train_step(cfg, opt.AdamWConfig())(
+        params, opt.init_opt_state(params), pipeline_for(cfg, batch, seq).batch_at(0))
+    np.savez(os.path.join(out_dir, f"micro_{rank}.npz"), counts=np.array(counts),
+             loss=float(m["loss"]), world=dist.get_world_size())
