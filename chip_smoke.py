@@ -154,7 +154,22 @@ with one CUDA card.  It
      meanwhile, in this process, the granite cut's train step under a 1 x 1
      NCCL mesh, bit for bit against the step without a mesh.  The
      collectives the ranks staged through the host (CUDA tensors on gloo)
-     are printed.
+     are printed,
+ 14. repairs fault D on the card and runs the dry run (the kernels' launch
+     counters set to 0 just before and read just after, in this process and
+     in every rank: none is launched): granite-3-2b at full width takes one
+     step of 8 x 512 tokens in one process (microbatches of one row) and
+     then as (data 2, model 1) in two processes on the card over gloo, each
+     rank holding only its blocks of the parameters and moments, gathering
+     a layer at a time and reduce-scattering the gradients into its blocks;
+     each rank's loss, gradient norm and every leaf's update held to step
+     13e's gates against the one-process step, and each rank's held bytes
+     and peak memory printed beside the one-process step's; and three cells
+     of ``python -m repro_torch.launch.dryrun`` (granite-3-2b and
+     gemma3-27b ``train_4k`` on 16 x 16, intreeger-rf ``serve_1m`` on
+     2 x 16 x 16), started on the host CPU when the run starts (no card),
+     each of which must be ``ok``, with their per-rank argument and peak
+     bytes, dominant roofline term and useful ratio printed.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -171,6 +186,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import importlib
 import importlib.util
 import json
@@ -426,6 +442,28 @@ MESH_PROGRAM = (
     f"sys.path.insert(0, {str(ROOT)!r})\n"
     "import chip_smoke\n"
     "chip_smoke.mesh_rank(*sys.argv[1:])\n")
+
+# the sharded-step phase (14a): granite-3-2b at full width takes one step of
+# TRAIN_BATCH x TRAIN_SEQ tokens (12a's model, seed and batch) with
+# MESH_TRAIN_OPT in one process, then as (data FSDP_RANKS, model 1) in
+# FSDP_RANKS processes on the card over gloo, each rank holding only its
+# blocks and gathering a layer at a time; 13e's gates (MESH_TRAIN_TOL,
+# MESH_TRAIN_UPDATE_TOL, MESH_TRAIN_NORM_TOL) against the one-process step
+FSDP_RANKS = 2
+FSDP_DIR = ROOT / "build" / "chip_smoke_fsdp"
+FSDP_PROGRAM = (
+    "import sys\n"
+    f"sys.path.insert(0, {str(ROOT)!r})\n"
+    "import chip_smoke\n"
+    "chip_smoke.fsdp_rank(*sys.argv[1:])\n")
+# the dry-run phase (14b): these cells (architecture, shape, the 2 x 16 x 16
+# mesh or the 16 x 16 one) in processes on the host CPU, started with the run
+# and read at its end, when they have DRYRUN_TIMEOUT_S more to finish
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", False), ("gemma3-27b", "train_4k", False),
+                ("intreeger-rf", "serve_1m", True))
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT_S = 300
+
 
 def fail(message: str, code: int = 1):
     print(f"chip_smoke: FAIL: {message}", file=sys.stderr)
@@ -2963,6 +3001,212 @@ def mesh_phase(ir, seed: int, dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sharded-step and dry-run phase: fault D's repair on the card, and the
+# dry run of the production meshes on the host
+# ---------------------------------------------------------------------------
+
+def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda") -> None:
+    """One rank of step 14a, in its own process of a gloo group with CUDA
+    tensors.  Rank 0 first takes the step in one process (no mesh, in
+    microbatches of one row, as each rank's), keeping the weights before
+    and after it on the host; then every rank places
+    the same weights as (data ``world``, model 1) blocks and takes the
+    sharded step; the parameters are gathered a leaf at a time and rank 0
+    holds each leaf's update against the one-process step's.  Prints one
+    ``FSDP_RANK`` JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.kernels import tree_traverse as tt
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import STAGED, gather, use_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import flatten_with_paths, path_key, tree_leaves
+
+    import dataclasses
+
+    rank, world, seed = int(rank), int(world), int(seed)
+    dev = torch.device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        tt.reset_launches()
+        cfg = get_config(LM_ARCH)
+        batch = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed).batch_at(0)
+        step = make_train_step(cfg, opt.AdamWConfig(**MESH_TRAIN_OPT))
+        out = {}
+        if rank == 0:
+            # microbatches of one row, as each rank's are: cuBLAS picks its
+            # algorithm by shape, and 2-row products moved the updates 1.6e-2
+            one = dataclasses.replace(cfg, microbatches=TRAIN_BATCH)
+            params = tfm.init_params(cfg, seed, device=dev)
+            before = [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, ostate, m = make_train_step(one, opt.AdamWConfig(**MESH_TRAIN_OPT))(
+                params, opt.init_opt_state(params), batch)
+            torch.cuda.synchronize()
+            out["single"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                 step_ms=(time.perf_counter() - t0) * 1e3,
+                                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            want = [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
+            del params, ostate, m
+            torch.cuda.empty_cache()
+        dist.barrier()
+        t_mesh = time.perf_counter()
+        mesh = compat_make_mesh((world, 1), ("data", "model"), device=dev)
+        params = tfm.init_params(cfg, seed, device=dev)
+        params = rules.place(params, rules.params_shardings(params, mesh))
+        torch.cuda.empty_cache()
+        ostate = opt.init_opt_state(params)
+        held = sum(t.to_local().numel() * 4 for tree in (params, ostate["m"], ostate["v"])
+                   for t in tree_leaves(tree))
+        STAGED.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            params, ostate, m = step(params, ostate, batch)
+        torch.cuda.synchronize()
+        out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   step=int(ostate["step"]), step_ms=(time.perf_counter() - t0) * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                   held_gib=held / 2**30, staged=dict(STAGED))
+        t0 = time.perf_counter()
+        gaps = {}
+        with torch.no_grad():
+            for i, (path, p) in enumerate(flatten_with_paths(params)):
+                whole = gather(p)
+                if rank == 0:
+                    gaps[path_key(path)] = update_gap(whole, want[i], before[i])
+                del whole
+        out.update(compare_s=time.perf_counter() - t0, mesh_s=time.perf_counter() - t_mesh)
+        if rank == 0:
+            worst = max(gaps, key=gaps.get)
+            out.update(update_gap=gaps[worst], worst_leaf=worst)
+        print("FSDP_RANK " + json.dumps(dict(out, rank=rank, launches=dict(tt.LAUNCHES))),
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def update_gap(got, want, before, chunk: int = 1 << 26) -> float:
+    """||got - want|| / ||want - before|| in float64, ``got`` on the card
+    and the host's ``want`` and ``before`` moved there a chunk at a time."""
+    got, want, before = got.reshape(-1), want.reshape(-1), before.reshape(-1)
+    num = den = 0.0
+    for i in range(0, got.numel(), chunk):
+        g = got[i:i + chunk].double()
+        w = want[i:i + chunk].to(got.device).double()
+        b = before[i:i + chunk].to(got.device).double()
+        num += float(((g - w) ** 2).sum())
+        den += float(((w - b) ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def fsdp_phase(seed: int, card: str) -> dict:
+    """Step 14a: fault D's repair at full width on the card.  Returns the
+    ranks' kernel launches (all 0: the training path runs no hand-written
+    kernel)."""
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    FSDP_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    outs = finish_modules(start_modules(
+        [[str(r), str(FSDP_RANKS), str(FSDP_DIR / "store"), str(seed)]
+         for r in range(FSDP_RANKS)], wrapper=FSDP_PROGRAM), timeout=1000)
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    ranks = []
+    for out in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("FSDP_RANK ")]
+        if not lines:
+            fail(f"a rank of step 14a printed no result:\n{out[-3000:]}")
+        ranks.append(json.loads(lines[-1].split(" ", 1)[1]))
+    ranks.sort(key=lambda r: r["rank"])
+    single = ranks[0]["single"]
+    norm_gap = max(abs(r["grad_norm"] - single["grad_norm"]) / single["grad_norm"] for r in ranks)
+    if any(abs(r["loss"] - single["loss"]) > MESH_TRAIN_TOL or r["step"] != 1 for r in ranks) \
+            or not ranks[0]["update_gap"] <= MESH_TRAIN_UPDATE_TOL \
+            or not norm_gap <= MESH_TRAIN_NORM_TOL:
+        fail(f"the sharded step at full width: {ranks} (loss tolerance {MESH_TRAIN_TOL}, update "
+             f"{MESH_TRAIN_UPDATE_TOL}, gradient norm {MESH_TRAIN_NORM_TOL})")
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"{card} | fsdp 14a: {LM_ARCH} at full width, one train step of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens as (data {FSDP_RANKS}, model 1) in {FSDP_RANKS} processes on the "
+          f"card over gloo (collectives staged through the host), each rank holding its "
+          f"blocks and gathering a layer at a time: losses "
+          f"{[round(r['loss'], 6) for r in ranks]} against {single['loss']:.6f} in one process "
+          f"(tolerance {MESH_TRAIN_TOL}); with AdamW {MESH_TRAIN_OPT}: every leaf's update within "
+          f"{ranks[0]['update_gap']:.3e} (relative L2, worst {ranks[0]['worst_leaf']}; tolerance "
+          f"{MESH_TRAIN_UPDATE_TOL}), gradient norms {[round(r['grad_norm'], 6) for r in ranks]} "
+          f"against {single['grad_norm']:.6f} ({norm_gap:.2e} apart; tolerance "
+          f"{MESH_TRAIN_NORM_TOL}); parameters and moments held "
+          f"{[round(r['held_gib'], 3) for r in ranks]} GiB a rank; peak memory (max allocated) "
+          f"{[round(r['peak_gib'], 3) for r in ranks]} GiB a rank against {single['peak_gib']:.3f} "
+          f"GiB for the one-process step; step {[round(r['step_ms'], 1) for r in ranks]} ms a rank "
+          f"against {single['step_ms']:.1f} ms in one process ({TRAIN_BATCH} microbatches of one "
+          f"row, each rank's shape; its first step; host clock); "
+          f"collectives staged {[r['staged'] for r in ranks]}; from the ranks' first barrier to "
+          f"the compared parameters {[round(r['mesh_s'], 1) for r in ranks]} s (the gathers and "
+          f"comparisons {[round(r['compare_s'], 1) for r in ranks]} s); 14a {seconds:.2f} s")
+    return dict(ranks=ranks, single=single, norm_gap=norm_gap, seconds=seconds,
+                launches=launches)
+
+
+def start_dryrun() -> list:
+    """Start each cell of DRYRUN_CELLS in a process of its own on the host
+    CPU (``python -m repro_torch.launch.dryrun``; no card)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    return start_modules([["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                           "--out", str(DRYRUN_DIR)] + (["--multi-pod"] if multi_pod else [])
+                          for arch, shape, multi_pod in DRYRUN_CELLS])
+
+
+def dryrun_phase(started: list, card: str) -> list:
+    """Step 14b: the dry run's cells, each ``ok`` (the processes exit 1 on a
+    failed cell), with their per-rank argument and peak bytes, dominant
+    roofline term and useful ratio."""
+    t0 = time.perf_counter()
+    finish_modules(started, timeout=DRYRUN_TIMEOUT_S)
+    waited = time.perf_counter() - t0
+    records = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        mesh = "2x16x16" if multi_pod else "16x16"
+        rec = json.loads((DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json").read_text())
+        if not rec["ok"]:
+            fail(f"dry run {arch} {shape} {mesh}: {rec.get('error')}")
+        m, r = rec["memory"], rec["roofline"]
+        records.append(dict(arch=arch, shape=shape, mesh=mesh, chips=rec["chips"],
+                            run_s=rec["run_s"], argument_gib=m["argument_size_in_bytes"] / 2**30,
+                            peak_gib=m["peak_bytes"] / 2**30, dominant=r["dominant"],
+                            compute_s=r["compute_s"], memory_s=r["memory_s"],
+                            collective_s=r["collective_s"], useful_ratio=r["useful_ratio"],
+                            collective_bytes=rec["collectives"]["total"],
+                            flops=rec["jaxpr_cost"]["flops"],
+                            library_flops_a_rank=rec["cost_xla_reference"]["flops"]))
+        print(f"{card} | dryrun 14b: {arch} {shape} on {mesh} ({rec['chips']} ranks of a fake "
+              f"process group, meta tensors, on the host CPU): argument "
+              f"{records[-1]['argument_gib']:.3f} GiB and peak {records[-1]['peak_gib']:.3f} GiB a "
+              f"rank; dominant {r['dominant']} (compute {r['compute_s']:.3e} s, memory "
+              f"{r['memory_s']:.3e} s, collective {r['collective_s']:.3e} s); useful ratio "
+              f"{r['useful_ratio']:.4f}; collective bytes a rank {rec['collectives']['total']}; "
+              f"{rec['run_s']} s to run the rank's program")
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    print(f"dryrun 14b: waited {waited:.2f} s for the cells at the end of the run")
+    return records
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3027,6 +3271,9 @@ def main() -> None:
         print(json.dumps({"kernel_times": times, "src": str(src)}))
         return
     if_else = start_if_else_builds(ir, dev)
+    # 14b's dry-run cells need no card: they run on the host from here on
+    dryrun = start_dryrun()
+    atexit.register(lambda: [proc.kill() for _, proc in dryrun if proc.poll() is None])
 
     # 3. the main path, with the launch counters read around it
     routes = ("integer:cuda@leaf_major", "flint:cuda@leaf_major",
@@ -3276,10 +3523,24 @@ def main() -> None:
 
     # 13. the mesh, with the launch counters read around it (all 0)
     mesh = mesh_phase(ir, args.seed, dev, card)
+    torch.cuda.empty_cache()
+
+    # 14. fault D's repair on the card and the dry run, with the launch
+    # counters read around them (all 0)
+    t_phase = time.perf_counter()
+    tt.reset_launches()
+    fsdp = fsdp_phase(args.seed, card)
+    fsdp_launches = {k: fsdp["launches"].get(k, 0) + v for k, v in tt.LAUNCHES.items()}
+    dry = dryrun_phase(dryrun, card)
+    seconds = time.perf_counter() - t_phase
+    print(f"{card} | fsdp and dry-run phase: {seconds:.2f} s; kernel launches {fsdp_launches}")
+    print(json.dumps({"fsdp": dict(fsdp, phase_s=seconds), "dryrun": dry}))
+    if any(fsdp_launches.values()):
+        fail(f"the sharded step launched a hand-written kernel: {fsdp_launches}")
 
     paths = {"engine": launches, "gateway": gw_launches, "plan_gateway": plan_launches,
              **deploy, "host_c": host_c["mixed"], "host_c_gateway": host_c["gateway"],
-             "drivers": drivers, "train": train, "mesh": mesh}
+             "drivers": drivers, "train": train, "mesh": mesh, "fsdp": fsdp_launches}
     kernels_out = [dict(rows_out[name], launches=sum(p.get(name, 0) for p in paths.values()),
                         launches_by_path={k: p.get(name, 0) for k, p in paths.items()})
                    for name in REPLACES]

@@ -10,7 +10,9 @@ limit): bf16 tensor-core peak 989 TFLOP/s, HBM3 3.35 TB/s, and NVLink 4's
     collective = collective_bytes_per_dev / LINK_BW
 
 A record gives its flops and bytes as global quantities and its collective
-bytes per device (the dry run's cost analyses, which this package does not have yet).
+bytes per device: ``launch.dryrun`` writes them, from ``launch.op_cost``
+(one rank's flops and byte bound times the ranks) and
+``launch.comm_analysis`` (one rank's collective result bytes).
 MODEL_FLOPS is the analytic useful work (6·N·D train, 2·N·D forward, with
 N_active for MoE); the ratio MODEL_FLOPS / flops_global flags
 recomputation and redundant work.

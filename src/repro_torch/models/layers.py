@@ -249,14 +249,27 @@ def _attn_specs(mesh, b, kh, g, skv, sq):
     return tuple(batch_axes), kv_sharded, seq_axis
 
 
+def _write_cache(cache, pos: int, new) -> None:
+    """``new`` (B, S, K, Dh) into the cache at positions [pos, pos + S), in
+    place; a ``sharding.ops.Block`` cache (a rank's share, placed by
+    ``rules.cache_shardings``) takes this rank's share of it."""
+    from repro_torch.sharding.ops import Block
+
+    if isinstance(cache, Block):
+        cache.put(1, pos, new.to(cache.dtype))
+    else:
+        cache[:, pos:pos + new.shape[1]] = new.to(cache.dtype)
+
+
 def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int = 0,
               rope_theta=10000.0, q_chunk=512, kv_cache=None, cache_pos: Optional[int] = None):
     """Full attention layer.  x: (B, S, D).
 
-    If ``kv_cache`` is given (dict with k/v of shape (B, Smax, K, Dh)), the
-    new K/V are written into it at ``cache_pos`` (slice assignment, in
-    place) and attention runs over the cache with its tail beyond
-    ``cache_pos + S`` masked.  Returns (out, the cache or None).
+    If ``kv_cache`` is given (dict with k/v of shape (B, Smax, K, Dh), or
+    their ``Block``s under a mesh), the new K/V are written into it at
+    ``cache_pos`` (slice assignment, in place) and attention runs over the
+    cache with its tail beyond ``cache_pos + S`` masked.  Returns (out, the
+    cache or None).
 
     Under an active mesh the score/softmax core runs per rank
     (``_attn_core``).  Where the kv heads do not divide the ``model`` axis
@@ -282,8 +295,8 @@ def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int 
         if cache_pos + s > ck.shape[1]:
             raise ValueError(f"cache of {ck.shape[1]} positions cannot take {s} more "
                              f"at position {cache_pos}")
-        ck[:, cache_pos:cache_pos + s] = xk.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + s] = xv.to(cv.dtype)
+        _write_cache(ck, cache_pos, xk)
+        _write_cache(cv, cache_pos, xv)
         out = _attn_core(xq.reshape(b, s, kh, g, dh), ck, cv, causal=causal, window=window,
                          q_chunk=q_chunk, q_offset=cache_pos, kv_len=cache_pos + s, mesh=mesh)
     else:

@@ -77,6 +77,27 @@ def _select(tree, idx: int):
     return tree_map(lambda a: a[idx], tree)
 
 
+def _gathered(tree):
+    """``tree`` with each ``sharding.ops.Block`` (a rank's share of a
+    parameter, as the sharded train step passes them) gathered whole; its
+    gradient flows back to the block.  Plain tensors pass as they are."""
+    from repro_torch.sharding.ops import Block
+
+    return tree_map(lambda a: a.whole() if isinstance(a, Block) else a, tree)
+
+
+def _layer(tree, idx: int):
+    """Layer ``idx`` of stacked leaves, gathered where they are blocks."""
+    return _gathered(_select(tree, idx))
+
+
+def gather_top(params):
+    """The leaves outside the stacked blocks (embedding, head, projector,
+    final norm) gathered where they are blocks: once a forward pass, or
+    once a step where the step gathers them first."""
+    return {k: v if k in ("blocks", "shared") else _gathered(v) for k, v in params.items()}
+
+
 def _unbind(tree, n: int) -> list:
     """The ``n`` sets stacked on the leading axis of ``tree``'s leaves, as a
     list of trees of views.  In the backward pass one unbind stacks every
@@ -290,8 +311,10 @@ def backbone(cfg: ModelConfig, params, x, *, remat: bool = True):
     causal = not cfg.encoder_only
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
+    # each block's parameters are gathered inside its (recomputed) body,
+    # where the caller passes them as blocks (the sharded train step)
     if cfg.family in ("ssm", "hybrid"):
-        ssm_block = _checkpointed(lambda bp, x: _apply_ssm_block(cfg, bp, x), remat)
+        ssm_block = _checkpointed(lambda bp, x: _apply_ssm_block(cfg, _gathered(bp), x), remat)
 
     blocks = _unbind(params["blocks"], cfg.n_layers)
     if cfg.family == "ssm":
@@ -302,7 +325,7 @@ def backbone(cfg: ModelConfig, params, x, *, remat: bool = True):
     if cfg.family == "hybrid":
         n_groups, every = _hybrid_groups(cfg)
         shared_block = _checkpointed(
-            lambda sp, x: _apply_attn_block(cfg, sp, x, positions, 0)[0], remat)
+            lambda sp, x: _apply_attn_block(cfg, _gathered(sp), x, positions, 0)[0], remat)
         shared = _unbind(params["shared"], cfg.hybrid_shared_sets)
         for g in range(n_groups):
             for j in range(every):
@@ -312,7 +335,7 @@ def backbone(cfg: ModelConfig, params, x, *, remat: bool = True):
 
     # dense / moe / vlm / audio: one block per layer with its window
     def block(bp, x, w):
-        h, _, aux = _apply_attn_block(cfg, bp, x, positions, w, causal=causal)
+        h, _, aux = _apply_attn_block(cfg, _gathered(bp), x, positions, w, causal=causal)
         return h, aux
 
     block = _checkpointed(block, remat)
@@ -364,6 +387,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
     """(CE + ``aux_weight`` x the MoE load-balancing loss, {"ce", "aux"}) of
     a batch of tensors: ``tokens`` (or ``frames``; ``patches`` for the vlm)
     and ``labels`` (-1 where a position has no target)."""
+    params = gather_top(params)
     x, label_offset = embed_inputs(cfg, params, batch)
     x, aux = backbone(cfg, params, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -373,6 +397,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
 
 def forward_logits(cfg: ModelConfig, params, batch):
     """Full logits (B, S, V) float32 (smoke tests / small models only)."""
+    params = gather_top(params)
     x, _ = embed_inputs(cfg, params, batch)
     x, _ = backbone(cfg, params, x, remat=False)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -412,7 +437,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=COMPUTE_DTYPE, 
 
 
 def _ssm_decode_layer(cfg, bp, x, cache, l: int):
-    layer_cache = _select(cache["ssm"], l)
+    layer_cache = _layer(cache["ssm"], l)
     h, new_c = ssm_mod.ssd_decode_step(
         bp["ssm"],
         rms_norm(x, bp["ln1"], cfg.norm_eps),
@@ -432,25 +457,26 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     its new cache)."""
     pos = cache["pos"]
     b = tokens.shape[0]
+    params = gather_top(params)
     x = params["embed"][tokens.long()].to(COMPUTE_DTYPE)
     positions = _positions(b, 1, x.device, start=pos)
 
     if cfg.family == "ssm":
         for l in range(cfg.n_layers):
-            x = _ssm_decode_layer(cfg, _select(params["blocks"], l), x, cache, l)
+            x = _ssm_decode_layer(cfg, _layer(params["blocks"], l), x, cache, l)
     elif cfg.family == "hybrid":
         n_groups, every = _hybrid_groups(cfg)
         for g in range(n_groups):
             for j in range(every):
                 l = g * every + j
-                x = _ssm_decode_layer(cfg, _select(params["blocks"], l), x, cache, l)
-            sp = _select(params["shared"], g % cfg.hybrid_shared_sets)
+                x = _ssm_decode_layer(cfg, _layer(params["blocks"], l), x, cache, l)
+            sp = _layer(params["shared"], g % cfg.hybrid_shared_sets)
             x, _, _ = _apply_attn_block(cfg, sp, x, positions, 0,
                                         kv_cache={"k": cache["k"][g], "v": cache["v"][g]},
                                         cache_pos=pos)
     else:
         for l, w in enumerate(window_schedule(cfg)):
-            x, _, _ = _apply_attn_block(cfg, _select(params["blocks"], l), x, positions, w,
+            x, _, _ = _apply_attn_block(cfg, _layer(params["blocks"], l), x, positions, w,
                                         kv_cache={"k": cache["k"][l], "v": cache["v"][l]},
                                         cache_pos=pos)
     cache["pos"] = pos + 1
@@ -478,6 +504,7 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: Optional[int] = None):
     the chunked SSD returns the final (conv, state) pair per layer, handing
     off exactly to ``ssd_decode_step``.
     """
+    params = gather_top(params)
     x, _ = embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
@@ -485,7 +512,7 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: Optional[int] = None):
     cache = init_cache(cfg, b, max_seq, device=x.device)
 
     def ssm_layer(l, x):
-        x, state = _ssm_block_prefill(cfg, _select(params["blocks"], l), x)
+        x, state = _ssm_block_prefill(cfg, _layer(params["blocks"], l), x)
         for k, v in state.items():
             cache["ssm"][k][l] = v
         return x
@@ -498,13 +525,13 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: Optional[int] = None):
         for g in range(n_groups):
             for j in range(every):
                 x = ssm_layer(g * every + j, x)
-            sp = _select(params["shared"], g % cfg.hybrid_shared_sets)
+            sp = _layer(params["shared"], g % cfg.hybrid_shared_sets)
             x, _, _ = _apply_attn_block(cfg, sp, x, positions, 0,
                                         kv_cache={"k": cache["k"][g], "v": cache["v"][g]},
                                         cache_pos=0)
     else:
         for l, w in enumerate(window_schedule(cfg)):
-            x, _, _ = _apply_attn_block(cfg, _select(params["blocks"], l), x, positions, w,
+            x, _, _ = _apply_attn_block(cfg, _layer(params["blocks"], l), x, positions, w,
                                         kv_cache={"k": cache["k"][l], "v": cache["v"][l]},
                                         cache_pos=0, causal=not cfg.encoder_only)
     cache["pos"] = s

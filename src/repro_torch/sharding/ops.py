@@ -29,6 +29,14 @@ dimensions left out replicate): ``None``, a mesh axis name, or a tuple of
 names, the first the most significant, as ``jax.sharding.PartitionSpec``
 entries are.
 
+A ``Block`` is this rank's block of a parameter (or cache) under its spec.
+The sharded train step hands the model ``Block``s, and the model gathers
+one layer's parameters at a time (``Block.whole``, through
+``gather_block``), whose backward sums the gradient over the batch axes
+into this rank's block: FSDP over ``data`` with the parameters' ``model``
+blocks, as the reference's partitioned program gathers a layer inside the
+scanned block and reduce-scatters its gradients.
+
 Every collective goes through ``_collective``.  gloo carries CPU tensors;
 a CUDA tensor on a gloo group (several ranks on one card, where NCCL
 refuses a second rank) is copied to the host, reduced or gathered there
@@ -54,9 +62,13 @@ _LOGICAL = {
     "rows": ("pod", "data", "model"),  # tabular serving: rows over everything
 }
 
-# host-staged collectives by name ("all_reduce", "all_gather") in this
-# process; read by the smoke run, reset by the caller
+# host-staged collectives by name ("all_reduce", "all_gather",
+# "reduce_scatter") in this process; read by the smoke run, reset by the
+# caller
 STAGED: Counter = Counter()
+# the mesh axes a batch splits over (pure data parallelism over pods, FSDP
+# over data); every other axis sees the same rows
+BATCH_AXES = ("pod", "data")
 
 
 class P(tuple):
@@ -219,10 +231,10 @@ def _staged(t: torch.Tensor, group) -> bool:
 
 
 def _collective(name: str, t: torch.Tensor, group, **kw):
-    """``all_reduce`` (``op=``) or ``all_gather`` of ``t`` over ``group``,
-    on a copy: returns the reduced tensor, or the list of every rank's
-    tensor in rank order.  A CUDA tensor on a group without NCCL is staged
-    through the host."""
+    """``all_reduce`` (``op=``), ``reduce_scatter`` (the sum, this rank's
+    share of dimension 0) or ``all_gather`` (every rank's tensor in rank
+    order, concatenated along ``dim=``) of ``t`` over ``group``, on a copy.
+    A CUDA tensor on a group without NCCL is staged through the host."""
     staged = _staged(t, group)
     if staged:
         STAGED[name] += 1
@@ -230,13 +242,23 @@ def _collective(name: str, t: torch.Tensor, group, **kw):
         work = t.detach().to("cpu", copy=True) if staged else t.detach().clone()
         dist.all_reduce(work, op=kw["op"], group=group)
         return work.to(t.device) if staged else work
+    if name == "reduce_scatter":
+        work = (t.detach().cpu() if staged else t.detach()).contiguous()
+        n = dist.get_world_size(group)
+        out = work.new_empty((work.shape[0] // n,) + tuple(work.shape[1:]))
+        # torch 2.13 renames the single-tensor collectives; the card's 2.11
+        # has only the old names
+        getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(out, work,
+                                                                           group=group)
+        return out.to(t.device) if staged else out
     # gloo has no unsigned type wider than a byte: gather the bits as the
     # signed type of their width
-    work = (t.detach().cpu() if staged else t.detach()).contiguous()
+    dim = kw["dim"]
+    work = (t.detach().cpu() if staged else t.detach()).movedim(dim, 0).contiguous()
     work = work.view(_SIGNED.get(work.dtype, work.dtype))
-    parts = [torch.empty_like(work) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, work, group=group)
-    return [p.view(t.dtype).to(t.device) for p in parts]
+    out = work.new_empty((work.shape[0] * dist.get_world_size(group),) + tuple(work.shape[1:]))
+    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, work, group=group)
+    return out.view(t.dtype).movedim(0, dim).contiguous().to(t.device)
 
 
 def _reduce(x, axes, op, mesh):
@@ -281,7 +303,7 @@ def gather(x) -> torch.Tensor:
     for i in reversed(range(dm.ndim)):
         p = x.placements[i]
         if isinstance(p, Shard):
-            out = torch.cat(_collective("all_gather", out, dm.get_group(i)), dim=p.dim)
+            out = _collective("all_gather", out, dm.get_group(i), dim=p.dim)
         elif not isinstance(p, Replicate):
             raise ValueError(f"cannot gather a DTensor placed {x.placements}")
     return out
@@ -289,10 +311,14 @@ def gather(x) -> torch.Tensor:
 
 def to_local(x, mesh: Mesh, spec) -> torch.Tensor:
     """This rank's block of ``x`` under ``spec``: a plain global tensor is
-    cut (no communication), a ``DTensor`` already placed so gives its local
-    tensor, any other ``DTensor`` is gathered and cut."""
+    cut (no communication), a ``DTensor`` or ``Block`` already placed so
+    gives its local tensor, any other is gathered and cut."""
     from torch.distributed.tensor import DTensor
 
+    if isinstance(x, Block):
+        if x.spec == P(*spec) and x.mesh is mesh:
+            return x.local
+        x = x.whole()
     if isinstance(x, DTensor):
         if tuple(x.placements) == placements(mesh, spec):
             return x.to_local()
@@ -311,7 +337,7 @@ def from_local(x: torch.Tensor, mesh: Mesh, spec):
 def _tree(fn, tree, spec):
     if isinstance(tree, dict):
         return {k: _tree(fn, v, spec) for k, v in tree.items()}
-    return fn(tree, spec) if torch.is_tensor(tree) else tree
+    return fn(tree, spec) if torch.is_tensor(tree) or isinstance(tree, Block) else tree
 
 
 def _out_tree(fn, tree, spec):
@@ -353,3 +379,146 @@ def constrain(x, *logical):
     if tuple(x.placements) == placements(mesh, spec):
         return x
     return from_local(local_block(gather(x), mesh, spec), mesh, spec)
+
+
+# ---------------------------------------------------------------------------
+# blocks: one rank's share of a parameter, gathered a layer at a time
+# ---------------------------------------------------------------------------
+
+def _block_entries(spec) -> list:
+    """[(dimension, its mesh axes, most significant first)] of a spec's
+    sharded dimensions."""
+    return [(d, entry_axes(e)) for d, e in enumerate(spec) if entry_axes(e)]
+
+
+def _gather_local(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    out = local
+    for d, axes in _block_entries(spec):
+        for a in reversed(axes):  # the innermost axis first
+            if mesh.shape[a] > 1:
+                out = _collective("all_gather", out, mesh.group(a), dim=d)
+    return out.clone() if out is local else out
+
+
+def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The gradient of the whole tensor on this rank's rows -> its sum over
+    the batch axes, this rank's block.  Ranks along a non-batch axis
+    (``model``) saw the same rows, so their share is cut, not summed."""
+    dims = {}
+    for d, axes in _block_entries(spec):
+        if len(axes) > 1:
+            raise ValueError(f"a parameter's dimension is sharded over one mesh axis, "
+                             f"not {axes}")
+        dims[axes[0]] = d
+    g = grad
+    for a, d in dims.items():
+        if a not in BATCH_AXES and mesh.shape[a] > 1:
+            size = g.shape[d] // mesh.shape[a]
+            g = g.narrow(d, mesh.axis_index(a) * size, size)
+    for a in BATCH_AXES:
+        if mesh.shape.get(a, 1) <= 1:
+            continue
+        if a in dims:  # sharded along a: each rank keeps the sum of its share
+            d = dims[a]
+            g = _collective("reduce_scatter", g.movedim(d, 0), mesh.group(a)).movedim(0, d)
+        else:  # replicated along a (a dimension that does not divide): the whole sum
+            g = _collective("all_reduce", g, mesh.group(a), op=dist.ReduceOp.SUM)
+    return g.contiguous()
+
+
+class _GatherBlock(torch.autograd.Function):
+    """Forward: the whole tensor from every rank's block.  Backward: the
+    whole gradient reduced to this rank's block (``_reduce_to_block``).
+    Nothing is saved, so under ``torch.utils.checkpoint`` the gather runs
+    again in the backward pass, and a tensor gathered once serves several
+    backward passes (microbatches)."""
+
+    @staticmethod
+    def forward(ctx, local, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _gather_local(local, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_to_block(grad, ctx.spec, ctx.mesh), None, None
+
+
+def gather_block(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor whose block on this rank is ``local`` under
+    ``spec``; its gradient flows back to ``local`` summed over the batch
+    axes."""
+    return _GatherBlock.apply(local, spec, mesh)
+
+
+class Block:
+    """This rank's block (``local``) of a global tensor under ``spec`` on
+    ``mesh``.  A stacked leaf's leading (layer) dimension is never sharded:
+    ``block[l]`` and ``block.unbind(0)`` give layer blocks with no
+    communication, ``whole()`` gathers one (``gather_block``), and
+    ``block[l] = value`` / ``put`` write this rank's share of a global
+    value (a cache's layer, or positions of one)."""
+
+    __slots__ = ("local", "spec", "mesh")
+
+    def __init__(self, local: torch.Tensor, spec, mesh: Mesh):
+        self.local, self.spec, self.mesh = local, P(*spec), mesh
+
+    @property
+    def shape(self) -> torch.Size:
+        shape = list(self.local.shape)
+        for d, axes in _block_entries(self.spec):
+            shape[d] *= math.prod(self.mesh.shape[a] for a in axes)
+        return torch.Size(shape)
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    def _inner(self) -> P:
+        if entry_axes(self.spec[0] if self.spec else None):
+            raise ValueError(f"the leading dimension of a Block placed {self.spec} is sharded")
+        return P(*self.spec[1:])
+
+    def __getitem__(self, i: int) -> "Block":
+        return Block(self.local[i], self._inner(), self.mesh)
+
+    def __setitem__(self, i: int, value: torch.Tensor) -> None:
+        self.local[i] = local_block(value, self.mesh, self._inner())
+
+    def unbind(self, dim: int = 0) -> tuple:
+        if dim:
+            raise ValueError("a Block unbinds its leading dimension only")
+        inner = self._inner()
+        return tuple(Block(t, inner, self.mesh) for t in self.local.unbind(0))
+
+    def whole(self) -> torch.Tensor:
+        return gather_block(self.local, self.spec, self.mesh)
+
+    def put(self, dim: int, start: int, value: torch.Tensor) -> None:
+        """Write ``value``, global along every dimension but ``dim``, where
+        it covers [start, start + value.shape[dim]), into this block: its
+        share of the other dimensions, the positions that fall inside this
+        rank's range of ``dim``."""
+        spec = P(*(None if d == dim else e for d, e in enumerate(self.spec)))
+        value = local_block(value, self.mesh, spec)
+        n = self.local.shape[dim]
+        idx = 0
+        for a in entry_axes(self.spec[dim] if dim < len(self.spec) else None):
+            idx = idx * self.mesh.shape[a] + self.mesh.axis_index(a)
+        lo = idx * n
+        a, b = max(start, lo), min(start + value.shape[dim], lo + n)
+        if a < b:
+            self.local.narrow(dim, a - lo, b - a).copy_(value.narrow(dim, a - start, b - a))
+
+
+def blocks(tree, shardings):
+    """Each leaf of ``tree`` (``DTensor``s placed by ``shardings``, or plain
+    local tensors) as a ``Block`` of its local tensor under its
+    ``NamedSharding``'s spec."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: blocks(v, shardings[k]) for k, v in tree.items()}
+    with torch.no_grad():  # the DTensor's own local tensor, not a view
+        local = tree.to_local() if isinstance(tree, DTensor) else tree
+    return Block(local, shardings.spec, shardings.mesh)

@@ -181,11 +181,12 @@ def place(tree, shardings):
     """Each tensor of ``tree`` as a ``DTensor`` placed by its
     ``NamedSharding`` (``jax.device_put``'s counterpart): a plain tensor,
     the same global value on every rank, is cut to this rank's block with
-    no communication; a ``DTensor`` is redistributed."""
+    no communication; a ``DTensor`` is redistributed.  Each block is a copy
+    that owns its memory, so the global tensors can be freed."""
     flat = dict((path_key(p), s) for p, s in flatten_with_paths(shardings))
 
     def one(path, leaf):
         s = flat[path_key(path)]
-        return ops.from_local(ops.to_local(leaf, s.mesh, s.spec).contiguous(), s.mesh, s.spec)
+        return ops.from_local(ops.to_local(leaf, s.mesh, s.spec).clone(), s.mesh, s.spec)
 
     return _map_with_path(one, tree)

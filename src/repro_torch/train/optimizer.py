@@ -66,6 +66,26 @@ def global_norm(tree):
     return torch.sqrt(sq)
 
 
+def sharded_global_norm(blocks: list, specs: list, mesh):
+    """``global_norm`` of whole gradients held as each rank's ``blocks``
+    under ``specs`` on ``mesh``: each leaf's local sum of squares, added
+    over the ranks that hold its other blocks.  A leaf replicated along an
+    axis is counted by the rank at coordinate 0 of that axis only, so no
+    copy is counted twice; the leaves' sums are then added in leaf order,
+    as ``global_norm`` adds them."""
+    from repro_torch.sharding.ops import entry_axes, psum
+
+    sq = []
+    for g, spec in zip(blocks, specs):
+        sharded = {a for e in spec for a in entry_axes(e)}
+        owner = all(mesh.axis_index(a) == 0 for a in mesh.axis_names
+                    if a not in sharded and mesh.shape[a] > 1)
+        s = torch.sum(torch.square(g.float()))
+        sq.append(s if owner else torch.zeros_like(s))
+    total = psum(torch.stack(sq), mesh.axis_names, mesh)
+    return torch.sqrt(sum(total.unbind(0)))
+
+
 def _clip_scale(grads, max_norm: float, norm=None):
     norm = global_norm(grads) if norm is None else norm
     return torch.clamp(max_norm / (norm + 1e-9), max=1.0), norm

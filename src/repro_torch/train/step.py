@@ -11,11 +11,17 @@ place and drops the gradients.
 Under a mesh (``sharding.ops.use_mesh``) ``make_train_step`` is the
 reference's FSDP layout done by hand: the parameters and the optimizer
 state are ``DTensor``s placed by ``sharding.rules.params_shardings``, the
-batch is split over ``pod`` x ``data`` by ``batch_shardings``; each rank
-gathers the whole parameters, takes the gradients of its rows (the model
-runs without the mesh inside the step, the ``model`` axis repeating the
-compute of its ``data`` shard), averages them over the batch axes with an
-all-reduce a leaf, and updates its own blocks of the parameters and moments.
+batch is split over ``pod`` x ``data`` by ``batch_shardings``.  Each rank
+hands the model its parameters' blocks (``sharding.ops.Block``): the
+embedding, head, projector and final norm are gathered once for the step,
+and each layer's parameters inside its block, again in the backward pass
+under rematerialization; the backward of every gather sums the gradient
+over the batch axes into this rank's block (a reduce-scatter over ``data``,
+an all-reduce where a dimension does not divide), so gradients exist only
+as blocks and microbatches add into them.  The model runs without the mesh
+inside the step (the ``model`` axis repeats the compute of its ``data``
+shard); each rank updates its own blocks of the parameters and moments
+with the global gradient norm (``optimizer.sharded_global_norm``).
 ``make_integer_dp_train_step`` is the reference's data-parallel variant over
 a mesh's ``data`` axis or a ``torch.distributed`` process group: each rank
 takes its slice of the global batch, and the gradients are combined with
@@ -32,8 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.train import optimizer as opt
 from repro_torch.train.intreeger_allreduce import group_size, integer_pmean
-from repro_torch.train.tree import (flatten_with_paths, path_key, tree_leaves, tree_map,
-                                    unflatten_like)
+from repro_torch.train.tree import tree_leaves, tree_map
 
 
 def n_microbatches(b: int, microbatches: int, dp: int = 1) -> int:
@@ -65,20 +70,29 @@ def _prepare(params):
     return device
 
 
-def accumulate_grads(cfg: ModelConfig, params, batch: dict, n_micro: int = 1):
-    """Each parameter's ``.grad`` set to the mean gradient of ``loss_fn``
-    over ``n_micro`` equal slices of the batch's leading axis, summed in
-    microbatch order.  Returns (mean loss, {"ce", "aux"} means), detached."""
-    device = _prepare(params)
+def _backward_each(cfg: ModelConfig, model, batch: dict, n_micro: int, device):
+    """``loss_fn`` of ``model`` (the parameters, or their blocks) on each of
+    ``n_micro`` equal slices of the batch's leading axis, each slice's
+    backward pass adding into the gradients.  Returns (the summed loss,
+    {"ce", "aux"} sums), detached."""
     size = tree_leaves(batch)[0].shape[0] // n_micro
     lsum = torch.zeros((), device=device)
     psum = {"ce": torch.zeros_like(lsum), "aux": torch.zeros_like(lsum)}
     for i in range(n_micro):
         mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-        loss, parts = tfm.loss_fn(cfg, params, mb)
+        loss, parts = tfm.loss_fn(cfg, model, mb)
         loss.backward()
         lsum = lsum + loss.detach()
         psum = {k: psum[k] + parts[k].detach() for k in psum}
+    return lsum, psum
+
+
+def accumulate_grads(cfg: ModelConfig, params, batch: dict, n_micro: int = 1):
+    """Each parameter's ``.grad`` set to the mean gradient of ``loss_fn``
+    over ``n_micro`` equal slices of the batch's leading axis, summed in
+    microbatch order.  Returns (mean loss, {"ce", "aux"} means), detached."""
+    device = _prepare(params)
+    lsum, psum = _backward_each(cfg, params, batch, n_micro, device)
     if n_micro == 1:
         return lsum, psum
     with torch.no_grad():
@@ -87,10 +101,11 @@ def accumulate_grads(cfg: ModelConfig, params, batch: dict, n_micro: int = 1):
     return lsum / n_micro, {k: v / n_micro for k, v in psum.items()}
 
 
-def _apply(opt_cfg, params, opt_state):
+def _apply(opt_cfg, params, opt_state, grad_norm=None):
     """AdamW on the gradients in ``.grad``, which are then dropped."""
     grads = tree_map(lambda p: p.grad, params)
-    params, opt_state, om = opt.adamw_update(opt_cfg, grads, opt_state, params)
+    params, opt_state, om = opt.adamw_update(opt_cfg, grads, opt_state, params,
+                                             grad_norm=grad_norm)
     for p in tree_leaves(params):
         p.grad = None
     return params, opt_state, om
@@ -146,33 +161,30 @@ def _locals(tree):
 
 def _sharded_step(cfg, opt_cfg, mesh, n_micro, params, opt_state, batch):
     from repro_torch.sharding import rules
-    from repro_torch.sharding.ops import gather, local_block, pmean, to_local, use_mesh
+    from repro_torch.sharding.ops import BATCH_AXES, blocks, pmean, to_local, use_mesh
 
-    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
-    batch = _on_device(batch, torch.device(mesh.device_type))
+    batch_axes = tuple(a for a in BATCH_AXES if a in mesh.shape)
+    shardings = rules.params_shardings(params, mesh)
+    local = _locals(params)
+    device = _prepare(local)
+    batch = _on_device(batch, device)
     bsh = rules.batch_shardings(mesh, batch)
     rows = {k: to_local(v, mesh, bsh[k].spec) for k, v in batch.items()}
-    specs = [s.spec for s in tree_leaves(rules.params_shardings(params, mesh))]
-    with torch.no_grad():
-        whole = tree_map(lambda p: gather(p).detach(), params)
     with use_mesh(None):  # this rank's rows through the one-device model
-        loss, parts = accumulate_grads(cfg, whole, rows, n_micro)
-    leaves = tree_leaves(whole)
+        model = tfm.gather_top(blocks(local, shardings))
+        loss, parts = _backward_each(cfg, model, rows, n_micro, device)
+    del model
+    leaves = tree_leaves(local)
     with torch.no_grad():
-        # each gradient averaged over the batch axes, a leaf at a time (a
-        # flat copy of them all would double the gradients' memory)
+        # each block's gradient holds its sum over the batch axes' ranks
+        # and the microbatches: the mean of the global batch's gradient
         for p in leaves:
-            p.grad = pmean(p.grad, batch_axes, mesh)
-        grads = [p.grad for p in leaves]
-        norm = opt.global_norm(grads)
-        loss = pmean(loss, batch_axes, mesh)
-        parts = {k: pmean(v, batch_axes, mesh) for k, v in parts.items()}
-        local_grads = [local_block(g, mesh, spec) for g, spec in zip(grads, specs)]
-    del whole, leaves, grads
-    local = _locals(params)
-    grads = unflatten_like(local, {path_key(path): g for (path, _), g in
-                                   zip(flatten_with_paths(local), local_grads)})
-    _, ostate, om = opt.adamw_update(opt_cfg, grads, _locals(opt_state), local, grad_norm=norm)
+            p.grad.div_(n_micro).div_(_batch_extent(mesh))
+        norm = opt.sharded_global_norm([p.grad for p in leaves],
+                                       [s.spec for s in tree_leaves(shardings)], mesh)
+        loss = pmean(loss / n_micro, batch_axes, mesh)
+        parts = {k: pmean(v / n_micro, batch_axes, mesh) for k, v in parts.items()}
+    _, ostate, om = _apply(opt_cfg, local, _locals(opt_state), grad_norm=norm)
     return params, {**opt_state, "step": ostate["step"]}, {"loss": loss, **parts, **om}
 
 

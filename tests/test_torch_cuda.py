@@ -942,7 +942,7 @@ def test_mesh_branches_on_card_ranks_match_cpu_ranks(card, tmp_path):
     the same inputs: the tree step bit for bit with no collective, each
     attention core within the reference's 0.02, the MoE block within 0.05,
     the train step's loss within 2e-3 (the card-against-CPU tolerance of
-    the training tests)."""
+    the training tests), each rank holding only its parameters' blocks."""
     from torch_dist_ranks import ATTN_CASES, MOE_CAPACITY, mesh_rank, run_ranks, write_mesh_inputs
 
     write_mesh_inputs(tmp_path / "in")
@@ -961,3 +961,6 @@ def test_mesh_branches_on_card_ranks_match_cpu_ranks(card, tmp_path):
         for cf in MOE_CAPACITY:
             assert np.abs(g[f"moe_y_{cf}"] - c[f"moe_y_{cf}"]).max() < 0.05, cf
         assert abs(float(g["train_loss"]) - float(c["train_loss"])) < 2e-3
+        # fault D: the card's ranks hold only their blocks, as the CPU's do
+        assert int(g["block_bytes_held"]) == int(g["block_bytes_want"])
+        assert g["block_grads_match"] and not g["block_grads_left"]

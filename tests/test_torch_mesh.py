@@ -293,6 +293,21 @@ def test_sharded_train_step_matches_single_device_and_the_reference(sides):
         assert all(np.array_equal(r[f"train_p:{k}"], got[k]) for k in single)
 
 
+def test_sharded_step_holds_only_blocks(sides):
+    """Fault D: after the (2, 4) mesh's step each rank holds exactly its
+    blocks' bytes of the parameters and both moments (an eighth, or a half
+    where a dimension does not divide ``model``), every gradient was
+    accumulated at its block's shape (none whole), and none outlives the
+    step."""
+    ref, ranks = sides
+    tr = np.load(ref / "train.npz")
+    whole = 3 * sum(tr[k].astype(np.float32).nbytes for k in tr.files if k.startswith("p:"))
+    for r in ranks:
+        assert int(r["block_bytes_held"]) == int(r["block_bytes_want"]) < whole / 4
+        assert int(r["block_grads_seen"]) > 0
+        assert r["block_grads_match"] and not r["block_grads_left"]
+
+
 def test_checkpoint_restores_onto_another_mesh(sides):
     """``CheckpointManager.restore(shardings=)``: the (2, 4) mesh's trained
     parameters, saved whole, come back on an (8, 1) mesh placed by its

@@ -4,6 +4,7 @@ of a gloo group initialized through a file (no TCP port), and writes what it
 computed under ``out_dir`` for the test to read.  No JAX here, so a spawned
 rank starts fast and the card tests can use it too; the parameters' digest
 is ``chip_smoke.params_digest``, the one the smoke run compares ranks by."""
+import math
 import os
 import sys
 import tempfile
@@ -140,7 +141,7 @@ def mesh_cases(data_dir: str, mesh, device: str) -> dict:
     from repro_torch.sharding.ops import P, constrain, from_local, gather, local_block, use_mesh
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step
-    from repro_torch.train.tree import flatten_with_paths, path_key
+    from repro_torch.train.tree import flatten_with_paths, path_key, tree_leaves
 
     d = Path(data_dir)
     bf16 = lambda a: torch.from_numpy(a).to(device, torch.bfloat16)
@@ -206,8 +207,18 @@ def mesh_cases(data_dir: str, mesh, device: str) -> dict:
             params = rules.place(params, rules.params_shardings(params, mesh))
         ostate = opt.init_opt_state(params)
         batch = {k: tr[k] for k in ("tokens", "labels")}
+        grad_shapes = []  # (a gradient's shape, its block's), as each is accumulated
+        if mesh is not None:
+            with torch.no_grad():  # each DTensor's own local tensor
+                hooks = [t.to_local().requires_grad_(True).register_post_accumulate_grad_hook(
+                    lambda p: grad_shapes.append((tuple(p.grad.shape), tuple(p.shape))))
+                    for t in tree_leaves(params)]
         params, ostate, m = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))(
             params, ostate, batch)
+        if mesh is not None:
+            for h in hooks:
+                h.remove()
+            out.update(_block_bytes(params, ostate, mesh, grad_shapes))
         out["train_loss"] = float(m["loss"])
         out["train_grad_norm"] = float(m["grad_norm"])
         out["train_step"] = int(ostate["step"])
@@ -216,6 +227,27 @@ def mesh_cases(data_dir: str, mesh, device: str) -> dict:
     if mesh is not None:
         out.update(_remesh_restore(d / f"ckpt_{dist.get_rank()}", params, mesh, device))
     return out
+
+
+def _block_bytes(params, ostate, mesh, grad_shapes) -> dict:
+    """After a sharded step: the bytes this rank holds of the parameters
+    and both moments, against the blocks their specs give; the gradients
+    seen while they were accumulated, each against its block's shape; and
+    whether any gradient outlived the step."""
+    from repro_torch.launch.specs import local_shape
+    from repro_torch.sharding import rules
+    from repro_torch.train.tree import tree_leaves
+
+    with torch.no_grad():
+        held = sum(t.to_local().numel() * t.to_local().element_size()
+                   for tree in (params, ostate["m"], ostate["v"]) for t in tree_leaves(tree))
+        left = [t.to_local().grad is not None for t in tree_leaves(params)]
+    want = 3 * sum(math.prod(local_shape(t.shape, mesh, s.spec)) * 4 for t, s in
+                   zip(tree_leaves(params), tree_leaves(rules.params_shardings(params, mesh))))
+    return {"block_bytes_held": held, "block_bytes_want": want,
+            "block_grads_seen": len(grad_shapes),
+            "block_grads_match": all(g == b for g, b in grad_shapes),
+            "block_grads_left": any(left)}
 
 
 def _remesh_restore(directory, params, mesh, device) -> dict:
