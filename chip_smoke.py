@@ -157,19 +157,30 @@ with one CUDA card.  It
      are printed,
  14. repairs fault D on the card and runs the dry run (the kernels' launch
      counters set to 0 just before and read just after, in this process and
-     in every rank: none is launched): granite-3-2b at full width takes one
-     step of 8 x 512 tokens in one process (microbatches of one row) and
-     then as (data 2, model 1) in two processes on the card over gloo, each
-     rank holding only its blocks of the parameters and moments, gathering
-     a layer at a time and reduce-scattering the gradients into its blocks;
-     each rank's loss, gradient norm and every leaf's update held to step
-     13e's gates against the one-process step, and each rank's held bytes
-     and peak memory printed beside the one-process step's; and three cells
-     of ``python -m repro_torch.launch.dryrun`` (granite-3-2b and
-     gemma3-27b ``train_4k`` on 16 x 16, intreeger-rf ``serve_1m`` on
-     2 x 16 x 16), started on the host CPU when the run starts (no card),
-     each of which must be ``ok``, with their per-rank argument and peak
-     bytes, dominant roofline term and useful ratio printed.
+     in every rank: none is launched): granite-3-2b at full width, cut to 12
+     layers, takes one step of 8 x 512 tokens in one process (microbatches
+     of one row) and then as (data 2, model 1) in two processes on the card
+     over gloo, each rank holding only its blocks of the parameters and
+     moments, gathering a layer at a time and reducing the gradients into
+     its blocks; each rank's loss, gradient norm and every leaf's update
+     held to step 13e's gates against the one-process step, and each rank's
+     peak memory below 0.8 of the one-process step's; three cells of
+     ``python -m repro_torch.launch.dryrun`` (granite-3-2b and gemma3-27b
+     ``train_4k`` on 16 x 16, intreeger-rf ``serve_1m`` on 2 x 16 x 16),
+     started on the host CPU when the run starts (no card), each of which
+     must be ``ok``, with their per-rank argument and peak bytes, dominant
+     roofline term and useful ratio printed; then (14c) granite-3-2b at full
+     width and depth takes the same step in one process twice, plainly and
+     as the split control (each matmul that the ranks split computed as
+     their shares, summed in float32 and rounded once), and then as (data 1,
+     model 2) in the same two processes, the model tensor-parallel over
+     ``model`` (each rank computing its heads, FFN columns and its share of
+     every matmul from its ``model`` blocks, joined by all-reduces over
+     ``model``), in microbatches of one row, held to the same gates against
+     the control and within 4e-2 of the plain step; no parameter is gathered
+     (``data`` is 1 and no block is gathered over ``model``), and each rank's
+     held and peak GiB, its collectives staged through the host over
+     ``model`` and over the batch axes, and its step time are printed.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -443,12 +454,27 @@ MESH_PROGRAM = (
     "import chip_smoke\n"
     "chip_smoke.mesh_rank(*sys.argv[1:])\n")
 
-# the sharded-step phase (14a): granite-3-2b at full width takes one step of
-# TRAIN_BATCH x TRAIN_SEQ tokens (12a's model, seed and batch) with
-# MESH_TRAIN_OPT in one process, then as (data FSDP_RANKS, model 1) in
-# FSDP_RANKS processes on the card over gloo, each rank holding only its
-# blocks and gathering a layer at a time; 13e's gates (MESH_TRAIN_TOL,
-# MESH_TRAIN_UPDATE_TOL, MESH_TRAIN_NORM_TOL) against the one-process step
+# the sharded-step phase (14a): granite-3-2b at full width cut to
+# FSDP_LAYERS layers takes one step of TRAIN_BATCH x TRAIN_SEQ tokens (12a's
+# seed and batch) with MESH_TRAIN_OPT in one process, then as (data
+# FSDP_RANKS, model 1) in FSDP_RANKS processes on the card over gloo, each
+# rank holding only its blocks and gathering a layer at a time; 13e's gates
+# (MESH_TRAIN_TOL, MESH_TRAIN_UPDATE_TOL, MESH_TRAIN_NORM_TOL) against the
+# one-process step, and every rank's peak memory below FSDP_PEAK_SHARE of
+# the one-process step's (at FSDP_LAYERS layers the blocks are most of it).
+# 14c: granite-3-2b at full width and depth takes the same step as (data 1,
+# model FSDP_RANKS), tensor-parallel over ``model``, in microbatches of one
+# row, in the same processes, held to the same gates against the split
+# control: the one-process step with each split matmul computed as the
+# ranks' column or row shares of it, summed in float32 and rounded once
+# (``split_control``), so that it rounds where the ranks do.  The plain
+# one-process step rounds each whole product at once instead, and the
+# tensor-parallel step's distance from it is held to MESH_TP_PLAIN_TOL, set
+# from a reading on an NVIDIA H100 80GB HBM3: the tensor-parallel step gave
+# the control's bits, and both sat 2.59e-2 from the plain step (worst
+# ``blocks/attn/wq``, whose gradient comes through the softmax's backward).
+FSDP_LAYERS = 12
+FSDP_PEAK_SHARE = 0.8
 FSDP_RANKS = 2
 FSDP_DIR = ROOT / "build" / "chip_smoke_fsdp"
 FSDP_PROGRAM = (
@@ -456,6 +482,7 @@ FSDP_PROGRAM = (
     f"sys.path.insert(0, {str(ROOT)!r})\n"
     "import chip_smoke\n"
     "chip_smoke.fsdp_rank(*sys.argv[1:])\n")
+MESH_TP_PLAIN_TOL = 4e-2
 # the dry-run phase (14b): these cells (architecture, shape, the 2 x 16 x 16
 # mesh or the 16 x 16 one) in processes on the host CPU, started with the run
 # and read at its end, when they have DRYRUN_TIMEOUT_S more to finish
@@ -918,6 +945,53 @@ def check_and_time(cases: dict, flush, tt) -> dict:
 # ---------------------------------------------------------------------------
 # the gateway path
 # ---------------------------------------------------------------------------
+
+def fused_plan_phase(ir, X, refs: dict, baseline: str, baseline_ms: float, dev,
+                     card: str) -> dict:
+    """Step 4d: the fused ``tree_parallel`` strategy on the card, its device
+    list patched to the card twice (one card stands in for a card a
+    shard): ``integer:reference+tree_parallel:2`` and its ``flint`` twin
+    on the full rows and on one row, bit-identical to the single reference
+    plan on the card, their partials too; the full rows' request timed
+    beside ``baseline`` (the threaded plan over K1 shards)."""
+    from repro_torch.plan import tree_parallel
+    from repro_torch.serve import TreeEngine
+
+    real = tree_parallel.fused_devices
+    tree_parallel.fused_devices = lambda device: [dev] * 2
+    out = {}
+    try:
+        for mode in ("integer", "flint"):
+            spec = f"{mode}:reference+tree_parallel:2"
+            eng = TreeEngine(ir, spec=spec, device=dev)
+            plan = eng.plan
+            if not plan.fused or plan.backends or plan.backend_name != "reference":
+                fail(f"{spec} with a card a shard did not build the fused strategy: "
+                     f"{plan.describe()}")
+            for rows in (X, X[:1]):
+                got, want = eng.predict_scores(rows), refs[mode].predict_scores(rows)
+                if not all(np.array_equal(a, b) and a.dtype == b.dtype
+                           for a, b in zip(got, want)):
+                    fail(f"the fused strategy {spec} on {len(rows)} rows differs from "
+                         f"{mode}:reference")
+            if not np.array_equal(eng.predict_partials(X), refs[mode].predict_partials(X)):
+                fail(f"the fused strategy's partials ({spec}) differ from {mode}:reference's")
+            plan.drain_timings()
+            ms = host_ms(lambda: eng.predict_scores(X), REQUEST_TIMING_REPS)
+            span = plan.drain_timings()
+            out[mode] = dict(ms=ms, spans={k: v[0] / v[1] for k, v in span.items()})
+            eng.close()
+    finally:
+        tree_parallel.fused_devices = real
+    for mode, r in out.items():
+        print(f"{card} | fused 4d: {mode}:reference+tree_parallel:2, the fused strategy with "
+              f"both shards' tables on the one card (the reference walk queued for each "
+              f"shard, merged on the card), {ROWS} rows: bit-identical to {mode}:reference "
+              f"(partials, scores, and on one row); {r['ms']:.3f} ms median end to end, "
+              f"host clock ({', '.join(f'{k} {v:.3f} ms' for k, v in r['spans'].items())} a "
+              f"request); {baseline} {baseline_ms:.3f} ms")
+    return out
+
 
 def gateway_workload(seed: int, n_requests: int = GATEWAY_REQUESTS):
     """(request rows, arrival seconds): sizes drawn from GATEWAY_ROWS, a
@@ -3006,15 +3080,103 @@ def mesh_phase(ir, seed: int, dev, card: str) -> dict:
 # dry run of the production meshes on the host
 # ---------------------------------------------------------------------------
 
+def split_control(n: int):
+    """A context in which the model computes each layer that 14c splits
+    over a ``model`` axis of ``n`` as the ranks would, in one process: every
+    column-parallel matmul (``wq``/``wk``/``wv``/``w_gate``/``w_up``) as ``n``
+    products of a column share, its input gradient as their float32 partials
+    summed in rank order and rounded once; attention on each share's heads;
+    every row-parallel one (``wo``/``w_down``) as the float32 partials of
+    the shares summed and rounded once (``layers._ColumnMM``, ``_RowMM``).
+    Each share is contiguous, as a rank's block is, so each product has a
+    rank's shape.  No collective and no mesh code runs."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+
+    class Columns(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ws = [c.contiguous() for c in w.chunk(n, 1)]
+            ctx.save_for_backward(x, *ws)
+            return tuple(x @ c for c in ws)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            x, *ws = ctx.saved_tensors
+            gx = sum(g.float() @ c.float().t() for g, c in zip(gs, ws)).to(x.dtype)
+            gw = torch.cat([x.reshape(-1, c.shape[0]).t() @ g.reshape(-1, c.shape[1])
+                            for g, c in zip(gs, ws)], 1)
+            return gx, gw
+
+    class Rows(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, w, *ys):
+            ws = [c.contiguous() for c in w.chunk(n, 0)]
+            ctx.save_for_backward(*ys, *ws)
+            return sum(y.float() @ c.float() for y, c in zip(ys, ws))
+
+        @staticmethod
+        def backward(ctx, g):
+            saved = ctx.saved_tensors
+            ys, ws = saved[:n], saved[n:]
+            g = g.to(ws[0].dtype)
+            gw = torch.cat([y.reshape(-1, c.shape[0]).t() @ g.reshape(-1, c.shape[1])
+                            for y, c in zip(ys, ws)], 0)
+            return (gw, *(g @ c.t() for c in ws))
+
+    def attention(params, x, dims, *, positions, causal=True, window=0, rope_theta=10000.0,
+                  q_chunk=512, kv_cache=None, cache_pos=None):
+        b, s, _ = x.shape
+        h, kh, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
+        if kv_cache is not None or h % n or kh % n:
+            raise ValueError("the split control takes a training layer whose heads divide")
+        q, k, v = (Columns.apply(x, params[w].to(x.dtype)) for w in ("wq", "wk", "wv"))
+        outs = []
+        for r in range(n):
+            xq = layers.apply_rope(q[r].reshape(b, s, h // n, dh), positions, rope_theta)
+            xk = layers.apply_rope(k[r].reshape(b, s, kh // n, dh), positions, rope_theta)
+            out = layers._chunked_softmax_attn(
+                xq.reshape(b, s, kh // n, h // kh, dh), xk, v[r].reshape(b, s, kh // n, dh),
+                causal=causal, window=window, q_chunk=q_chunk)
+            outs.append(out.reshape(b, s, h // n * dh))
+        return Rows.apply(params["wo"].to(x.dtype), *outs).to(x.dtype), None
+
+    def mlp(params, x, act="silu", d_ff=None):
+        a = layers.act_fn(act)
+        gate = Columns.apply(x, params["w_gate"].to(x.dtype))
+        up = Columns.apply(x, params["w_up"].to(x.dtype))
+        return Rows.apply(params["w_down"].to(x.dtype),
+                          *(a(gt) * u for gt, u in zip(gate, up))).to(x.dtype)
+
+    @contextlib.contextmanager
+    def patched():
+        saved = tfm.attention, tfm.mlp
+        tfm.attention, tfm.mlp = attention, mlp
+        try:
+            yield
+        finally:
+            tfm.attention, tfm.mlp = saved
+
+    return patched()
+
+
 def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda") -> None:
-    """One rank of step 14a, in its own process of a gloo group with CUDA
-    tensors.  Rank 0 first takes the step in one process (no mesh, in
-    microbatches of one row, as each rank's), keeping the weights before
-    and after it on the host; then every rank places
-    the same weights as (data ``world``, model 1) blocks and takes the
-    sharded step; the parameters are gathered a leaf at a time and rank 0
-    holds each leaf's update against the one-process step's.  Prints one
-    ``FSDP_RANK`` JSON line."""
+    """One rank of steps 14a and 14c, in its own process of a gloo group
+    with CUDA tensors.  For each step rank 0 first takes the step in one
+    process (no mesh, in microbatches of one row, as each rank's), keeping
+    the weights before and after it on the host, and for 14c also the split
+    control (``split_control``); then every rank places the same weights as
+    blocks, (data ``world``, model 1) for 14a and (data 1, model ``world``)
+    for 14c, and takes the sharded step; after it the parameters are
+    gathered a leaf at a time and rank 0 holds each leaf's update against
+    the one-process steps'.  Prints one ``FSDP_RANK`` JSON line."""
+    import contextlib
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
@@ -3029,39 +3191,46 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
     from repro_torch.train.step import make_train_step
     from repro_torch.train.tree import flatten_with_paths, path_key, tree_leaves
 
-    import dataclasses
-
     rank, world, seed = int(rank), int(world), int(seed)
     dev = torch.device(device)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
-    try:
-        tt.reset_launches()
-        cfg = get_config(LM_ARCH)
-        batch = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed).batch_at(0)
-        step = make_train_step(cfg, opt.AdamWConfig(**MESH_TRAIN_OPT))
-        out = {}
-        if rank == 0:
-            # microbatches of one row, as each rank's are: cuBLAS picks its
-            # algorithm by shape, and 2-row products moved the updates 1.6e-2
-            one = dataclasses.replace(cfg, microbatches=TRAIN_BATCH)
-            params = tfm.init_params(cfg, seed, device=dev)
-            before = [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
-            torch.cuda.reset_peak_memory_stats(dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, ostate, m = make_train_step(one, opt.AdamWConfig(**MESH_TRAIN_OPT))(
+    adamw = opt.AdamWConfig(**MESH_TRAIN_OPT)
+
+    def one_process(cfg, batch, control=False):
+        # microbatches of one row, as each rank's are: cuBLAS picks its
+        # algorithm by shape, and 2-row products moved the updates 1.6e-2
+        one = dataclasses.replace(cfg, microbatches=TRAIN_BATCH)
+        params = tfm.init_params(cfg, seed, device=dev)
+        before = {path_key(path): p.detach().to("cpu", copy=True)
+                  for path, p in flatten_with_paths(params)}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with split_control(world) if control else contextlib.nullcontext():
+            params, ostate, m = make_train_step(one, adamw)(
                 params, opt.init_opt_state(params), batch)
-            torch.cuda.synchronize()
-            out["single"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                                 step_ms=(time.perf_counter() - t0) * 1e3,
-                                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
-            want = [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
-            del params, ostate, m
-            torch.cuda.empty_cache()
-        dist.barrier()
+        torch.cuda.synchronize()
+        stats = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                     step_ms=(time.perf_counter() - t0) * 1e3,
+                     peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        after = {path_key(path): p.detach().to("cpu", copy=True)
+                 for path, p in flatten_with_paths(params)}
+        del params, ostate, m
+        torch.cuda.empty_cache()
+        return before, after, stats
+
+    def worst(gaps):
+        leaf = max(gaps, key=gaps.get)
+        return dict(update_gap=gaps[leaf], worst_leaf=leaf)
+
+    def sharded(cfg, batch, shape, wants, microbatches):
+        # the sharded step on (data, model) = ``shape`` blocks; after it each
+        # leaf is gathered and rank 0 holds its update against each of
+        # ``wants`` ((after, before) pairs on the host)
         t_mesh = time.perf_counter()
-        mesh = compat_make_mesh((world, 1), ("data", "model"), device=dev)
+        mesh = compat_make_mesh(shape, ("data", "model"), device=dev)
         params = tfm.init_params(cfg, seed, device=dev)
         params = rules.place(params, rules.params_shardings(params, mesh))
         torch.cuda.empty_cache()
@@ -3074,24 +3243,59 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with use_mesh(mesh):
-            params, ostate, m = step(params, ostate, batch)
+            params, ostate, m = make_train_step(
+                dataclasses.replace(cfg, microbatches=microbatches), adamw)(params, ostate, batch)
         torch.cuda.synchronize()
-        out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+        res = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                    step=int(ostate["step"]), step_ms=(time.perf_counter() - t0) * 1e3,
                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
-                   held_gib=held / 2**30, staged=dict(STAGED))
+                   held_gib=held / 2**30,
+                   staged_model={k: v for k, v in STAGED.items() if k.startswith("model_")},
+                   staged_batch={k: v for k, v in STAGED.items() if not k.startswith("model_")})
         t0 = time.perf_counter()
-        gaps = {}
+        gaps = {name: {} for name in wants}
         with torch.no_grad():
-            for i, (path, p) in enumerate(flatten_with_paths(params)):
-                whole = gather(p)
-                if rank == 0:
-                    gaps[path_key(path)] = update_gap(whole, want[i], before[i])
+            for path, p in flatten_with_paths(params):
+                whole, key = gather(p), path_key(path)
+                for name, (after, before) in wants.items():
+                    gaps[name][key] = update_gap(whole, after[key], before[key])
                 del whole
-        out.update(compare_s=time.perf_counter() - t0, mesh_s=time.perf_counter() - t_mesh)
+        res.update(compare_s=time.perf_counter() - t0, mesh_s=time.perf_counter() - t_mesh)
         if rank == 0:
-            worst = max(gaps, key=gaps.get)
-            out.update(update_gap=gaps[worst], worst_leaf=worst)
+            res.update({name: worst(g) for name, g in gaps.items()})
+        del params, ostate, m
+        torch.cuda.empty_cache()
+        return res
+
+    try:
+        tt.reset_launches()
+        out = {}
+        # 14a: fault D's repair, at FSDP_LAYERS layers
+        cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=FSDP_LAYERS)
+        batch = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed).batch_at(0)
+        wants = {}
+        if rank == 0:
+            before, after, out["single"] = one_process(cfg, batch)
+            wants = {"plain": (after, before)}
+        dist.barrier()
+        out["fsdp"] = sharded(cfg, batch, (world, 1), wants, cfg.microbatches)
+        del wants
+        if rank == 0:
+            del before, after
+
+        # 14c: the tensor-parallel step at full depth, held against the
+        # split control and the plain one-process step
+        cfg = get_config(LM_ARCH)
+        batch = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed).batch_at(0)
+        wants = {}
+        if rank == 0:
+            before, after, out["tp_single"] = one_process(cfg, batch)
+            _, control, out["control"] = one_process(cfg, batch, control=True)
+            out["control"].update(worst({k: update_gap(c.to(dev), after[k], before[k])
+                                         for k, c in control.items()}))
+            wants = {"control": (control, before), "plain": (after, before)}
+        dist.barrier()
+        out["tp"] = sharded(cfg, batch, (1, world), wants, TRAIN_BATCH)
         print("FSDP_RANK " + json.dumps(dict(out, rank=rank, launches=dict(tt.LAUNCHES))),
               flush=True)
     finally:
@@ -3113,9 +3317,9 @@ def update_gap(got, want, before, chunk: int = 1 << 26) -> float:
 
 
 def fsdp_phase(seed: int, card: str) -> dict:
-    """Step 14a: fault D's repair at full width on the card.  Returns the
-    ranks' kernel launches (all 0: the training path runs no hand-written
-    kernel)."""
+    """Steps 14a and 14c: fault D's repair and the tensor-parallel step at
+    full width on the card.  Returns the ranks' kernel launches (all 0: the
+    training path runs no hand-written kernel)."""
     shutil.rmtree(FSDP_DIR, ignore_errors=True)
     FSDP_DIR.mkdir(parents=True)
     t0 = time.perf_counter()
@@ -3128,39 +3332,84 @@ def fsdp_phase(seed: int, card: str) -> dict:
     for out in outs:
         lines = [ln for ln in out.splitlines() if ln.startswith("FSDP_RANK ")]
         if not lines:
-            fail(f"a rank of step 14a printed no result:\n{out[-3000:]}")
+            fail(f"a rank of phase 14 printed no result:\n{out[-3000:]}")
         ranks.append(json.loads(lines[-1].split(" ", 1)[1]))
     ranks.sort(key=lambda r: r["rank"])
-    single = ranks[0]["single"]
-    norm_gap = max(abs(r["grad_norm"] - single["grad_norm"]) / single["grad_norm"] for r in ranks)
-    if any(abs(r["loss"] - single["loss"]) > MESH_TRAIN_TOL or r["step"] != 1 for r in ranks) \
-            or not ranks[0]["update_gap"] <= MESH_TRAIN_UPDATE_TOL \
-            or not norm_gap <= MESH_TRAIN_NORM_TOL:
-        fail(f"the sharded step at full width: {ranks} (loss tolerance {MESH_TRAIN_TOL}, update "
-             f"{MESH_TRAIN_UPDATE_TOL}, gradient norm {MESH_TRAIN_NORM_TOL})")
     launches = {}
     for r in ranks:
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    print(f"{card} | fsdp 14a: {LM_ARCH} at full width, one train step of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens as (data {FSDP_RANKS}, model 1) in {FSDP_RANKS} processes on the "
-          f"card over gloo (collectives staged through the host), each rank holding its "
-          f"blocks and gathering a layer at a time: losses "
-          f"{[round(r['loss'], 6) for r in ranks]} against {single['loss']:.6f} in one process "
+
+    def gates(steps, single, want, what):
+        norm_gap = max(abs(r["grad_norm"] - single["grad_norm"]) / single["grad_norm"]
+                       for r in steps)
+        if any(abs(r["loss"] - single["loss"]) > MESH_TRAIN_TOL or r["step"] != 1
+               for r in steps) or not steps[0][want]["update_gap"] <= MESH_TRAIN_UPDATE_TOL \
+                or not norm_gap <= MESH_TRAIN_NORM_TOL:
+            fail(f"{what}: {steps} against {single} (loss tolerance {MESH_TRAIN_TOL}, update "
+                 f"{MESH_TRAIN_UPDATE_TOL}, gradient norm {MESH_TRAIN_NORM_TOL})")
+        return norm_gap
+
+    fsdp, single = [r["fsdp"] for r in ranks], ranks[0]["single"]
+    norm_gap = gates(fsdp, single, "plain", "the sharded step at full width")
+    if not all(r["peak_gib"] < FSDP_PEAK_SHARE * single["peak_gib"] for r in fsdp):
+        fail(f"the sharded step's peak memory a rank {[r['peak_gib'] for r in fsdp]} GiB is not "
+             f"below {FSDP_PEAK_SHARE} of the one-process step's {single['peak_gib']} GiB")
+    print(f"{card} | fsdp 14a: {LM_ARCH} at full width cut to {FSDP_LAYERS} layers, one train "
+          f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens as (data {FSDP_RANKS}, model 1) in "
+          f"{FSDP_RANKS} processes on the card over gloo (collectives staged through the host), "
+          f"each rank holding its blocks and gathering a layer at a time: losses "
+          f"{[round(r['loss'], 6) for r in fsdp]} against {single['loss']:.6f} in one process "
           f"(tolerance {MESH_TRAIN_TOL}); with AdamW {MESH_TRAIN_OPT}: every leaf's update within "
-          f"{ranks[0]['update_gap']:.3e} (relative L2, worst {ranks[0]['worst_leaf']}; tolerance "
-          f"{MESH_TRAIN_UPDATE_TOL}), gradient norms {[round(r['grad_norm'], 6) for r in ranks]} "
-          f"against {single['grad_norm']:.6f} ({norm_gap:.2e} apart; tolerance "
-          f"{MESH_TRAIN_NORM_TOL}); parameters and moments held "
-          f"{[round(r['held_gib'], 3) for r in ranks]} GiB a rank; peak memory (max allocated) "
-          f"{[round(r['peak_gib'], 3) for r in ranks]} GiB a rank against {single['peak_gib']:.3f} "
-          f"GiB for the one-process step; step {[round(r['step_ms'], 1) for r in ranks]} ms a rank "
+          f"{fsdp[0]['plain']['update_gap']:.3e} (relative L2, worst "
+          f"{fsdp[0]['plain']['worst_leaf']}; tolerance {MESH_TRAIN_UPDATE_TOL}), gradient "
+          f"norms {[round(r['grad_norm'], 6) for r in fsdp]} against "
+          f"{single['grad_norm']:.6f} ({norm_gap:.2e} apart; tolerance {MESH_TRAIN_NORM_TOL}); "
+          f"parameters and moments held {[round(r['held_gib'], 3) for r in fsdp]} GiB a rank; "
+          f"peak memory (max allocated) {[round(r['peak_gib'], 3) for r in fsdp]} GiB a rank "
+          f"against {single['peak_gib']:.3f} GiB for the one-process step (limit "
+          f"{FSDP_PEAK_SHARE} of it); step {[round(r['step_ms'], 1) for r in fsdp]} ms a rank "
           f"against {single['step_ms']:.1f} ms in one process ({TRAIN_BATCH} microbatches of one "
-          f"row, each rank's shape; its first step; host clock); "
-          f"collectives staged {[r['staged'] for r in ranks]}; from the ranks' first barrier to "
-          f"the compared parameters {[round(r['mesh_s'], 1) for r in ranks]} s (the gathers and "
-          f"comparisons {[round(r['compare_s'], 1) for r in ranks]} s); 14a {seconds:.2f} s")
-    return dict(ranks=ranks, single=single, norm_gap=norm_gap, seconds=seconds,
+          f"row, each rank's shape; its first step; host clock); collectives staged "
+          f"{[dict(r['staged_batch'], **r['staged_model']) for r in fsdp]}; from the ranks' "
+          f"first barrier to the compared parameters {[round(r['mesh_s'], 1) for r in fsdp]} s "
+          f"(the gathers and comparisons {[round(r['compare_s'], 1) for r in fsdp]} s)")
+
+    tp, single, control = [r["tp"] for r in ranks], ranks[0]["tp_single"], ranks[0]["control"]
+    tp_norm_gap = gates(tp, control, "control", "the tensor-parallel step at full width")
+    if not tp[0]["plain"]["update_gap"] <= MESH_TP_PLAIN_TOL:
+        fail(f"the tensor-parallel step's updates are {tp[0]['plain']} from the plain "
+             f"one-process step's (limit {MESH_TP_PLAIN_TOL}; the split control's "
+             f"{control['update_gap']:.3e})")
+    # with data 1, a parameter gather could only be one over ``model``
+    if any(r["staged_batch"].get("all_gather", 0) or not r["staged_model"] for r in tp):
+        fail(f"the tensor-parallel step gathered a parameter over model, or joined no "
+             f"share over model: {[(r['staged_model'], r['staged_batch']) for r in tp]}")
+    print(f"{card} | tp 14c: {LM_ARCH} at full width and depth, the same step as (data 1, "
+          f"model {FSDP_RANKS}) in the same {FSDP_RANKS} processes, tensor-parallel over model "
+          f"(each rank's heads, FFN columns and matmul shares from its model blocks; the "
+          f"49,155-row vocabulary does not divide, so the embedding and head stay whole), "
+          f"{TRAIN_BATCH} microbatches of one row: against the split control (one process, each "
+          f"split matmul as the ranks' shares summed in float32 and rounded once): losses "
+          f"{[round(r['loss'], 6) for r in tp]} against {control['loss']:.6f} (tolerance "
+          f"{MESH_TRAIN_TOL}); every leaf's update within {tp[0]['control']['update_gap']:.3e} "
+          f"(worst {tp[0]['control']['worst_leaf']}; tolerance {MESH_TRAIN_UPDATE_TOL}); "
+          f"gradient norms {[round(r['grad_norm'], 6) for r in tp]} against "
+          f"{control['grad_norm']:.6f} ({tp_norm_gap:.2e} apart; tolerance "
+          f"{MESH_TRAIN_NORM_TOL}); against the plain one-process step (loss "
+          f"{single['loss']:.6f}, norm {single['grad_norm']:.6f}): updates within "
+          f"{tp[0]['plain']['update_gap']:.3e} (worst {tp[0]['plain']['worst_leaf']}; limit "
+          f"{MESH_TP_PLAIN_TOL}), the split control's own {control['update_gap']:.3e} (worst "
+          f"{control['worst_leaf']}); parameters and moments held "
+          f"{[round(r['held_gib'], 3) for r in tp]} GiB a rank; peak memory "
+          f"{[round(r['peak_gib'], 3) for r in tp]} GiB a rank against {single['peak_gib']:.3f} "
+          f"in one process; step {[round(r['step_ms'], 1) for r in tp]} ms a rank against "
+          f"{single['step_ms']:.1f} ms in one process and {control['step_ms']:.1f} for the "
+          f"control (host clock); collectives staged over model "
+          f"{[r['staged_model'] for r in tp]}, over the batch axes and the norm "
+          f"{[r['staged_batch'] for r in tp]}; from the ranks' barrier to the compared "
+          f"parameters {[round(r['mesh_s'], 1) for r in tp]} s; 14a and 14c {seconds:.2f} s")
+    return dict(ranks=ranks, norm_gap=norm_gap, tp_norm_gap=tp_norm_gap, seconds=seconds,
                 launches=launches)
 
 
@@ -3455,11 +3704,14 @@ def main() -> None:
         table_bytes=dict(packed=packed.nbytes(), dense=dense_bytes),
         bound_every_entry=dict(ms=all_ms, by=all_by, bytes=all_bytes, ops=all_ops))
 
+    request_ms = {}
     for spec in routes:
         eng = engines[spec]
-        ms = host_ms(lambda: eng.predict_scores(X), REQUEST_TIMING_REPS)
+        request_ms[spec] = ms = host_ms(lambda: eng.predict_scores(X), REQUEST_TIMING_REPS)
         print(f"{card} | request {spec}: {ROWS} rows end to end (H2D, keys, kernels, "
               f"D2H, merge, finalize) {ms:.3f} ms median, host clock")
+    # 4d. the fused tree_parallel strategy (the reference walk; no hand kernel)
+    fused_plan_phase(ir, X, refs, PLAN_ROUTES[0], request_ms[PLAN_ROUTES[0]], dev, card)
 
     # the integer:cuda@leaf_major request's steps, each timed on its own
     x_dev = torch.from_numpy(X).to(dev)

@@ -19,11 +19,16 @@ Per-rank flops and bytes are multiplied by the ranks for the global
 record, so ``roofline.terms`` divides them as the reference does.
 
 Train cells run the sharded ``make_train_step`` (each layer's parameters
-gathered inside its block, gradients reduce-scattered into blocks);
-prefill, decode and the tree cells run ``tfm.prefill`` (or
-``forward_logits`` for an encoder), ``decode_step`` over a cache placed
-by ``rules.cache_shardings`` and ``core.serving.tree_serve_step``, the
-parameters as blocks gathered a layer at a time.
+gathered over the batch axes inside its block into the rank's ``model``
+blocks, the layers split over ``model``, gradients reduce-scattered into
+blocks), so a train cell's useful ratio (model flops over the ranks'
+flops) counts rematerialization and the pieces every ``model`` rank
+computes alike (a vocabulary or head count that does not divide
+``model``, the SSM blocks); prefill, decode and the tree cells run
+``tfm.prefill`` (or ``forward_logits`` for an encoder), ``decode_step``
+over a cache placed by ``rules.cache_shardings`` and
+``core.serving.tree_serve_step``, the parameters as blocks gathered a
+layer at a time into the same split layers, on the whole batch.
 
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-27b --shape train_4k

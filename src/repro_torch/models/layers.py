@@ -9,15 +9,20 @@ global values on every rank, so the reference's ``constrain`` calls on
 q/k/v, which steer its compiler's placement, have nothing to act on here:
 the placements they pin are the core's in specs.
 
-Conventions, as in the reference:
-  * activations are bf16 in compute; params are float32 as drawn, and every
-    matmul weight is cast to the activation dtype at use (``w.to(x.dtype)``
-    is free once ``LMEngine`` has cast the matmul weights to bf16, which
-    gives the same bits); norm gammas stay float32,
-  * attention is exact and chunked over queries: float32 scores, a -1e30
-    mask, softmax in float32, then the probabilities cast to the value dtype.
-    It is computed with ``torch.einsum``, never a fused attention call, so
-    the numbers follow the reference's.
+Where the weights come as ``model`` blocks (``sharding.ops.use_tp``: the
+sharded train step and the dry run hand the model ``Block``s), the layers
+split their work over ``model`` as the reference's partitioned program
+does (``_attention_tp``, ``mlp``): ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+column-parallel on the rank's heads or FFN columns, ``wo``/``w_down``
+row-parallel, then one all-reduce over ``model``.  A partial that is
+summed over the ranks, forward (a row-parallel output) or backward (each
+column-parallel matmul's input gradient), is the float32 product of the
+bf16 operands, summed in float32 and rounded once where the whole layer's
+matmul rounds (``_ColumnMM``, ``_RowMM``); everything else is the bf16
+matmul the whole layer runs.  So a split layer gives the whole layer's
+bits but for the order of the float32 adds.  (Partials rounded to bf16
+before the sum moved the smoke models' updates several times farther from
+the one-device step's and flipped MoE routing on near-ties.)
 """
 from __future__ import annotations
 
@@ -274,13 +279,20 @@ def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int 
     Under an active mesh the score/softmax core runs per rank
     (``_attn_core``).  Where the kv heads do not divide the ``model`` axis
     but the query heads do, K/V are repeated to one head per query head
-    before a prefill core, so the merged heads split over ``model``.
+    before a prefill core, so the merged heads split over ``model``.  With
+    the query weights as ``model`` blocks the layer is tensor-parallel
+    (``_attention_tp``).
     """
-    from repro_torch.sharding.ops import current_mesh
+    from repro_torch.sharding.ops import current_mesh, tp_mesh
 
     b, s, _ = x.shape
     h, kh, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
     g = h // kh
+    tpm = tp_mesh()
+    if tpm is not None and params["wq"].shape[1] != h * dh:
+        return _attention_tp(params, x, dims, tpm, positions=positions, causal=causal,
+                             window=window, rope_theta=rope_theta, q_chunk=q_chunk,
+                             kv_cache=kv_cache, cache_pos=cache_pos)
     mesh = current_mesh()
     tp = mesh.shape.get("model", 1) if mesh else 1
     xq = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, dh)
@@ -310,6 +322,186 @@ def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int 
         out = _attn_core(xq, xk, xv, causal=causal, window=window, q_chunk=q_chunk, mesh=mesh)
     out = out.reshape(b, s, h * dh)
     return out @ params["wo"].to(x.dtype), kv_cache
+
+
+class _ColumnMM(torch.autograd.Function):
+    """``x @ w`` with ``x`` held alike by the ``model`` ranks and ``w`` this
+    rank's columns: forward the matmul (a column block of the whole layer's
+    product), backward ``x``'s gradient as the ranks' float32 partials
+    summed over ``model`` and rounded once to ``x``'s dtype (where the
+    whole layer's matmul rounds it), and ``w``'s as the matmul gives it."""
+
+    @staticmethod
+    def forward(ctx, x, w, mesh):
+        ctx.save_for_backward(x, w)
+        ctx.mesh = mesh
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.sharding.ops import sum_over_model
+
+        x, w = ctx.saved_tensors
+        gx = sum_over_model(g.float() @ w.float().t(), ctx.mesh).to(x.dtype)
+        gw = x.reshape(-1, w.shape[0]).t() @ g.reshape(-1, w.shape[1])
+        return gx, gw, None
+
+
+class _RowMM(torch.autograd.Function):
+    """``y @ w``: forward the float32 product of the ``w.dtype`` operands (a
+    partial that ``reduce_from_model`` sums before anything rounds it),
+    backward both gradients as the ``w.dtype`` matmul gives them."""
+
+    @staticmethod
+    def forward(ctx, y, w):
+        ctx.save_for_backward(y, w)
+        return y.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        return g @ w.t(), y.reshape(-1, w.shape[0]).t() @ g.reshape(-1, w.shape[1])
+
+
+def column_mm(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """A column-parallel matmul's share: ``x`` times this rank's columns of
+    ``w`` rounded to ``x``'s dtype (``_ColumnMM``)."""
+    return _ColumnMM.apply(x, w.to(x.dtype), mesh)
+
+
+def _row_parallel(y: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """``y @ w`` where ``y``'s columns and ``w``'s rows are this rank's
+    ``model`` share: the float32 partial products summed over ``model``,
+    rounded once."""
+    from repro_torch.sharding.ops import reduce_from_model
+
+    return reduce_from_model(_RowMM.apply(y, w.to(y.dtype)), mesh).to(y.dtype)
+
+
+def _attention_tp(params, x, dims: AttnDims, mesh, *, positions, causal, window, rope_theta,
+                  q_chunk, kv_cache, cache_pos):
+    """The attention layer with its weights as this rank's ``model``
+    blocks: ``wq`` (and ``wk``/``wv`` where their columns divide ``model``)
+    column-parallel, ``wo`` row-parallel.  A rank computes its ``h / tp``
+    query heads.  Where the kv heads divide ``model`` its ``wk``/``wv``
+    columns are its heads' kv heads; where they do not, K/V are made whole
+    (gathered from the rank's columns, or computed whole where the rule
+    leaves ``wk`` whole), as the reference pins them replicated, and the
+    rank reads the kv head of each of its query heads (the merged-head
+    split; a head is never cut).  The core runs on the rank's heads of the
+    rows it is given; with a cache (serving), on the rows and positions the
+    cache holds on this rank (``_cached_core_tp``)."""
+    from repro_torch.sharding.ops import axis_index, copy_to_model, gather_from_model
+
+    b, s, _ = x.shape
+    h, kh, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    g = h // kh
+    tp = mesh.shape["model"]
+    if h % tp:
+        raise ValueError(f"{h} query heads do not split over a model axis of {tp}")
+    hl = h // tp
+    kv_local = kh % tp == 0
+
+    def project(w):
+        if w.shape[1] == kh * dh:  # the rule leaves it whole: computed alike on every rank
+            return (x @ w.to(x.dtype)).reshape(b, s, kh, dh)
+        part = column_mm(x, w, mesh)
+        if kv_local:
+            return part.reshape(b, s, kh // tp, dh)
+        return gather_from_model(part, 2, mesh).reshape(b, s, kh, dh)
+
+    # in the whole layer's order (q, k and v, then the rotations), so the
+    # backward pass sums the three input gradients in its order
+    xq = column_mm(x, params["wq"], mesh).reshape(b, s, hl, dh)
+    xk = project(params["wk"])
+    xv = project(params["wv"])
+    xq = apply_rope(xq, positions, rope_theta)
+    xk = apply_rope(xk, positions, rope_theta)
+
+    if kv_cache is not None:
+        out = _cached_core_tp(xq, xk, xv, kv_cache, dims, mesh, causal=causal, window=window,
+                              q_chunk=q_chunk, cache_pos=cache_pos)
+        return _row_parallel(out, params["wo"], mesh), kv_cache
+
+    if kv_local:
+        xq = xq.reshape(b, s, kh // tp, g, dh)
+    else:
+        # each of this rank's query heads reads its kv head; the kv heads
+        # are held alike, so their gradient is summed over the ranks
+        heads = (torch.arange(hl, device=x.device) + axis_index("model", mesh) * hl) // g
+        pick = lambda t: copy_to_model(t.float(), mesh).index_select(2, heads).to(t.dtype)
+        xk, xv = pick(xk), pick(xv)
+        xq = xq.reshape(b, s, hl, 1, dh)
+    out = _chunked_softmax_attn(xq, xk, xv, causal=causal, window=window, q_chunk=q_chunk)
+    return _row_parallel(out.reshape(b, s, hl * dh), params["wo"], mesh), None
+
+
+def _cached_core_tp(xq, xk, xv, kv_cache, dims: AttnDims, mesh, *, causal, window, q_chunk,
+                    cache_pos):
+    """``_attention_tp``'s core with a cache: this rank's new K/V written
+    into it, and its query heads' output (B, S, h / tp * Dh) over the cache.
+    A plain cache holds every row and head, so the new K/V are written
+    whole; a ``Block`` cache (``rules.cache_shardings``) holds this rank's
+    rows, its kv heads where they split over ``model``, and its positions
+    where they split over ``data``, so the rank writes its heads.  The
+    core runs on the rank's rows (the cache's, or its share over the batch
+    axes), a flash decode over ``data`` where the positions split, and the
+    rows are gathered.  A cache whose positions split over
+    ``model`` (kv heads that do not divide it) needs every query head on
+    every rank: q is gathered and the mesh core runs (``_attn_core``)."""
+    from repro_torch.sharding.ops import (Block, P, axis_index, current_mesh, entry_axes,
+                                          gather_block, gather_from_model, local_block)
+
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    b, s = xq.shape[:2]
+    h, kh, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    tp = mesh.shape["model"]
+    hl, kv_local, me = h // tp, kh % tp == 0, axis_index("model", mesh)
+    if cache_pos + s > ck.shape[1]:
+        raise ValueError(f"cache of {ck.shape[1]} positions cannot take {s} more "
+                         f"at position {cache_pos}")
+    spec = ck.spec if isinstance(ck, Block) else P(None, None, None, None)
+    if "model" in entry_axes(spec[1]):
+        _write_cache(ck, cache_pos, xk)
+        _write_cache(cv, cache_pos, xv)
+        out = _attn_core(gather_from_model(xq, 2, mesh).reshape(b, s, kh, h // kh, dh), ck, cv,
+                         causal=causal, window=window, q_chunk=q_chunk, q_offset=cache_pos,
+                         kv_len=cache_pos + s, mesh=current_mesh())
+        return out.reshape(b, s, h * dh).narrow(2, me * hl * dh, hl * dh)
+    heads_split = bool(entry_axes(spec[2]))
+    for c, new in ((ck, xk), (cv, xv)):
+        if kv_local and not heads_split:
+            new = gather_from_model(new, 2, mesh)
+        if isinstance(c, Block):  # the heads are already this rank's: cut rows and positions
+            Block(c.local, P(spec[0], spec[1], None, None), c.mesh).put(1, cache_pos, new)
+        else:
+            c[:, cache_pos:cache_pos + s] = new.to(c.dtype)
+    if isinstance(ck, Block):
+        rows = P(spec[0], None, None, None)
+        kc, vc = ck.local, cv.local
+    else:  # this rank's share of the rows over the batch axes that divide them
+        rows = P(_attn_specs(mesh, b, kh, 1, None, s)[0] or None, None, None, None)
+        kc, vc = (local_block(t, mesh, rows) for t in (ck, cv))
+    q = local_block(xq, mesh, rows)
+    if kv_local:
+        if not heads_split:
+            kc, vc = (t.narrow(2, me * (kh // tp), kh // tp) for t in (kc, vc))
+        q = q.reshape(q.shape[0], s, kh // tp, h // kh, dh)
+    else:  # each query head reads its kv head
+        heads = (torch.arange(hl, device=q.device) + me * hl) // (h // kh)
+        kc, vc = (t.index_select(2, heads) for t in (kc, vc))
+        q = q.reshape(q.shape[0], s, hl, 1, dh)
+    seq = entry_axes(spec[1])
+    if seq:
+        out = _flash_decode_partial(q, kc, vc, window, cache_pos, cache_pos + s, seq[0], mesh)
+    else:
+        out = _chunked_softmax_attn(q, kc, vc, causal=causal, window=window, q_chunk=q_chunk,
+                                    q_offset=cache_pos, kv_len=cache_pos + s)
+    out = out.reshape(q.shape[0], s, hl * dh)
+    if entry_axes(rows[0]):
+        out = gather_block(out, P(rows[0], None, None), mesh)
+    return out
 
 
 def _attn_core(xq, xk, xv, *, causal=True, window: int = 0, q_chunk=512, q_offset: int = 0,
@@ -374,8 +566,19 @@ def mlp_params(init: Init, d_model: int, d_ff: int):
     }
 
 
-def mlp(params, x, act: str = "silu"):
+def mlp(params, x, act: str = "silu", d_ff: Optional[int] = None):
+    """The gated MLP.  With ``d_ff`` given and the weights as ``model``
+    blocks of fewer columns (``sharding.ops.use_tp``), ``w_gate``/``w_up``
+    are column-parallel and ``w_down`` row-parallel, joined by one
+    all-reduce over ``model``."""
+    from repro_torch.sharding.ops import tp_mesh
+
     a = act_fn(act)
+    mesh = tp_mesh()
+    if mesh is not None and d_ff is not None and params["w_gate"].shape[1] != d_ff:
+        gate = a(column_mm(x, params["w_gate"], mesh))
+        up = column_mm(x, params["w_up"], mesh)
+        return _row_parallel(gate * up, params["w_down"], mesh)
     gate = a(x @ params["w_gate"].to(x.dtype))
     up = x @ params["w_up"].to(x.dtype)
     return (gate * up) @ params["w_down"].to(x.dtype)

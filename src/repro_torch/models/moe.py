@@ -2,11 +2,13 @@
 
 The PyTorch counterpart of the JAX package's ``models/moe.py``: the
 single-program path, and under a mesh with a ``model`` axis the
-expert-parallel path (``moe_block_ep``).  Expert selection only needs the
-*order* of router logits, so top-k runs on FlInt int32 keys
-(``repro_torch.core.flint``): a stable descending sort of the keys, which
-puts the lower expert index first among equal keys, as ``lax.top_k`` does
-(``torch.topk`` promises no order on ties).
+expert-parallel path (``moe_block_ep``; with the expert weights as this
+rank's ``model`` block, as the sharded train step gives them, its body
+runs directly on the rows the rank is given, ``moe_block_tp``).  Expert
+selection only needs the *order* of router logits, so top-k runs on FlInt
+int32 keys (``repro_torch.core.flint``): a stable descending sort of the
+keys, which puts the lower expert index first among equal keys, as
+``lax.top_k`` does (``torch.topk`` promises no order on ties).
 
 Dispatch is scatter-based: each (token, expert) pair lands in an (E, C, d)
 buffer at (expert, slot), its slot the count of earlier pairs routed to the
@@ -58,11 +60,16 @@ def moe_block(params, x, *, n_experts: int, k: int, act: str = "silu",
     """x: (B, S, D) -> (B, S, D), plus the aux load-balancing loss.
 
     Dispatches to the expert-parallel path when a mesh with a non-trivial
-    ``model`` axis is active (``moe_block_ep``); otherwise the
-    single-program scatter path below (CPU tests, 1-device meshes).
+    ``model`` axis is active (``moe_block_ep``), or when the expert
+    weights are this rank's ``model`` block (``moe_block_tp``); otherwise
+    the single-program scatter path below (CPU tests, 1-device meshes).
     """
-    from repro_torch.sharding.ops import current_mesh
+    from repro_torch.sharding.ops import current_mesh, tp_mesh
 
+    tpm = tp_mesh()
+    if tpm is not None and params["w_gate_e"].shape[0] != n_experts:
+        return moe_block_tp(params, x, n_experts=n_experts, k=k, act=act,
+                            capacity_factor=capacity_factor, mesh=tpm)
     mesh = current_mesh()
     if mesh is not None and mesh.shape.get("model", 1) > 1 and n_experts % mesh.shape["model"] == 0:
         # EP only pays off when the per-shard expert batch amortizes the
@@ -141,7 +148,11 @@ def _moe_block_jit(params, x, *, n_experts: int, k: int, act: str, capacity_fact
 # Rank (i, j) of a (data, model) mesh owns data shard i's tokens AND model
 # shard j's experts, so dispatch, the expert FFN and the partial combine are
 # local; the one collective is a sum of the combined output over `model`
-# (and a mean of the aux loss over the batch axes).  No all-to-all.
+# (and a mean of the aux loss over the batch axes).  No all-to-all.  The
+# sum is autograd-aware (``reduce_from_model``), and the tokens and gate
+# weights enter the rank's experts through ``copy_to_model``, so in
+# training each rank's experts get their gradients and the router and the
+# tokens get the sum of every rank's.
 
 def ep_dispatch(ids, gates, lo: int, e_loc: int, capacity: int):
     """The compact dispatch of a rank holding experts [lo, lo + e_loc):
@@ -169,7 +180,7 @@ def ep_dispatch(ids, gates, lo: int, e_loc: int, capacity: int):
 
 
 def _ep_body(wr, wg, wu, wd, xb, *, n_experts, e_loc, k, act, capacity_factor, batch_axes, mesh):
-    from repro_torch.sharding.ops import axis_index, pmean, psum
+    from repro_torch.sharding.ops import axis_index, copy_to_model, pmean, reduce_from_model
 
     b, s, d = xb.shape
     t = b * s
@@ -179,11 +190,14 @@ def _ep_body(wr, wg, wu, wd, xb, *, n_experts, e_loc, k, act, capacity_factor, b
 
     # capacity from the local token count, as the reference's
     capacity = int(max(1, (t * k * capacity_factor) // n_experts))
-    src_tok, gate_slot = ep_dispatch(ids, gates, axis_index("model", mesh) * e_loc, e_loc,
-                                     capacity)
-    # gather the landed rows (row t is the empty slots' zero row)
-    xt_pad = torch.cat([xt, torch.zeros((1, d), dtype=xt.dtype, device=xt.device)], dim=0)
-    buf = xt_pad[src_tok]  # (e_loc, capacity, d)
+    src_tok, gate_slot = ep_dispatch(ids, copy_to_model(gates, mesh),
+                                     axis_index("model", mesh) * e_loc, e_loc, capacity)
+    # gather the landed rows (row t is the empty slots' zero row), in
+    # float32 so a token's gradient is summed over its pairs and the ranks
+    # before it is rounded
+    xt_pad = torch.cat([copy_to_model(xt.float(), mesh),
+                        torch.zeros((1, d), dtype=torch.float32, device=xt.device)], dim=0)
+    buf = xt_pad[src_tok].to(xb.dtype)  # (e_loc, capacity, d)
 
     a = act_fn(act)
     gate = a(torch.einsum("ecd,edf->ecf", buf, wg.to(xb.dtype)))
@@ -195,7 +209,7 @@ def _ep_body(wr, wg, wu, wd, xb, *, n_experts, e_loc, k, act, capacity_factor, b
     contrib = out_e.float() * gate_slot.to(xb.dtype).float()[..., None]
     y = torch.zeros((t + 1, d), dtype=torch.float32, device=xb.device)
     y.index_add_(0, src_tok.reshape(-1), contrib.reshape(-1, d))
-    y = psum(y[:t], "model", mesh)
+    y = reduce_from_model(y[:t], mesh)
     return y.to(xb.dtype).reshape(b, s, d), aux
 
 
@@ -229,3 +243,14 @@ def moe_block_ep(params, x, *, n_experts: int, k: int, act: str, capacity_factor
     )
     y, aux = fn(params["w_router"], params["w_gate_e"], params["w_up_e"], params["w_down_e"], x)
     return gather(y), aux.to_local()
+
+
+def moe_block_tp(params, x, *, n_experts: int, k: int, act: str, capacity_factor: float, mesh):
+    """The expert-parallel body on the rows this rank is given, with the
+    expert weights already its ``model`` block (``sharding.ops.use_tp``):
+    the router replicated, as ``w_router``'s rule leaves it; the aux loss
+    of these rows (the train step averages it over the batch axes)."""
+    return _ep_body(params["w_router"], params["w_gate_e"], params["w_up_e"],
+                    params["w_down_e"], x, n_experts=n_experts,
+                    e_loc=n_experts // mesh.shape["model"], k=k, act=act,
+                    capacity_factor=capacity_factor, batch_axes=(), mesh=mesh)

@@ -20,9 +20,24 @@ Params are plain nested dicts.  ``init_params`` draws them from a seeded
 the JAX package's ``init_params`` output as numpy arrays, so both packages
 compute the same thing from the same weights.  The caches carry their
 position as a Python int; ``decode_step`` advances a cache in place.
+
+Handed ``sharding.ops.Block``s (the sharded train step, the dry run), the
+model is tensor-parallel over the mesh's ``model`` axis
+(``sharding.ops.use_tp``): each layer's parameters are gathered over the
+batch axes only, into this rank's ``model`` blocks (``_layer_params``), and
+the layers split their work with them, as the reference's partitioned
+program does: attention over query heads, the MLP over its FFN columns,
+the experts, and the embedding, head and cross-entropy over the
+vocabulary where it divides ``model`` (a dimension that does not divide
+stays whole, and every ``model`` rank computes that piece alike).  The SSM
+blocks, and attention whose query heads do not divide ``model``, gather
+their parameters whole.  ``loss_fn`` then takes this rank's rows;
+``forward_logits``, ``prefill`` and ``decode_step`` take the whole batch
+under the ambient mesh, as without blocks.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -77,25 +92,68 @@ def _select(tree, idx: int):
     return tree_map(lambda a: a[idx], tree)
 
 
-def _gathered(tree):
+def _gathered(tree, *, split: bool = False):
     """``tree`` with each ``sharding.ops.Block`` (a rank's share of a
-    parameter, as the sharded train step passes them) gathered whole; its
-    gradient flows back to the block.  Plain tensors pass as they are."""
+    parameter, as the sharded train step passes them) gathered whole, or
+    (``split``) into this rank's ``model`` block; its gradient flows back
+    to the block.  Plain tensors pass as they are."""
     from repro_torch.sharding.ops import Block
 
-    return tree_map(lambda a: a.whole() if isinstance(a, Block) else a, tree)
+    def one(a):
+        if not isinstance(a, Block):
+            return a
+        return a.model_block() if split else a.whole()
+
+    return tree_map(one, tree)
 
 
-def _layer(tree, idx: int):
-    """Layer ``idx`` of stacked leaves, gathered where they are blocks."""
-    return _gathered(_select(tree, idx))
+def _blocks_mesh(params):
+    """The mesh of the parameters' ``Block``s, or None for plain tensors."""
+    from repro_torch.sharding.ops import Block
+    from repro_torch.train.tree import tree_leaves
+
+    return next((t.mesh for t in tree_leaves(params) if isinstance(t, Block)), None)
+
+
+def _layer_params(cfg: ModelConfig, tree):
+    """One layer's parameters gathered where they are blocks: the ``model``
+    blocks of every part that splits its work over ``model``, the whole
+    tensors of the SSM and of attention whose query heads do not divide
+    ``model`` (it runs unsplit, its parameters gathered over ``model``
+    too)."""
+    mesh = _blocks_mesh(tree)
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    whole = {"ssm"} | ({"attn"} if cfg.n_heads % tp else set())
+    return {k: _gathered(v, split=k not in whole) for k, v in tree.items()}
+
+
+def _layer(cfg: ModelConfig, tree, idx: int):
+    """Layer ``idx`` of stacked parameters, gathered where they are
+    blocks (``_layer_params``)."""
+    return _layer_params(cfg, _select(tree, idx))
 
 
 def gather_top(params):
     """The leaves outside the stacked blocks (embedding, head, projector,
-    final norm) gathered where they are blocks: once a forward pass, or
-    once a step where the step gathers them first."""
-    return {k: v if k in ("blocks", "shared") else _gathered(v) for k, v in params.items()}
+    final norm) gathered where they are blocks, into this rank's ``model``
+    blocks: once a forward pass, or once a step where the step gathers
+    them first."""
+    return {k: v if k in ("blocks", "shared") else _gathered(v, split=True)
+            for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def _split_over(params, *, own_rows: bool):
+    """The layers split over the ``model`` axis of the parameters' blocks
+    (``use_tp``); with ``own_rows`` the inputs are this rank's rows, so
+    no layer splits them again (the ambient mesh is put aside).  Without
+    blocks, nothing changes."""
+    from repro_torch.sharding.ops import use_mesh, use_tp
+
+    mesh = _blocks_mesh(params)
+    with use_tp(mesh), (use_mesh(None) if own_rows and mesh is not None
+                        else contextlib.nullcontext()):
+        yield
 
 
 def _unbind(tree, n: int) -> list:
@@ -242,7 +300,7 @@ def _apply_attn_block(cfg, bp, x, positions, window, kv_cache=None, cache_pos=No
             capacity_factor=cfg.moe_capacity_factor,
         )
     else:
-        m = mlp(bp["mlp"], normed, cfg.act)
+        m = mlp(bp["mlp"], normed, cfg.act, d_ff=cfg.d_ff)
     return x + m, new_cache, aux
 
 
@@ -276,24 +334,70 @@ def _positions(b: int, s: int, device, start: int = 0):
 # forward (encoder / prefill-logits)
 # ---------------------------------------------------------------------------
 
+def _embed_rows(cfg: ModelConfig, embed, tokens):
+    """The float32 embedding rows of ``tokens``.  With the table as this
+    rank's ``model`` block of vocabulary rows, each rank reads the tokens in
+    its range, zeros elsewhere, and the rows are summed over ``model``
+    (exact: one rank holds each row)."""
+    from repro_torch.sharding.ops import axis_index, reduce_from_model, tp_mesh
+
+    tokens = tokens.long()
+    mesh = tp_mesh()
+    if mesh is None or embed.shape[0] == cfg.vocab_size:
+        return embed[tokens]
+    n = embed.shape[0]
+    local = tokens - axis_index("model", mesh) * n
+    inside = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)]
+    return reduce_from_model(torch.where(inside[..., None], rows, 0.0), mesh)
+
+
+def _project(cfg: ModelConfig, inputs, w):
+    """A frontend's stub embeddings through the projector; with the
+    projector as this rank's ``model`` block of output columns, the
+    columns are gathered over ``model``."""
+    from repro_torch.sharding.ops import gather_from_model, tp_mesh
+
+    out = inputs.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)
+    mesh = tp_mesh()
+    if mesh is None or w.shape[1] == cfg.d_model:
+        return out
+    return gather_from_model(out, out.dim() - 1, mesh)
+
+
 def embed_inputs(cfg: ModelConfig, params, batch):
     """Token/frontend embedding.  Returns (x (B,S,D), label_offset)."""
     if cfg.family == "audio":
-        x = batch["frames"].to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
-        return x, 0
-    tok = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+        return _project(cfg, batch["frames"], params["frontend_proj"]), 0
+    tok = _embed_rows(cfg, params["embed"], batch["tokens"]).to(COMPUTE_DTYPE)
     if cfg.family == "vlm":
-        patches = batch["patches"].to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
+        patches = _project(cfg, batch["patches"], params["frontend_proj"])
         return torch.cat([patches, tok], dim=1), cfg.vision_patches
     return tok, 0
 
 
 def _checkpointed(fn, remat: bool):
     """``fn``, or ``fn`` whose activations are recomputed in the backward
-    pass (``jax.checkpoint``'s counterpart) when ``remat``."""
+    pass (``jax.checkpoint``'s counterpart) when ``remat``.  The recompute
+    runs under the ambient mesh and ``use_tp`` mesh of the forward call
+    (the backward pass runs after the caller's contexts are gone), so its
+    collectives over ``model`` run again: each tensor-parallel layer's
+    all-reduces, once in the forward pass and once more in the backward."""
+    from repro_torch.sharding import ops
+
     if not remat:
         return fn
-    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    def run(*args):
+        mesh, tp = ops.current_mesh(), ops.tp_mesh()
+
+        def body(*a):
+            with ops.use_mesh(mesh), ops.use_tp(tp):
+                return fn(*a)
+
+        return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
+
+    return run
 
 
 def backbone(cfg: ModelConfig, params, x, *, remat: bool = True):
@@ -314,7 +418,8 @@ def backbone(cfg: ModelConfig, params, x, *, remat: bool = True):
     # each block's parameters are gathered inside its (recomputed) body,
     # where the caller passes them as blocks (the sharded train step)
     if cfg.family in ("ssm", "hybrid"):
-        ssm_block = _checkpointed(lambda bp, x: _apply_ssm_block(cfg, _gathered(bp), x), remat)
+        ssm_block = _checkpointed(lambda bp, x: _apply_ssm_block(cfg, _layer_params(cfg, bp), x),
+                                  remat)
 
     blocks = _unbind(params["blocks"], cfg.n_layers)
     if cfg.family == "ssm":
@@ -325,7 +430,8 @@ def backbone(cfg: ModelConfig, params, x, *, remat: bool = True):
     if cfg.family == "hybrid":
         n_groups, every = _hybrid_groups(cfg)
         shared_block = _checkpointed(
-            lambda sp, x: _apply_attn_block(cfg, _gathered(sp), x, positions, 0)[0], remat)
+            lambda sp, x: _apply_attn_block(cfg, _layer_params(cfg, sp), x, positions, 0)[0],
+            remat)
         shared = _unbind(params["shared"], cfg.hybrid_shared_sets)
         for g in range(n_groups):
             for j in range(every):
@@ -335,7 +441,8 @@ def backbone(cfg: ModelConfig, params, x, *, remat: bool = True):
 
     # dense / moe / vlm / audio: one block per layer with its window
     def block(bp, x, w):
-        h, _, aux = _apply_attn_block(cfg, _gathered(bp), x, positions, w, causal=causal)
+        h, _, aux = _apply_attn_block(cfg, _layer_params(cfg, bp), x, positions, w,
+                                      causal=causal)
         return h, aux
 
     block = _checkpointed(block, remat)
@@ -352,10 +459,47 @@ def head_weights(cfg: ModelConfig, params):
     return params["embed"].T
 
 
+def _logits(cfg: ModelConfig, params, x):
+    """float32 logits of ``x``; with the head as this rank's ``model``
+    block of vocabulary columns, the columns are gathered over ``model``."""
+    from repro_torch.models.layers import column_mm
+    from repro_torch.sharding.ops import gather_from_model, tp_mesh
+
+    w = head_weights(cfg, params)
+    mesh = tp_mesh()
+    if mesh is None or w.shape[1] == cfg.vocab_size:
+        return (x @ w.to(x.dtype)).float()
+    part = column_mm(x, w, mesh).float()
+    return gather_from_model(part, x.dim() - 1, mesh)
+
+
+def _split_vocab_ce(xi, li, w, mesh):
+    """Each position's (log Z - gold logit) with the head as this rank's
+    ``model`` block of vocabulary columns: the distributed log-softmax the
+    reference's partitioner derives from ``constrain(logits, "batch",
+    None, "tp")``.  The max over ``model`` (held fixed), the sum of the
+    exponentials over ``model``, and the label's logit from the rank that
+    holds its column."""
+    from repro_torch.models.layers import column_mm
+    from repro_torch.sharding.ops import axis_index, max_over_model, reduce_from_model
+
+    logits = column_mm(xi, w, mesh).float()
+    n = logits.shape[-1]
+    m = max_over_model(logits.detach().amax(dim=-1), mesh)
+    logz = m + torch.log(reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1), mesh))
+    local = li - axis_index("model", mesh) * n
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return logz - reduce_from_model(torch.where((local >= 0) & (local < n), picked, 0.0), mesh)
+
+
 def chunked_cross_entropy(cfg, params, x, labels, *, chunk: int = 512, label_offset: int = 0):
     """Mean CE over positions without materializing (B, S, V) logits: the
     sequence is cut into chunks (padded with label -1, which counts for
-    nothing), and each chunk's logits are recomputed in the backward pass."""
+    nothing), and each chunk's logits are recomputed in the backward pass.
+    With the head as a ``model`` block of vocabulary columns, each rank
+    computes its columns' logits (``_split_vocab_ce``)."""
+    from repro_torch.sharding.ops import tp_mesh
+
     if label_offset:
         x = x[:, label_offset:]
     b, s, d = x.shape
@@ -366,13 +510,18 @@ def chunked_cross_entropy(cfg, params, x, labels, *, chunk: int = 512, label_off
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
     labels = labels.long()
+    mesh = tp_mesh()
+    split = mesh is not None and w.shape[1] != cfg.vocab_size
 
     def one(xi, li, w):
-        logits = (xi @ w).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, torch.clamp(li, min=0)[..., None])[..., 0]
+        if split:
+            nll = _split_vocab_ce(xi, li, w, mesh)
+        else:
+            logits = (xi @ w).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            nll = logz - torch.gather(logits, -1, torch.clamp(li, min=0)[..., None])[..., 0]
         valid = li >= 0
-        return torch.where(valid, logz - gold, 0.0).sum(), valid.sum(dtype=torch.int32)
+        return torch.where(valid, nll, 0.0).sum(), valid.sum(dtype=torch.int32)
 
     one = _checkpointed(one, True)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -386,27 +535,30 @@ def chunked_cross_entropy(cfg, params, x, labels, *, chunk: int = 512, label_off
 def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
     """(CE + ``aux_weight`` x the MoE load-balancing loss, {"ce", "aux"}) of
     a batch of tensors: ``tokens`` (or ``frames``; ``patches`` for the vlm)
-    and ``labels`` (-1 where a position has no target)."""
-    params = gather_top(params)
-    x, label_offset = embed_inputs(cfg, params, batch)
-    x, aux = backbone(cfg, params, x)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    ce = chunked_cross_entropy(cfg, params, x, batch["labels"], label_offset=label_offset)
+    and ``labels`` (-1 where a position has no target).  With the
+    parameters as ``Block``s (the sharded train step) the batch is this
+    rank's rows, the model split over ``model``, and the loss the mean over
+    these rows."""
+    with _split_over(params, own_rows=True):
+        params = gather_top(params)
+        x, label_offset = embed_inputs(cfg, params, batch)
+        x, aux = backbone(cfg, params, x)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        ce = chunked_cross_entropy(cfg, params, x, batch["labels"], label_offset=label_offset)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def forward_logits(cfg: ModelConfig, params, batch):
     """Full logits (B, S, V) float32 (smoke tests / small models only)."""
-    params = gather_top(params)
-    x, _ = embed_inputs(cfg, params, batch)
-    x, _ = backbone(cfg, params, x, remat=False)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ head_weights(cfg, params).to(x.dtype)).float()
+    with _split_over(params, own_rows=False):
+        params = gather_top(params)
+        x, _ = embed_inputs(cfg, params, batch)
+        x, _ = backbone(cfg, params, x, remat=False)
+        return _logits(cfg, params, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
 def _last_logits(cfg, params, x):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x[:, -1] @ head_weights(cfg, params).to(x.dtype)).float()
+    return _logits(cfg, params, rms_norm(x, params["final_norm"], cfg.norm_eps)[:, -1])
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +589,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=COMPUTE_DTYPE, 
 
 
 def _ssm_decode_layer(cfg, bp, x, cache, l: int):
-    layer_cache = _layer(cache["ssm"], l)
+    layer_cache = _gathered(_select(cache["ssm"], l))
     h, new_c = ssm_mod.ssd_decode_step(
         bp["ssm"],
         rms_norm(x, bp["ln1"], cfg.norm_eps),
@@ -455,28 +607,32 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One decode step.  tokens: (B, 1) -> last-token logits (B, V) float32;
     ``cache`` advances in place (and is returned, as the reference returns
     its new cache)."""
+    with _split_over(params, own_rows=False):
+        return _decode_step(cfg, gather_top(params), cache, tokens)
+
+
+def _decode_step(cfg: ModelConfig, params, cache, tokens):
     pos = cache["pos"]
     b = tokens.shape[0]
-    params = gather_top(params)
-    x = params["embed"][tokens.long()].to(COMPUTE_DTYPE)
+    x = _embed_rows(cfg, params["embed"], tokens).to(COMPUTE_DTYPE)
     positions = _positions(b, 1, x.device, start=pos)
 
     if cfg.family == "ssm":
         for l in range(cfg.n_layers):
-            x = _ssm_decode_layer(cfg, _layer(params["blocks"], l), x, cache, l)
+            x = _ssm_decode_layer(cfg, _layer(cfg, params["blocks"], l), x, cache, l)
     elif cfg.family == "hybrid":
         n_groups, every = _hybrid_groups(cfg)
         for g in range(n_groups):
             for j in range(every):
                 l = g * every + j
-                x = _ssm_decode_layer(cfg, _layer(params["blocks"], l), x, cache, l)
-            sp = _layer(params["shared"], g % cfg.hybrid_shared_sets)
+                x = _ssm_decode_layer(cfg, _layer(cfg, params["blocks"], l), x, cache, l)
+            sp = _layer(cfg, params["shared"], g % cfg.hybrid_shared_sets)
             x, _, _ = _apply_attn_block(cfg, sp, x, positions, 0,
                                         kv_cache={"k": cache["k"][g], "v": cache["v"][g]},
                                         cache_pos=pos)
     else:
         for l, w in enumerate(window_schedule(cfg)):
-            x, _, _ = _apply_attn_block(cfg, _layer(params["blocks"], l), x, positions, w,
+            x, _, _ = _apply_attn_block(cfg, _layer(cfg, params["blocks"], l), x, positions, w,
                                         kv_cache={"k": cache["k"][l], "v": cache["v"][l]},
                                         cache_pos=pos)
     cache["pos"] = pos + 1
@@ -504,7 +660,11 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: Optional[int] = None):
     the chunked SSD returns the final (conv, state) pair per layer, handing
     off exactly to ``ssd_decode_step``.
     """
-    params = gather_top(params)
+    with _split_over(params, own_rows=False):
+        return _prefill(cfg, gather_top(params), batch, max_seq)
+
+
+def _prefill(cfg: ModelConfig, params, batch, max_seq):
     x, _ = embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
@@ -512,7 +672,7 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: Optional[int] = None):
     cache = init_cache(cfg, b, max_seq, device=x.device)
 
     def ssm_layer(l, x):
-        x, state = _ssm_block_prefill(cfg, _layer(params["blocks"], l), x)
+        x, state = _ssm_block_prefill(cfg, _layer(cfg, params["blocks"], l), x)
         for k, v in state.items():
             cache["ssm"][k][l] = v
         return x
@@ -525,13 +685,13 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: Optional[int] = None):
         for g in range(n_groups):
             for j in range(every):
                 x = ssm_layer(g * every + j, x)
-            sp = _layer(params["shared"], g % cfg.hybrid_shared_sets)
+            sp = _layer(cfg, params["shared"], g % cfg.hybrid_shared_sets)
             x, _, _ = _apply_attn_block(cfg, sp, x, positions, 0,
                                         kv_cache={"k": cache["k"][g], "v": cache["v"][g]},
                                         cache_pos=0)
     else:
         for l, w in enumerate(window_schedule(cfg)):
-            x, _, _ = _apply_attn_block(cfg, _layer(params["blocks"], l), x, positions, w,
+            x, _, _ = _apply_attn_block(cfg, _layer(cfg, params["blocks"], l), x, positions, w,
                                         kv_cache={"k": cache["k"][l], "v": cache["v"][l]},
                                         cache_pos=0, causal=not cfg.encoder_only)
     cache["pos"] = s

@@ -11,14 +11,17 @@ merge on the host.  Shards may run different backends: ``cuda|bitvector``
 puts half the trees on K1 and half on K5 and is still bit-identical to the
 single plan.
 
-The JAX package has a second, fused strategy: all shards on the reference
-walk in one ``shard_map`` over one device per shard.  The port keeps its
-selection rule (:meth:`TreeParallelPlan._can_fuse`, counting the devices of
-the plan's kind) but not the strategy, which waits for a machine with
-several cards: where the rule picks it, ``device_parallel="auto"`` takes the
-threaded path, which gives the same bits, and ``device_parallel=True``
-raises.  On fewer devices than shards, as on one card or the CPU, "auto"
-takes the threaded path and ``True`` raises, as in the JAX package.
+Where every shard is on the default-layout reference walk and there is a
+device per shard (``fused_devices``), the plan takes the fused strategy
+instead, the counterpart of the JAX package's ``shard_map``: each shard's
+padded sub-forest is padded again to one ``(T', N)`` shape with inert trees
+and nodes (self-looping zero-mass leaves, which add exactly 0), shard i's
+tables live on device i, every shard's walk is queued from the calling
+thread before any result is read, and the partials are copied to the first
+device and merged there with one masked sum.  ``device_parallel="auto"``
+picks it where the rule holds; ``True`` demands it and raises where the
+rule fails (a heterogeneous plan, another layout, backend kwargs, or fewer
+devices than shards), as in the JAX package.
 
 Deterministic modes only: float accumulation is not associative, so a float
 forest cannot be tree-sharded losslessly (use ``row_parallel``, which
@@ -37,12 +40,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.ensemble import _predict, u32_numpy
+from repro_torch.core.flint import float_to_key_np
 from repro_torch.device import resolve_device
 from repro_torch.plan.base import ExecutionPlan, as_ir, build_backend, register_plan
 
 _DEFAULT_SHARDS = 2
-_FUSED_NOT_PORTED = ("the fused (device-parallel) tree_parallel strategy is not "
-                     "ported yet: it waits for a machine with several cards")
+_U32_MASK = 0xFFFFFFFF
 
 
 def thread_shard_cap() -> int:
@@ -51,6 +55,16 @@ def thread_shard_cap() -> int:
     second shard still overlaps the first's dispatch and merge on one
     core)."""
     return max(os.cpu_count() or 1, 2)
+
+
+def fused_devices(device: torch.device) -> list:
+    """The devices the fused strategy lays its shards on, one a shard:
+    every card for a ``cuda`` plan, the one CPU for a ``cpu`` plan.  The
+    selection rule and the strategy both read this list.  The threaded
+    path's core cap does not apply: devices are not cores."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def tree_ranges(n_trees: int, shards: int) -> list:
@@ -86,50 +100,89 @@ class TreeParallelPlan(ExecutionPlan):
         self.device = resolve_device(device)
         self.ranges = tree_ranges(ir.n_trees, len(names))
         names = names[: len(self.ranges)]
-        # where the JAX package's rule picks the fused strategy (not ported),
-        # "auto" takes the threaded path, whose bits are the same; only an
-        # explicit ask for it raises
-        fuse = self._can_fuse(names, layout, backend_kwargs, device_parallel)
-        if device_parallel is True:
-            if fuse:
-                raise ValueError(f"{_FUSED_NOT_PORTED}; pass device_parallel=False "
-                                 "or \"auto\" for the threaded path")
-            raise ValueError(
-                "device_parallel=True needs a homogeneous 'reference' "
-                "plan (default layout, no backend kwargs) and at least "
-                f"{len(self.ranges)} {self.device.type} devices; "
-                f"{_FUSED_NOT_PORTED}"
+        self._fused = None
+        self._shard_backends: tuple = ()
+        self._labels: list = []
+        if self._can_fuse(names, layout, backend_kwargs, device_parallel):
+            self._build_fused()
+        else:
+            if device_parallel is True:
+                raise ValueError(
+                    "device_parallel=True needs a homogeneous 'reference' "
+                    "plan (default layout, no backend kwargs) and at least "
+                    f"{len(self.ranges)} {self.device.type} devices"
+                )
+            # oversubscription cap (threaded path only): shards beyond the
+            # core budget cannot run concurrently, they just contend.  An
+            # explicit heterogeneous backend mix is an explicit fan-out
+            # request and is honored as asked; clamp_shards=False opts a
+            # homogeneous plan out.
+            cap = thread_shard_cap()
+            if clamp_shards and isinstance(backend, str) and len(self.ranges) > cap:
+                self.ranges = tree_ranges(ir.n_trees, cap)
+                names = names[: len(self.ranges)]
+            self._shard_backends = tuple(
+                build_backend(name, ir.subset(a, b), mode, layout, backend_kwargs,
+                              self.device)
+                for name, (a, b) in zip(names, self.ranges)
             )
-        # oversubscription cap: shards beyond the core budget cannot run
-        # concurrently, they just contend.  An explicit heterogeneous
-        # backend mix is an explicit fan-out request and is honored as
-        # asked; clamp_shards=False opts a homogeneous plan out.
-        cap = thread_shard_cap()
-        if clamp_shards and isinstance(backend, str) and len(self.ranges) > cap:
-            self.ranges = tree_ranges(ir.n_trees, cap)
-            names = names[: len(self.ranges)]
-        self._shard_backends = tuple(
-            build_backend(name, ir.subset(a, b), mode, layout, backend_kwargs,
-                          self.device)
-            for name, (a, b) in zip(names, self.ranges)
-        )
-        self._labels = [f"s{i}:{b.name}[{a}:{e}]" for i, (b, (a, e))
-                        in enumerate(zip(self._shard_backends, self.ranges))]
-        self._pool = None  # created lazily, released by close()
+            self._labels = [f"s{i}:{b.name}[{a}:{e}]" for i, (b, (a, e))
+                            in enumerate(zip(self._shard_backends, self.ranges))]
+        self._pool = None  # threaded path: created lazily, released by close()
         self._pool_lock = threading.Lock()
 
+    # ----------------------------------------------------------- strategies
     def _can_fuse(self, names, layout, backend_kwargs, device_parallel) -> bool:
         """The JAX package's rule for the fused strategy: asked for (or
         auto), two or more shards, all on the default-layout reference
-        walk, and a device of the plan's kind per shard."""
+        walk, and a device per shard (``fused_devices``)."""
         if not device_parallel or len(self.ranges) < 2:
             return False
         if any(n != "reference" for n in names) or backend_kwargs:
             return False
         if layout not in (None, "padded"):
             return False
-        devices = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        return devices >= len(self.ranges)
+        return len(fused_devices(self.device)) >= len(self.ranges)
+
+    def _build_fused(self) -> None:
+        """Pad every shard's padded tables to one (T', N) with inert trees
+        and nodes (feature -1, key 0, children looping to themselves, zero
+        leaves: each adds exactly 0 to the uint32 accumulator, so fusing
+        cannot perturb partials) and put shard i's on device i, as the
+        tensors the reference walk reads."""
+        subs = [self.ir.subset(a, b).materialize("padded") for a, b in self.ranges]
+        S = len(subs)
+        C = self.ir.n_classes
+        Tp = max(s.n_trees for s in subs)
+        N = max(s.feature.shape[1] for s in subs)
+        selfloop = np.tile(np.arange(N, dtype=np.int64), (Tp, 1))
+        self._fused_devices = fused_devices(self.device)[:S]
+        self._fused = []
+        for s, dev in zip(subs, self._fused_devices):
+            T0, N0 = s.feature.shape
+            tables = dict(feature=np.full((Tp, N), -1, np.int64),
+                          threshold=np.zeros((Tp, N), np.int32),
+                          left=selfloop.copy(), right=selfloop.copy(),
+                          leaf=np.zeros((Tp, N, C), np.int64))
+            tables["feature"][:T0, :N0] = s.feature
+            tables["threshold"][:T0, :N0] = s.threshold_key
+            tables["left"][:T0, :N0] = s.left
+            tables["right"][:T0, :N0] = s.right
+            tables["leaf"][:T0, :N0] = s.leaf_fixed
+            self._fused.append({k: torch.from_numpy(v).to(dev) for k, v in tables.items()})
+        self._depth = int(self.ir.max_depth)
+        self._fused_label = f"fused:reference[x{S}]"
+
+    def _run_fused(self, keys: np.ndarray) -> np.ndarray:
+        """Every shard's walk queued on its device, then the partials
+        copied to the first device and summed there (int64, masked to 32
+        bits: the uint32 sum, associative, so the merged accumulator is the
+        single plan's bits)."""
+        parts = [_predict(tables, torch.from_numpy(keys).to(dev), self._depth, True)
+                 for tables, dev in zip(self._fused, self._fused_devices)]
+        home = self._fused_devices[0]
+        acc = sum(p.view(torch.int32).to(home).to(torch.int64) & _U32_MASK for p in parts)
+        return u32_numpy((acc & _U32_MASK).to(torch.int32))
 
     # ------------------------------------------------------------ execution
     def predict_partials(self, X):
@@ -137,6 +190,11 @@ class TreeParallelPlan(ExecutionPlan):
         # capture the parent span on the dispatching thread: the shard pool
         # threads get it via submit args, not via the thread-local
         parent = self.trace_parent
+        if self._fused is not None:
+            # the partials are read back inside the timed span, so it holds
+            # the device work and the merge on the first device
+            return self._timed(self._fused_label, self._run_fused, float_to_key_np(X),
+                               span_parent=parent)
         pool = self._ensure_pool()
         futs = [
             pool.submit(self._timed, lab, b.predict_partials, X, span_parent=parent)
@@ -175,9 +233,8 @@ class TreeParallelPlan(ExecutionPlan):
     # -------------------------------------------------------------- metadata
     @property
     def fused(self) -> bool:
-        """Whether the shards run as one fused device computation: never in
-        the port (the fused strategy is not ported)."""
-        return False
+        """True when the shards run as the fused device computation."""
+        return self._fused is not None
 
     @property
     def backends(self) -> tuple:
@@ -190,6 +247,18 @@ class TreeParallelPlan(ExecutionPlan):
     @property
     def n_shards(self) -> int:
         return len(self.ranges)
+
+    @property
+    def compiles_per_shape(self) -> bool:
+        if self._fused is not None:
+            return True  # the reference walk, as its backend declares
+        return super().compiles_per_shape
+
+    @property
+    def backend_name(self) -> str:
+        if self._fused is not None:
+            return "reference"
+        return super().backend_name
 
     def describe(self) -> dict:
         d = super().describe()

@@ -31,16 +31,25 @@ entries are.
 
 A ``Block`` is this rank's block of a parameter (or cache) under its spec.
 The sharded train step hands the model ``Block``s, and the model gathers
-one layer's parameters at a time (``Block.whole``, through
-``gather_block``), whose backward sums the gradient over the batch axes
-into this rank's block: FSDP over ``data`` with the parameters' ``model``
-blocks, as the reference's partitioned program gathers a layer inside the
-scanned block and reduce-scatters its gradients.
+one layer's parameters at a time, over the batch axes only
+(``Block.model_block``): FSDP over ``data``, the backward summing the
+gradient over the batch axes into this rank's block, as the reference's
+partitioned program gathers a layer inside the scanned block and
+reduce-scatters its gradients.  What stays split is the parameter's
+``model`` block, and the layers split their work over ``model`` with it
+(tensor parallelism; ``use_tp``): each ``model`` rank computes its share
+from its block, as the reference's partitioner splits each layer's
+matmuls.  Three autograd-aware collectives over ``model`` join the shares
+(``copy_to_model``, ``reduce_from_model``, ``gather_from_model``); a value
+that all ``model`` ranks hold alike keeps a gradient that they hold
+alike.  A layer that does not split (the SSM blocks) gathers its
+parameters whole (``Block.whole``).
 
 Every collective goes through ``_collective``.  gloo carries CPU tensors;
 a CUDA tensor on a gloo group (several ranks on one card, where NCCL
 refuses a second rank) is copied to the host, reduced or gathered there
-and copied back, and ``STAGED`` counts those calls by collective.
+and copied back, and ``STAGED`` counts those calls by collective, those
+over ``model`` of the tensor-parallel layers under ``model_`` names.
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ import torch
 import torch.distributed as dist
 
 _ACTIVE: list = []
+_TP: list = []
 
 _LOGICAL = {
     "batch": ("pod", "data"),
@@ -63,8 +73,9 @@ _LOGICAL = {
 }
 
 # host-staged collectives by name ("all_reduce", "all_gather",
-# "reduce_scatter") in this process; read by the smoke run, reset by the
-# caller
+# "reduce_scatter"; "model_all_reduce" and "model_all_gather" for the
+# tensor-parallel layers' collectives over ``model``) in this process; read
+# by the smoke run, reset by the caller
 STAGED: Counter = Counter()
 # the mesh axes a batch splits over (pure data parallelism over pods, FSDP
 # over data); every other axis sees the same rows
@@ -144,6 +155,25 @@ def use_mesh(mesh: Optional[Mesh]):
 
 def current_mesh() -> Optional[Mesh]:
     return _ACTIVE[-1] if _ACTIVE else None
+
+
+@contextlib.contextmanager
+def use_tp(mesh: Optional[Mesh]):
+    """The mesh whose ``model`` axis the layers split their work over,
+    where their weights come as ``model`` blocks (``Block.model_block``).
+    The model's entry points set it when they are handed ``Block``s."""
+    _TP.append(mesh)
+    try:
+        yield
+    finally:
+        _TP.pop()
+
+
+def tp_mesh() -> Optional[Mesh]:
+    """The ``use_tp`` mesh, where its ``model`` axis has more than one
+    rank; else None (the layers then run whole)."""
+    mesh = _TP[-1] if _TP else None
+    return mesh if mesh is not None and mesh.shape.get("model", 1) > 1 else None
 
 
 def is_trivial(mesh) -> bool:
@@ -230,14 +260,15 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and "nccl" not in str(dist.get_backend(group))
 
 
-def _collective(name: str, t: torch.Tensor, group, **kw):
+def _collective(name: str, t: torch.Tensor, group, *, tag: str = "", **kw):
     """``all_reduce`` (``op=``), ``reduce_scatter`` (the sum, this rank's
     share of dimension 0) or ``all_gather`` (every rank's tensor in rank
     order, concatenated along ``dim=``) of ``t`` over ``group``, on a copy.
-    A CUDA tensor on a group without NCCL is staged through the host."""
+    A CUDA tensor on a group without NCCL is staged through the host and
+    counted in ``STAGED`` under ``tag`` + ``name``."""
     staged = _staged(t, group)
     if staged:
-        STAGED[name] += 1
+        STAGED[tag + name] += 1
     if name == "all_reduce":
         work = t.detach().to("cpu", copy=True) if staged else t.detach().clone()
         dist.all_reduce(work, op=kw["op"], group=group)
@@ -382,6 +413,92 @@ def constrain(x, *logical):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism: autograd-aware collectives over ``model``
+# ---------------------------------------------------------------------------
+#
+# Between layers an activation is held alike by every ``model`` rank, and so
+# is its gradient.  A layer's share on one rank starts where such a value
+# enters work that differs by rank (``copy_to_model``: the backward sums the
+# ranks' gradients) and ends where the ranks' shares are summed
+# (``reduce_from_model``) or concatenated (``gather_from_model``) into a
+# value held alike again.
+
+def sum_over_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over ``model`` (no gradient)."""
+    return _collective("all_reduce", x, mesh.group("model"), tag="model_",
+                       op=dist.ReduceOp.SUM)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: the value as it is.  Backward: the ``model`` ranks'
+    gradients summed (each rank's share used the value differently), in
+    float32 and rounded once to the gradient's type."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return sum_over_model(grad.float(), ctx.mesh).to(grad.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the ``model`` ranks' partial values summed.  Backward: the
+    gradient, held alike, reaches each rank's part as it is."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return sum_over_model(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Forward: the ``model`` ranks' pieces concatenated along ``dim``.
+    Backward: this rank's piece of the gradient (held alike)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _collective("all_gather", x, mesh.group("model"), tag="model_", dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // ctx.mesh.shape["model"]
+        piece = grad.narrow(ctx.dim, ctx.mesh.axis_index("model") * n, n)
+        return piece.contiguous(), None, None
+
+
+def max_over_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``model`` (no gradient)."""
+    return _collective("all_reduce", x, mesh.group("model"), tag="model_", op=dist.ReduceOp.MAX)
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x``, held alike by the ``model`` ranks, as the input of work that
+    differs by rank (a column-parallel matmul): the backward all-reduces
+    its gradient over ``model``."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over ``model`` of each rank's partial ``x`` (a row-parallel
+    matmul's output): an all-reduce forward, the identity backward."""
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """Each ``model`` rank's piece ``x`` concatenated along ``dim`` in rank
+    order: an all-gather forward, this rank's piece of the gradient
+    backward."""
+    return _GatherFromModel.apply(x, dim, mesh)
+
+
+# ---------------------------------------------------------------------------
 # blocks: one rank's share of a parameter, gathered a layer at a time
 # ---------------------------------------------------------------------------
 
@@ -391,19 +508,23 @@ def _block_entries(spec) -> list:
     return [(d, entry_axes(e)) for d, e in enumerate(spec) if entry_axes(e)]
 
 
-def _gather_local(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+def _gather_local(local: torch.Tensor, spec, mesh: Mesh, axes=None) -> torch.Tensor:
+    """The block gathered along the mesh axes of its spec (only those in
+    ``axes``, where given)."""
     out = local
-    for d, axes in _block_entries(spec):
-        for a in reversed(axes):  # the innermost axis first
-            if mesh.shape[a] > 1:
+    for d, dim_axes in _block_entries(spec):
+        for a in reversed(dim_axes):  # the innermost axis first
+            if mesh.shape[a] > 1 and (axes is None or a in axes):
                 out = _collective("all_gather", out, mesh.group(a), dim=d)
     return out.clone() if out is local else out
 
 
-def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
-    """The gradient of the whole tensor on this rank's rows -> its sum over
-    the batch axes, this rank's block.  Ranks along a non-batch axis
-    (``model``) saw the same rows, so their share is cut, not summed."""
+def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh, whole: bool = True) -> torch.Tensor:
+    """The gradient of the gathered tensor on this rank's rows -> its sum
+    over the batch axes, this rank's block.  For a tensor gathered whole
+    (``whole``), ranks along a non-batch axis (``model``) computed the same
+    gradient, so their share is cut, not summed; a ``model`` block's
+    gradient is already this rank's share."""
     dims = {}
     for d, axes in _block_entries(spec):
         if len(axes) > 1:
@@ -412,7 +533,7 @@ def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
         dims[axes[0]] = d
     g = grad
     for a, d in dims.items():
-        if a not in BATCH_AXES and mesh.shape[a] > 1:
+        if whole and a not in BATCH_AXES and mesh.shape[a] > 1:
             size = g.shape[d] // mesh.shape[a]
             g = g.narrow(d, mesh.axis_index(a) * size, size)
     for a in BATCH_AXES:
@@ -427,34 +548,38 @@ def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
 
 
 class _GatherBlock(torch.autograd.Function):
-    """Forward: the whole tensor from every rank's block.  Backward: the
-    whole gradient reduced to this rank's block (``_reduce_to_block``).
-    Nothing is saved, so under ``torch.utils.checkpoint`` the gather runs
-    again in the backward pass, and a tensor gathered once serves several
-    backward passes (microbatches)."""
+    """Forward: the whole tensor from every rank's block, or (``whole``
+    False) its ``model`` block, gathered over the batch axes only.
+    Backward: the gradient reduced to this rank's block
+    (``_reduce_to_block``).  Nothing is saved, so under
+    ``torch.utils.checkpoint`` the gather runs again in the backward pass,
+    and a tensor gathered once serves several backward passes
+    (microbatches)."""
 
     @staticmethod
-    def forward(ctx, local, spec, mesh):
-        ctx.spec, ctx.mesh = spec, mesh
-        return _gather_local(local, spec, mesh)
+    def forward(ctx, local, spec, mesh, whole):
+        ctx.spec, ctx.mesh, ctx.whole = spec, mesh, whole
+        return _gather_local(local, spec, mesh, None if whole else BATCH_AXES)
 
     @staticmethod
     def backward(ctx, grad):
-        return _reduce_to_block(grad, ctx.spec, ctx.mesh), None, None
+        return _reduce_to_block(grad, ctx.spec, ctx.mesh, ctx.whole), None, None, None
 
 
-def gather_block(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+def gather_block(local: torch.Tensor, spec, mesh: Mesh, *, whole: bool = True) -> torch.Tensor:
     """The whole tensor whose block on this rank is ``local`` under
-    ``spec``; its gradient flows back to ``local`` summed over the batch
-    axes."""
-    return _GatherBlock.apply(local, spec, mesh)
+    ``spec`` (or, ``whole`` False, its ``model`` block: gathered over the
+    batch axes only); its gradient flows back to ``local`` summed over the
+    batch axes."""
+    return _GatherBlock.apply(local, spec, mesh, whole)
 
 
 class Block:
     """This rank's block (``local``) of a global tensor under ``spec`` on
     ``mesh``.  A stacked leaf's leading (layer) dimension is never sharded:
     ``block[l]`` and ``block.unbind(0)`` give layer blocks with no
-    communication, ``whole()`` gathers one (``gather_block``), and
+    communication, ``whole()`` gathers one (``gather_block``),
+    ``model_block()`` gathers it over the batch axes only, and
     ``block[l] = value`` / ``put`` write this rank's share of a global
     value (a cache's layer, or positions of one)."""
 
@@ -493,6 +618,11 @@ class Block:
 
     def whole(self) -> torch.Tensor:
         return gather_block(self.local, self.spec, self.mesh)
+
+    def model_block(self) -> torch.Tensor:
+        """This rank's ``model`` block of the tensor: whole along every
+        dimension but the one its spec splits over ``model``."""
+        return gather_block(self.local, self.spec, self.mesh, whole=False)
 
     def put(self, dim: int, start: int, value: torch.Tensor) -> None:
         """Write ``value``, global along every dimension but ``dim``, where

@@ -12,16 +12,20 @@ Under a mesh (``sharding.ops.use_mesh``) ``make_train_step`` is the
 reference's FSDP layout done by hand: the parameters and the optimizer
 state are ``DTensor``s placed by ``sharding.rules.params_shardings``, the
 batch is split over ``pod`` x ``data`` by ``batch_shardings``.  Each rank
-hands the model its parameters' blocks (``sharding.ops.Block``): the
-embedding, head, projector and final norm are gathered once for the step,
-and each layer's parameters inside its block, again in the backward pass
-under rematerialization; the backward of every gather sums the gradient
+hands the model its parameters' blocks (``sharding.ops.Block``) and its
+rows: the embedding, head, projector and final norm are gathered once for
+the step, and each layer's parameters inside its block, again in the
+backward pass under rematerialization, over the batch axes only, into the
+rank's ``model`` blocks; the backward of every gather sums the gradient
 over the batch axes into this rank's block (a reduce-scatter over ``data``,
 an all-reduce where a dimension does not divide), so gradients exist only
-as blocks and microbatches add into them.  The model runs without the mesh
-inside the step (the ``model`` axis repeats the compute of its ``data``
-shard); each rank updates its own blocks of the parameters and moments
-with the global gradient norm (``optimizer.sharded_global_norm``).
+as blocks and microbatches add into them.  The model is tensor-parallel
+over ``model`` (``models.transformer``): each ``model`` rank computes its
+share of every layer from its blocks, and the layers' all-reduces over
+``model`` join the shares (the SSM blocks gather their parameters whole
+and repeat their work over ``model``).  Each rank updates its own blocks of
+the parameters and moments with the global gradient norm
+(``optimizer.sharded_global_norm``).
 ``make_integer_dp_train_step`` is the reference's data-parallel variant over
 a mesh's ``data`` axis or a ``torch.distributed`` process group: each rank
 takes its slice of the global batch, and the gradients are combined with
@@ -161,7 +165,7 @@ def _locals(tree):
 
 def _sharded_step(cfg, opt_cfg, mesh, n_micro, params, opt_state, batch):
     from repro_torch.sharding import rules
-    from repro_torch.sharding.ops import BATCH_AXES, blocks, pmean, to_local, use_mesh
+    from repro_torch.sharding.ops import BATCH_AXES, blocks, pmean, to_local
 
     batch_axes = tuple(a for a in BATCH_AXES if a in mesh.shape)
     shardings = rules.params_shardings(params, mesh)
@@ -170,9 +174,10 @@ def _sharded_step(cfg, opt_cfg, mesh, n_micro, params, opt_state, batch):
     batch = _on_device(batch, device)
     bsh = rules.batch_shardings(mesh, batch)
     rows = {k: to_local(v, mesh, bsh[k].spec) for k, v in batch.items()}
-    with use_mesh(None):  # this rank's rows through the one-device model
-        model = tfm.gather_top(blocks(local, shardings))
-        loss, parts = _backward_each(cfg, model, rows, n_micro, device)
+    # this rank's rows through the model split over ``model`` (``loss_fn``
+    # with blocks)
+    model = tfm.gather_top(blocks(local, shardings))
+    loss, parts = _backward_each(cfg, model, rows, n_micro, device)
     del model
     leaves = tree_leaves(local)
     with torch.no_grad():

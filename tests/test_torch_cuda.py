@@ -555,24 +555,30 @@ def test_kernels_score_more_trees_than_grid_y_holds(card, many_trees):
 
 
 @pytest.mark.cuda
-def test_auto_takes_threads_on_a_card_per_shard(card, monkeypatch):
-    """With two cards counted (so the JAX package's rule picks the fused
-    strategy for a two-shard reference plan), ``device_parallel="auto"``
-    serves through the threaded plan on the card, bit-identical to the
-    single plan, and ``device_parallel=True`` raises."""
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+def test_fused_strategy_on_one_card_twice(card, monkeypatch):
+    """The fused strategy with its device list patched to the card twice:
+    "auto" builds it for a two-shard reference plan (uneven shards, so
+    inert trees pad one), both shards' tables live on the card, and its
+    partials and scores are bit-identical to the single plan's on the
+    card and to the reference walk on the CPU."""
+    from repro_torch.plan import tree_parallel as tp_mod
+
+    monkeypatch.setattr(tp_mod, "fused_devices", lambda device: [torch.device("cuda", 0)] * 2)
     ir = _forest(23, 12, 6, 9, 4)
     x = np.random.default_rng(8).normal(size=(300, 9)).astype(np.float32)
     eng = TreeEngine(ir, spec="integer:reference+tree_parallel:2")
-    assert eng.plan.name == "tree_parallel" and not eng.plan.fused
-    assert all(b.device.type == "cuda" for b in eng.plan.backends)
+    assert eng.plan.name == "tree_parallel" and eng.plan.fused and eng.plan.backends == ()
+    assert all(t.device.type == "cuda" for tables in eng.plan._fused for t in tables.values())
     single = TreeEngine(ir, spec="integer:reference")
-    for got, want in zip(eng.predict_scores(x), single.predict_scores(x)):
-        np.testing.assert_array_equal(got, want)
+    cpu = TreeEngine(ir, spec="integer:reference", device="cpu")
+    for rows in (x, x[:1]):
+        got = eng.predict_partials(rows)
+        np.testing.assert_array_equal(got, single.predict_partials(rows))
+        np.testing.assert_array_equal(got, cpu.predict_partials(rows))
+        for a, b in zip(eng.predict_scores(rows), single.predict_scores(rows)):
+            np.testing.assert_array_equal(a, b)
+    assert set(eng.plan.drain_timings()) == {"fused:reference[x2]"}
     eng.close()
-    with pytest.raises(ValueError, match="not ported"):
-        TreeEngine(ir, spec="integer:reference+tree_parallel:2",
-                   plan_kwargs={"device_parallel": True})
 
 
 @pytest.mark.cuda
@@ -941,9 +947,12 @@ def test_mesh_branches_on_card_ranks_match_cpu_ranks(card, tmp_path):
     (their collectives staged through the host), against four CPU ranks on
     the same inputs: the tree step bit for bit with no collective, each
     attention core within the reference's 0.02, the MoE block within 0.05,
-    the train step's loss within 2e-3 (the card-against-CPU tolerance of
-    the training tests), each rank holding only its parameters' blocks."""
-    from torch_dist_ranks import ATTN_CASES, MOE_CAPACITY, mesh_rank, run_ranks, write_mesh_inputs
+    each smoke model's tensor-parallel train step's loss within 2e-3 (the
+    card-against-CPU tolerance of the training tests), each rank holding
+    only its parameters' blocks and gathering none whose rule splits it
+    over ``model`` over ``model``."""
+    from torch_dist_ranks import (ATTN_CASES, MOE_CAPACITY, TRAIN_ARCHS, mesh_rank, run_ranks,
+                                  write_mesh_inputs)
 
     write_mesh_inputs(tmp_path / "in")
     runs = {}
@@ -960,7 +969,12 @@ def test_mesh_branches_on_card_ranks_match_cpu_ranks(card, tmp_path):
             assert np.abs(g[f"attn_{name}"] - c[f"attn_{name}"]).max() < 0.02, name
         for cf in MOE_CAPACITY:
             assert np.abs(g[f"moe_y_{cf}"] - c[f"moe_y_{cf}"]).max() < 0.05, cf
-        assert abs(float(g["train_loss"]) - float(c["train_loss"])) < 2e-3
-        # fault D: the card's ranks hold only their blocks, as the CPU's do
-        assert int(g["block_bytes_held"]) == int(g["block_bytes_want"])
-        assert g["block_grads_match"] and not g["block_grads_left"]
+        for arch in TRAIN_ARCHS:
+            key = f"train[{arch}]_"
+            assert abs(float(g[key + "loss"]) - float(c[key + "loss"])) < 2e-3, arch
+            # fault D: the card's ranks hold only their blocks, as the CPU's do
+            assert int(g[key + "block_bytes_held"]) == int(g[key + "block_bytes_want"])
+            assert g[key + "block_grads_match"] and not g[key + "block_grads_left"]
+            assert g[key + "split_shapes_ok"]
+            assert set(g[key + "whole_over_model"].tolist()) == \
+                set(c[key + "whole_over_model"].tolist())

@@ -40,6 +40,9 @@ from repro_torch.train.tree import flatten_with_paths, path_key
 
 ROOT = Path(__file__).resolve().parents[1]
 FLOPS_TOL = 0.01
+# the ceiling on the port's mesh contraction flops over the reference
+# mesh's (the ``model`` ranks' replicated pieces)
+TP_FLOPS_RATIO = 1.15
 LM_ARCHS = ("gemma3-27b", "granite-34b", "granite-3-2b", "hubert-xlarge", "llava-next-34b",
             "mamba2-370m", "olmoe-1b-7b", "qwen3-moe-30b-a3b", "starcoder2-3b", "zamba2-2.7b")
 PRODUCTION = {"16x16": (False, dict(data=16, model=16)),
@@ -119,12 +122,15 @@ def _contraction_flops(by_op: dict) -> float:
 
 
 def test_dryrun_entry_on_small_mesh_against_the_reference(reference):
-    """(a) The olmoe smoke loss on a fake (data 2, model 4) mesh, each
-    layer gathered from its blocks, through the dry run's analyses: flops,
-    collectives and temporaries as the reference's test asks; argument
-    bytes equal to the reference's compiled program's; the one program's
-    flops (the global batch, no mesh, as ``jaxpr_cost.analyze`` traces it)
-    equal in the contractions and within FLOPS_TOL in all."""
+    """(a) The olmoe smoke loss on a fake (data 2, model 4) mesh, rank 0's
+    rows through the model split over ``model`` (each layer gathered over
+    ``data`` into its ``model`` blocks), through the dry run's analyses:
+    flops, collectives and temporaries as the reference's test asks;
+    argument bytes equal to the reference's compiled program's; the one
+    program's flops (the global batch, no mesh, as ``jaxpr_cost.analyze``
+    traces it) equal in the contractions and within FLOPS_TOL in all; and
+    the 8 ranks' contraction flops within ``TP_FLOPS_RATIO`` of the
+    reference mesh program's."""
     cfg = smoke_config("olmoe-1b-7b")
     with dryrun.fake_world(8), compat_make_mesh((2, 4), ("data", "model"), device="cpu") as mesh, \
             use_mesh(mesh):
@@ -132,7 +138,7 @@ def test_dryrun_entry_on_small_mesh_against_the_reference(reference):
         batch = {k: sp.sds((8, 64), torch.int32, mesh, P("data", None))
                  for k in ("tokens", "labels")}
         blocks = ops.blocks(params, rules.params_shardings(params, mesh))
-        fn = lambda p, b: tfm.loss_fn(cfg, p, {k: ops.gather(v) for k, v in b.items()})[0]
+        fn = lambda p, b: tfm.loss_fn(cfg, p, {k: v.to_local() for k, v in b.items()})[0]
         rec = dryrun.measure(fn, (blocks, batch), trains=False, chips=8)
     assert rec["jaxpr_cost"]["flops"] > 1e6
     assert rec["collectives"]["total"] > 0
@@ -149,10 +155,12 @@ def test_dryrun_entry_on_small_mesh_against_the_reference(reference):
     gap = abs(one["flops"] - reference["one_flops"]) / reference["one_flops"]
     assert gap < FLOPS_TOL, (gap, {k: v for k, v in one["by_op"].items()
                                    if k not in op_cost._CONTRACTIONS})
-    # the mesh programs: the port's 8 ranks repeat over ``model`` the work
-    # the reference splits (1.94 times its flops, measured), never less
-    assert _contraction_flops(rec["jaxpr_cost"]["by_op"]) >= reference["dot_flops"]
-    assert rec["jaxpr_cost"]["flops"] >= reference["flops"]
+    # the mesh programs: the port's 8 ranks split over ``model`` the work
+    # the reference splits (1.94 times its contraction flops while the
+    # ``model`` ranks repeated it); what remains above 1 is the replicated
+    # router, computed alike by each ``model`` rank
+    ratio = _contraction_flops(rec["jaxpr_cost"]["by_op"]) / reference["dot_flops"]
+    assert ratio <= TP_FLOPS_RATIO, ratio
 
 
 def test_trip_count_awareness():

@@ -14,10 +14,14 @@ within 0.03 of the reference's (a few bf16 ulps of outputs of magnitude
 about 1: the port adds each token's gated expert rows in float32 and rounds
 once, the reference adds them in bf16), with equal expert ids and equal
 dispatch tables (so the same pairs are dropped); the tree step bit for bit
-with no collective; the train step's loss within the reference's 5e-2 of
-the single-device step's and of the reference's mesh loss, and its gradient
-norm and updated parameters near both (``NORM_TOL``, ``UPDATE_TOL``).  Fault
-C's two-rank case and the (1, 1) mesh's bits are here too.
+with no collective; the train step (tensor-parallel over ``model``, for a
+dense, an MoE and a hybrid smoke model) with its loss within the
+reference's 5e-2 of the single-device step's and of the reference's mesh
+loss, and its gradient norm and updated parameters near both
+(``NORM_TOL``, ``UPDATE_TOL``; olmoe against the reference's mesh step
+``REF_MESH_TOLS``), no parameter that its rule splits over ``model``
+gathered over ``model``.  Fault C's two-rank case and the (1, 1)
+mesh's bits are here too.
 """
 import json
 import os
@@ -35,8 +39,10 @@ from repro_torch.models import transformer as tfm
 from repro_torch.train import optimizer as opt
 from repro_torch.train.step import make_train_step
 from repro_torch.train.tree import flatten_with_paths, path_key
-from torch_dist_ranks import (ATTN_CASES, MOE_CAPACITY, MOE_SHAPE, TRAIN_OPT, _unflatten,
-                              mesh_cases, mesh_rank, microbatch_rank, run_ranks)
+from torch_dist_ranks import (ATTN_CASES, MOE_CAPACITY, MOE_SHAPE, TP_CONTROL, TP_SERVE,
+                              TP_SERVE_CASES, TRAIN_ARCHS, TRAIN_OPT, _unflatten, mesh_cases,
+                              mesh_rank, microbatch_rank, run_ranks, tp_control_config,
+                              tp_control_rank, tp_serve_rank)
 
 ROOT = Path(__file__).resolve().parents[1]
 RANKS, SHAPE, AXES = 8, (2, 4), ("data", "model")
@@ -47,6 +53,19 @@ ATTN_TOL, MOE_TOL, LOSS_TOL = 0.02, 0.03, 5e-2
 # activation gradients rounded in another order); a step that takes half the
 # batch's rows misses by 0.38 and 0.78
 NORM_TOL, UPDATE_TOL, UPDATE_REF_TOL = 1e-3, 2e-2, 5e-2
+# olmoe against the reference's mesh step: that step itself sits 0.07 to 0.13
+# (router) from the reference's one-device step and 3.1e-3 in the norm (its
+# bf16 expert combine flips routing on near-ties), while the port's mesh step
+# is within 0.021 and 2.6e-4 of both one-device steps.  Set from readings of
+# the port's mesh step against it: the router 0.132, every other leaf at most
+# 0.091, the norm 3.3e-3.
+# serving with blocks against whole weights, relative to the largest logit:
+# readings 0 to 4.6e-3 with the heads split, up to 8.8e-3 and 1.26e-2 where a
+# block cache splits positions (the flash decode's partial softmax); a rank
+# reading another rank's kv heads misses by 0.85 and more
+TP_SERVE_TOL = 2e-2
+REF_MESH_TOLS = {"olmoe-1b-7b": dict(norm=5e-3, update=0.12,
+                                     leaves={"blocks/moe/w_router": 0.18})}
 
 # the reference side: writes every input and its own results to argv[1]
 JAX_SIDE = """
@@ -142,23 +161,24 @@ np.savez(out / "trees.npz", keys=np.asarray(keys), depth=packed.max_depth,
          acc_local=np.asarray(acc_ref).view(np.int32), acc_mesh=np.asarray(acc).view(np.int32),
          preds_mesh=np.asarray(preds), **{k: np.asarray(getattr(packed, k)) for k in names})
 
-cfg = smoke_config("granite-3-2b")
-batch = {k: jnp.asarray(v) for k, v in pipeline_for(cfg, 8, 64).batch_at(0).items()}
-params = jtfm.init_params(cfg, jax.random.PRNGKey(0))
-step = make_train_step(cfg, opt.AdamWConfig(**json.loads(sys.argv[5])))
-p1, _, m1 = jax.jit(step)(params, opt.init_opt_state(params), batch)
-with mesh, use_mesh(mesh):
-    pp = jax.tree.map(jax.device_put, params, rules.params_shardings(params, mesh))
-    bb = jax.tree.map(jax.device_put, batch, rules.batch_shardings(mesh, batch))
-    p2, _, m2 = jax.jit(step)(pp, opt.init_opt_state(pp), bb)
 flat = lambda tree: {"/".join(str(k.key) for k in path): np.asarray(v)
                      for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
-np.savez(out / "train.npz", tokens=np.asarray(batch["tokens"]),
-         labels=np.asarray(batch["labels"]), loss_single=float(m1["loss"]),
-         loss_mesh=float(m2["loss"]), norm_single=float(m1["grad_norm"]),
-         norm_mesh=float(m2["grad_norm"]), **{"p:" + k: v for k, v in flat(params).items()},
-         **{"p1:" + k: v for k, v in flat(p1).items()},
-         **{"p2:" + k: v for k, v in flat(p2).items()})
+for arch in json.loads(sys.argv[6]):
+    cfg = smoke_config(arch)
+    batch = {k: jnp.asarray(v) for k, v in pipeline_for(cfg, 8, 64).batch_at(0).items()}
+    params = jtfm.init_params(cfg, jax.random.PRNGKey(0))
+    step = make_train_step(cfg, opt.AdamWConfig(**json.loads(sys.argv[5])))
+    p1, _, m1 = jax.jit(step)(params, opt.init_opt_state(params), batch)
+    with mesh, use_mesh(mesh):
+        pp = jax.tree.map(jax.device_put, params, rules.params_shardings(params, mesh))
+        bb = jax.tree.map(jax.device_put, batch, rules.batch_shardings(mesh, batch))
+        p2, _, m2 = jax.jit(step)(pp, opt.init_opt_state(pp), bb)
+    np.savez(out / f"train_{arch}.npz", tokens=np.asarray(batch["tokens"]),
+             labels=np.asarray(batch["labels"]), loss_single=float(m1["loss"]),
+             loss_mesh=float(m2["loss"]), norm_single=float(m1["grad_norm"]),
+             norm_mesh=float(m2["grad_norm"]), **{"p:" + k: v for k, v in flat(params).items()},
+             **{"p1:" + k: v for k, v in flat(p1).items()},
+             **{"p2:" + k: v for k, v in flat(p2).items()})
 """
 
 
@@ -170,7 +190,8 @@ def sides(tmp_path_factory):
     ref = tmp_path_factory.mktemp("jax")
     proc = subprocess.run(
         [sys.executable, "-c", JAX_SIDE, str(ref), json.dumps(ATTN_CASES),
-         json.dumps(MOE_CAPACITY), json.dumps(MOE_SHAPE), json.dumps(TRAIN_OPT)],
+         json.dumps(MOE_CAPACITY), json.dumps(MOE_SHAPE), json.dumps(TRAIN_OPT),
+         json.dumps(TRAIN_ARCHS)],
         capture_output=True, text=True, timeout=600, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu"))
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -253,59 +274,174 @@ def _update_gaps(got: dict, want: dict, before: dict) -> dict:
     return gaps
 
 
-def test_sharded_train_step_matches_single_device_and_the_reference(sides):
-    """The (2, 4) mesh's train step against the port's single-device step
-    and the reference's steps on one device and on its mesh: the loss, the
-    global gradient norm and every parameter after the step.  The AdamW
-    config (``TRAIN_OPT``) makes a first step move each parameter by
-    g / (|g| + 1) of its clipped gradient, so a step that loses rows, skips
-    the gradients' mean or takes it over the wrong axis moves the
-    parameters elsewhere."""
-    ref, ranks = sides
-    tr = np.load(ref / "train.npz")
-    cfg = smoke_config("granite-3-2b")
-    before = {k[2:]: tr[k].astype(np.float64) for k in tr.files if k.startswith("p:")}
+def _single_step(arch: str, tr):
+    """The port's one-device step of ``arch`` on ``tr``'s weights and
+    batch: (its parameters by path, its metrics, its contraction flops)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = smoke_config(arch)
     params = tfm.params_from_numpy(
         cfg, _unflatten({k[2:]: tr[k] for k in tr.files if k.startswith("p:")}), device="cpu")
     batch = {k: tr[k] for k in ("tokens", "labels")}
-    single, _, m = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))(
-        params, opt.init_opt_state(params), batch)
+    with FlopCounterMode(display=False) as flops:
+        single, _, m = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))(
+            params, opt.init_opt_state(params), batch)
     single = {path_key(k): p.detach().numpy() for k, p in flatten_with_paths(single)}
-    got = {k: ranks[0][f"train_p:{k}"] for k in single}
+    return single, m, float(flops.get_total_flops())
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_sharded_train_step_matches_single_device_and_the_reference(arch, sides):
+    """The (2, 4) mesh's train step, tensor-parallel over ``model``,
+    against the port's single-device step and the reference's steps on one
+    device and on its mesh: the loss, the global gradient norm and every
+    parameter after the step.  The AdamW config (``TRAIN_OPT``) makes a
+    first step move each parameter by g / (|g| + 1) of its clipped
+    gradient, so a step that loses rows, skips the gradients' mean, takes
+    it over the wrong axis or sums the ``model`` ranks' shares wrongly moves
+    the parameters elsewhere.  (The MoE router's update is farther from the
+    one-device step's than the rest: on a mesh the load-balancing loss is
+    the mean of each data shard's, as on the reference's mesh.)"""
+    ref, ranks = sides
+    tr = np.load(ref / f"train_{arch}.npz")
+    key = f"train[{arch}]_"
+    before = {k[2:]: tr[k].astype(np.float64) for k in tr.files if k.startswith("p:")}
+    single, m, _ = _single_step(arch, tr)
+    got = {k: ranks[0][f"{key}p:{k}"] for k in single}
     assert set(single) == set(before)
     for r in ranks:
-        assert r["train_step"] == 1
-        assert abs(r["train_loss"] - float(m["loss"])) < LOSS_TOL
-        assert abs(r["train_loss"] - float(tr["loss_mesh"])) < LOSS_TOL
-        assert abs(r["train_loss"] - float(tr["loss_single"])) < LOSS_TOL
-    norm = ranks[0]["train_grad_norm"]
-    for name, want in (("port", float(m["grad_norm"])), ("reference", float(tr["norm_single"])),
-                       ("reference mesh", float(tr["norm_mesh"]))):
-        assert abs(norm - want) / want < NORM_TOL, (name, norm, want)
+        assert r[key + "step"] == 1
+        assert abs(r[key + "loss"] - float(m["loss"])) < LOSS_TOL
+        assert abs(r[key + "loss"] - float(tr["loss_mesh"])) < LOSS_TOL
+        assert abs(r[key + "loss"] - float(tr["loss_single"])) < LOSS_TOL
+    lim = REF_MESH_TOLS.get(arch, {})
+    norm = ranks[0][key + "grad_norm"]
+    for name, want, tol in (("port", float(m["grad_norm"]), NORM_TOL),
+                            ("reference", float(tr["norm_single"]), NORM_TOL),
+                            ("reference mesh", float(tr["norm_mesh"]), lim.get("norm", NORM_TOL))):
+        assert abs(norm - want) / want < tol, (name, norm, want)
     for name, want, tol in (
-            ("port", single, UPDATE_TOL),
-            ("reference", {k: tr["p1:" + k] for k in single}, UPDATE_REF_TOL),
-            ("reference mesh", {k: tr["p2:" + k] for k in single}, UPDATE_REF_TOL)):
+            ("port", single, dict.fromkeys(single, UPDATE_TOL)),
+            ("reference", {k: tr["p1:" + k] for k in single},
+             dict.fromkeys(single, UPDATE_REF_TOL)),
+            ("reference mesh", {k: tr["p2:" + k] for k in single},
+             {k: lim.get("leaves", {}).get(k, lim.get("update", UPDATE_REF_TOL))
+              for k in single})):
         gaps = _update_gaps(got, want, before)
-        worst = max(gaps, key=gaps.get)
-        assert gaps[worst] < tol, (name, worst, gaps[worst])
+        worst = max(gaps, key=lambda k: gaps[k] / tol[k])
+        assert gaps[worst] < tol[worst], (name, worst, gaps[worst])
     for r in ranks:
-        assert all(np.array_equal(r[f"train_p:{k}"], got[k]) for k in single)
+        assert all(np.array_equal(r[f"{key}p:{k}"], got[k]) for k in single)
 
 
-def test_sharded_step_holds_only_blocks(sides):
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_sharded_step_holds_only_blocks(arch, sides):
     """Fault D: after the (2, 4) mesh's step each rank holds exactly its
     blocks' bytes of the parameters and both moments (an eighth, or a half
     where a dimension does not divide ``model``), every gradient was
     accumulated at its block's shape (none whole), and none outlives the
     step."""
     ref, ranks = sides
-    tr = np.load(ref / "train.npz")
+    tr = np.load(ref / f"train_{arch}.npz")
+    key = f"train[{arch}]_"
     whole = 3 * sum(tr[k].astype(np.float32).nbytes for k in tr.files if k.startswith("p:"))
     for r in ranks:
-        assert int(r["block_bytes_held"]) == int(r["block_bytes_want"]) < whole / 4
-        assert int(r["block_grads_seen"]) > 0
-        assert r["block_grads_match"] and not r["block_grads_left"]
+        assert int(r[key + "block_bytes_held"]) == int(r[key + "block_bytes_want"]) < whole / 4
+        assert int(r[key + "block_grads_seen"]) > 0
+        assert r[key + "block_grads_match"] and not r[key + "block_grads_left"]
+
+
+# the leaves a layer that does not split over ``model`` gathers whole (and so
+# over ``model``): the hybrid's SSM blocks
+WHOLE_OVER_MODEL = {"granite-3-2b": set(), "olmoe-1b-7b": set(),
+                    "zamba2-2.7b": {"blocks/ssm/conv_w", "blocks/ssm/w_in", "blocks/ssm/w_out"}}
+# the ceiling on the 8 ranks' flops over the one-device step's (with the
+# ``model`` ranks repeating their data shard's work it was 4 and more), for
+# the models whose every layer splits: the replicated router and norms
+TP_FLOPS_RATIO = 1.15
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_no_split_block_is_gathered_over_model(arch, sides):
+    """In the (2, 4) mesh's step each rank gathers every parameter whose
+    rule splits it over ``model`` over the batch axes only, into its
+    ``model`` block (whole along every other dimension, cut by 4 along that
+    one: the shape of the weight operand its matmuls take), except the
+    hybrid's SSM leaves, which are gathered whole; and the ranks' flops
+    together are the one-device step's, not four times them, where every
+    layer splits."""
+    ref, ranks = sides
+    key = f"train[{arch}]_"
+    tr = np.load(ref / f"train_{arch}.npz")
+    _, _, single_flops = _single_step(arch, tr)
+    for r in ranks:
+        assert set(r[key + "whole_over_model"].tolist()) == WHOLE_OVER_MODEL[arch]
+        assert r[key + "split_shapes_ok"]
+        split = set(r[key + "split_leaves"].tolist())
+        assert {"blocks/attn/wq", "blocks/attn/wo"} <= split or \
+            {"shared/attn/wq", "shared/attn/wo"} <= split, split
+        assert "embed" in split
+    ratio = sum(r[key + "flops"] for r in ranks) / single_flops
+    if not WHOLE_OVER_MODEL[arch]:
+        assert ratio < TP_FLOPS_RATIO, ratio
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-2.7b"])
+def test_tensor_parallel_step_is_the_split_control_bit_for_bit(arch, tmp_path):
+    """The (data 1, model 2) tensor-parallel step on two gloo ranks gives,
+    bit for bit, the loss, gradient norm and every parameter of the
+    one-process step whose split matmuls are computed as the ranks' shares
+    (``chip_smoke.split_control``, the control of ``chip_smoke.py``'s phase
+    14c): the ranks' collectives, the gradients of the column-parallel
+    inputs, the kv heads and the replicated leaves add exactly what one
+    process adds.  The vocabulary is odd, so the head stays whole in both."""
+    import chip_smoke
+
+    from repro_torch.data.tokens import pipeline_for
+
+    run_ranks(tp_control_rank, 2, str(tmp_path), arch)
+    tp = np.load(tmp_path / "tp_control.npz")
+    cfg = tp_control_config(arch)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as each rank runs: a CPU matmul may split its sums by threads
+    try:
+        with chip_smoke.split_control(TP_CONTROL["shape"][1]):
+            params, _, m = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))(
+                params, opt.init_opt_state(params),
+                pipeline_for(cfg, TP_CONTROL["rows"], TP_CONTROL["seq"]).batch_at(0))
+    finally:
+        torch.set_num_threads(threads)
+    control = {path_key(k): p.detach().numpy() for k, p in flatten_with_paths(params)}
+    assert float(tp["loss"]) == float(m["loss"])
+    assert float(tp["grad_norm"]) == float(m["grad_norm"])
+    assert {k[2:] for k in tp.files if k.startswith("p:")} == set(control)
+    for k, want in control.items():
+        np.testing.assert_array_equal(tp["p:" + k], want, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def tp_serve(tmp_path_factory):
+    """The logits of ``tp_serve_rank`` on 4 gloo ranks."""
+    out = tmp_path_factory.mktemp("tp_serve")
+    run_ranks(tp_serve_rank, 4, str(out))
+    return dict(np.load(out / "tp_serve.npz"))
+
+
+@pytest.mark.parametrize("cache", ["plain_cache", "block_cache"])
+@pytest.mark.parametrize("name", list(TP_SERVE_CASES))
+def test_tensor_parallel_serving_matches_whole_weights(name, cache, tp_serve):
+    """``prefill`` and ``decode_step`` with the parameters as blocks of a
+    (data 2, model 2) mesh (the layers tensor-parallel, the core on the
+    rows, heads and positions the cache holds on each rank) against whole
+    parameters without a mesh: the prefill's and each decode step's logits
+    within ``TP_SERVE_TOL`` of the largest."""
+    for i in range(TP_SERVE["steps"] + 1):
+        got = tp_serve[f"{name}_{cache}_{i}"]
+        want = tp_serve[f"{name}_single_{i}"]
+        assert got.shape == want.shape and np.isfinite(got).all()
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err < TP_SERVE_TOL, (name, cache, i, err)
 
 
 def test_checkpoint_restores_onto_another_mesh(sides):

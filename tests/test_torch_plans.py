@@ -7,13 +7,19 @@ engine on the same inputs, tolerance 0: plan registry and auto-selection,
 ``tree_ranges`` and the core-budget clamp, bit identity across plans x
 backends (``reference``, ``cuda``, ``bitvector``; the JAX counterpart of
 ``cuda`` is ``pallas``) x ``DEGENERATE_FORESTS``, the heterogeneous
-``cuda|bitvector|reference`` plan, forced threads against auto (the fused
-strategy is not ported, so ``device_parallel=True`` raises on one device as
-it does in the JAX package, and where the JAX rule would fuse, "auto" takes
-the threaded path and only ``True`` raises), warm covering every shard, and
+``cuda|bitvector|reference`` plan, forced threads against auto, the fused
+strategy against the threaded one, the single plan and the JAX package's
+fused plan (run in a subprocess on 8 forced host devices; here the port's
+device list is patched to repeat the CPU once a shard, so every line of
+the strategy runs), the rule's raises, warm covering every shard, and
 shard timings draining into the gateway.
 """
 import asyncio
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +32,7 @@ from repro.serve.engine import TreeEngine as JTreeEngine
 from repro_torch.backends import backend_class
 from repro_torch.ir import ForestIR
 from repro_torch.ir.forest_ir import ARRAY_DTYPES
+from repro_torch.plan import tree_parallel as tp_mod
 from repro_torch.plan import (
     RowParallelPlan,
     SingleShardPlan,
@@ -39,6 +46,7 @@ from repro_torch.plan import (
 )
 from repro_torch.serve import EngineSpec, Gateway, ModelRegistry, TreeEngine
 
+ROOT = Path(__file__).resolve().parents[1]
 BACKENDS = ["reference", "cuda", "bitvector"]
 #: the JAX package's backend for each of the port's
 J_BACKEND = {"reference": "reference", "cuda": "pallas", "bitvector": "bitvector"}
@@ -259,8 +267,7 @@ def test_heterogeneous_cuda_bitvector_reference(irs, probe_rows, jax_scores):
 
 def test_forced_threads_match_auto_and_fused_raises(irs, probe_rows):
     """Auto and forced threads agree; on fewer devices than shards (the CPU
-    is one device) ``device_parallel=True`` raises as in the JAX package,
-    naming the fused strategy that waits for several cards."""
+    is one device) ``device_parallel=True`` raises, as in the JAX package."""
     jir, ir = irs
     auto = TreeEngine(ir, spec="integer:reference+tree_parallel:2", device="cpu")
     thr = TreeEngine(ir, spec="integer:reference+tree_parallel:2", device="cpu",
@@ -269,33 +276,157 @@ def test_forced_threads_match_auto_and_fused_raises(irs, probe_rows):
     assert auto.plan.describe()["fused"] is False
     _assert_same(_scores(auto, probe_rows), _scores(thr, probe_rows), "auto vs threads")
     for spec in ("integer:reference+tree_parallel:2", "integer:cuda+tree_parallel:2"):
-        with pytest.raises(ValueError, match="several cards"):
+        with pytest.raises(ValueError, match="at least 2 cpu devices"):
             TreeEngine(ir, spec=spec, device="cpu", plan_kwargs={"device_parallel": True})
     with pytest.raises(ValueError, match="jax devices"):
         JTreeEngine(jir, spec="integer:pallas+tree_parallel:2",
                     plan_kwargs={"device_parallel": True})
 
 
+def _devices_per_shard(monkeypatch, n: int) -> None:
+    """The fused strategy's device list as ``n`` copies of the plan's own
+    device (as the JAX package's tests force 8 host devices)."""
+    monkeypatch.setattr(tp_mod, "fused_devices", lambda device: [device] * n)
+
+
 def test_auto_takes_threads_where_the_fused_rule_applies(irs, probe_rows, monkeypatch):
-    """Where the JAX package's rule picks the fused strategy (made true
-    here, as on a host with a card per shard), ``device_parallel="auto"``
-    builds the threaded plan, bit-identical to ``single``, and only
-    ``device_parallel=True`` raises for want of the fused strategy."""
+    """With a device per shard, the rule's other conditions still decide:
+    ``device_parallel=False``, a heterogeneous plan, another backend,
+    another layout or backend kwargs take the threaded path under "auto",
+    bit-identical to ``single``, and each raises under ``True``; so do
+    more shards than devices."""
     _, ir = irs
-    asked = []
-    monkeypatch.setattr(TreeParallelPlan, "_can_fuse",
-                        lambda self, *args: asked.append(args[-1]) or True)
-    spec = "integer:reference+tree_parallel:2"
+    _devices_per_shard(monkeypatch, 2)
+    single = _scores(TreeEngine(ir, spec="integer:reference", device="cpu"), probe_rows)
+    threads = [("integer:reference+tree_parallel:2", {"device_parallel": False}),
+               ("integer:cuda|reference", {}),
+               ("integer:cuda+tree_parallel:2", {}),
+               ("integer:reference@leaf_major+tree_parallel:2", {}),
+               ("integer:reference+tree_parallel:3", {})]
+    for spec, kw in threads:
+        eng = TreeEngine(ir, spec=spec, device="cpu", plan_kwargs=kw)
+        assert eng.plan.name == "tree_parallel" and not eng.plan.fused, spec
+        assert eng.plan.backends and eng.plan.describe()["fused"] is False
+        _assert_same(_scores(eng, probe_rows), single, spec)
+        eng.close()
+        if kw:
+            continue
+        with pytest.raises(ValueError, match="device_parallel=True needs"):
+            TreeEngine(ir, spec=spec, device="cpu", plan_kwargs={"device_parallel": True})
+    with pytest.raises(ValueError, match="device_parallel=True needs"):
+        create_plan("tree_parallel", ir, backend="reference", shards=2, device="cpu",
+                    backend_kwargs={"unused": 1}, device_parallel=True)
+
+
+def test_auto_takes_the_fused_strategy_where_the_rule_applies(irs, small_forest, probe_rows,
+                                                             monkeypatch):
+    """A two-shard reference plan with a device per shard: "auto" and
+    ``True`` build the fused strategy, with the JAX package's metadata (no
+    per-shard backends, one compile per shape, backend ``reference``,
+    ``describe()["fused"]``, the label ``fused:reference[x2]``); it serves
+    through the engine and a gateway, bit-identical to ``single``."""
+    _, ir = irs
+    _devices_per_shard(monkeypatch, 2)
     single = TreeEngine(ir, spec="integer:reference", device="cpu")
-    for kw in ({}, {"plan_kwargs": {"device_parallel": "auto"}}):
-        auto = TreeEngine(ir, spec=spec, device="cpu", **kw)
-        assert auto.plan.name == "tree_parallel" and auto.plan.n_shards == 2
-        assert not auto.plan.fused and auto.plan.describe()["fused"] is False
-        _assert_same(_scores(auto, probe_rows), _scores(single, probe_rows), "auto vs single")
-        auto.close()
-    assert asked == ["auto", "auto"]
-    with pytest.raises(ValueError, match="fused .* not ported"):
-        TreeEngine(ir, spec=spec, device="cpu", plan_kwargs={"device_parallel": True})
+    for kw in ({}, {"device_parallel": True}):
+        eng = TreeEngine(ir, spec="integer:reference+tree_parallel:2", device="cpu",
+                         plan_kwargs=kw)
+        plan = eng.plan
+        assert plan.fused and plan.describe()["fused"] is True
+        assert plan.backends == () and eng.backend is None and plan.n_shards == 2
+        assert plan.compiles_per_shape and plan.backend_name == "reference"
+        assert plan.layout == "padded" and plan.ranges == tree_ranges(ir.n_trees, 2)
+        _assert_same(_scores(eng, probe_rows), _scores(single, probe_rows), f"fused {kw}")
+        assert set(plan.drain_timings()) == {"fused:reference[x2]"}
+        eng.close()
+    reg = ModelRegistry()
+    reg.register_forest("m", small_forest)
+    gw = Gateway(reg, "integer:reference+tree_parallel:2", device="cpu")
+
+    async def run():
+        out = await gw.submit("m", probe_rows)
+        await gw.close()
+        return out
+
+    _assert_same(tuple(np.asarray(a) for a in asyncio.run(run())), _scores(single, probe_rows),
+                 "fused gateway")
+    assert reg.get("m").engine(gw.spec, device="cpu").plan.fused
+
+
+# the JAX package's fused plan on 8 forced host devices: each shard count's
+# partials of the rows and of their first row
+JAX_FUSED = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json
+import pickle
+import numpy as np
+from repro.ir import ForestIR
+from repro.plan import TreeParallelPlan
+
+d = np.load(sys.argv[1])
+with open(sys.argv[2], "rb") as f:
+    ir = ForestIR.from_forest(pickle.load(f))
+out = {}
+for mode in json.loads(sys.argv[4]):
+    for s in json.loads(sys.argv[3]):
+        plan = TreeParallelPlan(ir, mode=mode, backend="reference", shards=s,
+                                device_parallel=True)
+        assert plan.fused and plan.mode == mode, (mode, s)
+        out[f"{mode}_rows_{s}"] = np.asarray(plan.predict_partials(d["rows"]))
+        out[f"{mode}_one_{s}"] = np.asarray(plan.predict_partials(d["rows"][:1]))
+np.savez(sys.argv[5], **out)
+"""
+FUSED_SHARDS = (2, 3, 8)
+FUSED_MODES = ("integer", "flint")
+
+
+@pytest.fixture(scope="module")
+def jax_fused(small_forest, probe_rows, tmp_path_factory):
+    """The JAX package's fused partials for each of ``FUSED_MODES`` and
+    ``FUSED_SHARDS``, its IR built from the same forest (pickled)."""
+    import pickle
+
+    d = tmp_path_factory.mktemp("jax_fused")
+    np.savez(d / "in.npz", rows=probe_rows)
+    (d / "forest.pkl").write_bytes(pickle.dumps(small_forest))
+    proc = subprocess.run([sys.executable, "-c", JAX_FUSED, str(d / "in.npz"),
+                           str(d / "forest.pkl"), json.dumps(FUSED_SHARDS),
+                           json.dumps(FUSED_MODES), str(d / "out.npz")],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                                             JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return dict(np.load(d / "out.npz"))
+
+
+@pytest.mark.parametrize("mode", FUSED_MODES)
+@pytest.mark.parametrize("shards", FUSED_SHARDS)
+def test_fused_strategy_matches_threads_single_and_the_jax_fused_plan(
+        irs, probe_rows, jax_fused, monkeypatch, shards, mode):
+    """The fused strategy over 2, 3 and 8 shards of the 9-tree forest (4 +
+    5 trees, 3 x 3, and seven single trees beside two: uneven shards and
+    node counts, so inert trees and nodes pad them), on the probe rows and
+    on one row: partials bit-identical to the threaded strategy, the single
+    plan and the JAX package's fused plan; scores to the single plan's."""
+    _, ir = irs
+    _devices_per_shard(monkeypatch, shards)
+    spec = f"{mode}:reference+tree_parallel:{shards}"
+    fused = TreeEngine(ir, spec=spec, device="cpu")
+    assert fused.plan.fused and fused.plan.n_shards == shards
+    threads = TreeEngine(ir, spec=spec, device="cpu",
+                         plan_kwargs={"device_parallel": False, "clamp_shards": False})
+    assert not threads.plan.fused and threads.plan.ranges == fused.plan.ranges
+    single = TreeEngine(ir, spec=f"{mode}:reference", device="cpu")
+    for tag, rows in (("rows", probe_rows), ("one", probe_rows[:1])):
+        got = fused.plan.predict_partials(rows)
+        assert got.dtype == np.uint32 and got.shape == (rows.shape[0], ir.n_classes)
+        np.testing.assert_array_equal(got, threads.plan.predict_partials(rows), err_msg=tag)
+        np.testing.assert_array_equal(got, single.plan.predict_partials(rows), err_msg=tag)
+        np.testing.assert_array_equal(got, jax_fused[f"{mode}_{tag}_{shards}"], err_msg=tag)
+        _assert_same(_scores(fused, rows), _scores(single, rows), f"{spec} {tag}")
+    fused.close()
+    threads.close()
 
 
 def test_engine_partials_match_scores(irs, probe_rows):

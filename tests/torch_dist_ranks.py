@@ -4,6 +4,7 @@ of a gloo group initialized through a file (no TCP port), and writes what it
 computed under ``out_dir`` for the test to read.  No JAX here, so a spawned
 rank starts fast and the card tests can use it too; the parameters' digest
 is ``chip_smoke.params_digest``, the one the smoke run compares ranks by."""
+import contextlib
 import math
 import os
 import sys
@@ -109,6 +110,11 @@ ATTN_CASES = {
 }
 MOE_CAPACITY = (4.0, 1.0)  # the smoke model's (dropless), and one that drops
 MOE_SHAPE = (4, 16)  # batch, seq of the olmoe smoke block's input
+# the train step's smoke models: a dense model whose kv heads do not divide
+# the model axis (the merged-head split, K/V gathered from the ranks'
+# columns), an MoE model (the experts over model), and a hybrid (the SSM
+# blocks gathered whole, the shared attention and MLP split)
+TRAIN_ARCHS = ("granite-3-2b", "olmoe-1b-7b", "zamba2-2.7b")
 # the train case's AdamW: with eps 1, no warmup and no weight decay, the
 # first step moves each parameter by g / (|g| + 1) of the clipped gradient g
 # (the default config's first step is about lr * sign(g), which hides the
@@ -129,19 +135,14 @@ def mesh_cases(data_dir: str, mesh, device: str) -> dict:
     """The mesh branches on the inputs in ``data_dir`` (written by the JAX
     side of ``test_torch_mesh``): each ``_attn_core`` case, the MoE block of
     the olmoe smoke model with its dispatch tables, the tree serving step and
-    one train step of the granite smoke model, under ``mesh`` (or without
-    one, for ``mesh=None``).  Returns numpy results; ``*_comms`` count the
-    collectives each ran."""
+    one train step of each ``TRAIN_ARCHS`` smoke model (``_train_case``),
+    under ``mesh`` (or without one, for ``mesh=None``).  Returns numpy
+    results; ``*_comms`` count the collectives each ran."""
     from repro_torch.configs import smoke_config
     from repro_torch.core.serving import tree_serve_step
-    from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import _attn_core
     from repro_torch.models.moe import ep_dispatch, moe_block, route
-    from repro_torch.sharding import rules
     from repro_torch.sharding.ops import P, constrain, from_local, gather, local_block, use_mesh
-    from repro_torch.train import optimizer as opt
-    from repro_torch.train.step import make_train_step
-    from repro_torch.train.tree import flatten_with_paths, path_key, tree_leaves
 
     d = Path(data_dir)
     bf16 = lambda a: torch.from_numpy(a).to(device, torch.bfloat16)
@@ -198,35 +199,113 @@ def mesh_cases(data_dir: str, mesh, device: str) -> dict:
         out["tree_acc"] = gather(acc).view(torch.int32).cpu().numpy()
         out["tree_preds"] = gather(preds).cpu().numpy()
 
-        cfg = smoke_config("granite-3-2b")
-        tr = np.load(d / "train.npz")
-        params = tfm.params_from_numpy(
-            cfg, _unflatten({k[2:]: tr[k] for k in tr.files if k.startswith("p:")}),
-            device=device)
-        if mesh is not None:
-            params = rules.place(params, rules.params_shardings(params, mesh))
-        ostate = opt.init_opt_state(params)
-        batch = {k: tr[k] for k in ("tokens", "labels")}
-        grad_shapes = []  # (a gradient's shape, its block's), as each is accumulated
-        if mesh is not None:
-            with torch.no_grad():  # each DTensor's own local tensor
-                hooks = [t.to_local().requires_grad_(True).register_post_accumulate_grad_hook(
-                    lambda p: grad_shapes.append((tuple(p.grad.shape), tuple(p.shape))))
-                    for t in tree_leaves(params)]
-        params, ostate, m = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))(
-            params, ostate, batch)
-        if mesh is not None:
-            for h in hooks:
-                h.remove()
-            out.update(_block_bytes(params, ostate, mesh, grad_shapes))
-        out["train_loss"] = float(m["loss"])
-        out["train_grad_norm"] = float(m["grad_norm"])
-        out["train_step"] = int(ostate["step"])
-        for path, p in flatten_with_paths(params):
-            out[f"train_p:{path_key(path)}"] = gather(p).detach().cpu().numpy()
+        for arch in TRAIN_ARCHS:
+            params = _train_case(arch, d, mesh, device, out)
+            if arch == TRAIN_ARCHS[0]:
+                first = params
     if mesh is not None:
-        out.update(_remesh_restore(d / f"ckpt_{dist.get_rank()}", params, mesh, device))
+        out.update(_remesh_restore(d / f"ckpt_{dist.get_rank()}", first, mesh, device))
     return out
+
+
+def _train_case(arch: str, d: Path, mesh, device, out: dict):
+    """One train step of ``arch``'s smoke model on the weights and batch in
+    ``train_<arch>.npz``, under ``mesh`` (or none), into ``out`` under
+    ``train[<arch>]_`` keys: the loss, the gradient norm, every parameter
+    after the step, the step's contraction flops on this rank, and under a
+    mesh the blocks' bytes and each parameter gather's record
+    (``_gather_records``).  Returns the parameters."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import gather
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import flatten_with_paths, path_key, tree_leaves
+
+    key = f"train[{arch}]_"
+    cfg = smoke_config(arch)
+    tr = np.load(d / f"train_{arch}.npz")
+    params = tfm.params_from_numpy(
+        cfg, _unflatten({k[2:]: tr[k] for k in tr.files if k.startswith("p:")}), device=device)
+    if mesh is not None:
+        params = rules.place(params, rules.params_shardings(params, mesh))
+    ostate = opt.init_opt_state(params)
+    batch = {k: tr[k] for k in ("tokens", "labels")}
+    grad_shapes = []  # (a gradient's shape, its block's), as each is accumulated
+    if mesh is not None:
+        with torch.no_grad():  # each DTensor's own local tensor
+            hooks = [t.to_local().requires_grad_(True).register_post_accumulate_grad_hook(
+                lambda p: grad_shapes.append((tuple(p.grad.shape), tuple(p.shape))))
+                for t in tree_leaves(params)]
+    step = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))
+    flops = FlopCounterMode(display=False)
+    with _gather_records(params, mesh) as gathers, flops:
+        params, ostate, m = step(params, ostate, batch)
+    if mesh is not None:
+        for h in hooks:
+            h.remove()
+        out.update({key + k: v for k, v in _block_bytes(params, ostate, mesh, grad_shapes).items()})
+        out.update({key + k: v for k, v in gathers.items()})
+    out[key + "flops"] = float(flops.get_total_flops())
+    out[key + "loss"] = float(m["loss"])
+    out[key + "grad_norm"] = float(m["grad_norm"])
+    out[key + "step"] = int(ostate["step"])
+    for path, p in flatten_with_paths(params):
+        out[f"{key}p:{path_key(path)}"] = gather(p).detach().cpu().numpy()
+    return params
+
+
+@contextlib.contextmanager
+def _gather_records(params, mesh):
+    """While the step runs, each parameter gather (``ops.gather_block``) by
+    leaf: ``whole_over_model``, the leaves gathered whole with a dimension
+    split over ``model`` (a gather over ``model``); ``split_shapes_ok``,
+    whether every leaf gathered into its ``model`` block came out whole
+    along every dimension but the one its spec splits over ``model``, that
+    one cut by the ``model`` size; ``split_leaves``, the leaves gathered
+    so."""
+    from repro_torch.sharding import ops
+    from repro_torch.train.tree import flatten_with_paths, path_key
+
+    rec = {}
+    if mesh is None:
+        yield rec
+        return
+    where = {}
+    for path, t in flatten_with_paths(params):
+        local = t.to_local()
+        where[local.untyped_storage().data_ptr()] = (path_key(path), tuple(t.shape))
+    real = ops.gather_block
+    seen = []
+
+    def spy(local, spec, mesh_, *, whole=True):
+        got = real(local, spec, mesh_, whole=whole)
+        name, shape = where[local.untyped_storage().data_ptr()]
+        seen.append((name, shape[len(shape) - got.dim():], tuple(spec), whole, tuple(got.shape)))
+        return got
+
+    ops.gather_block = spy
+    try:
+        yield rec
+    finally:
+        ops.gather_block = real
+    over_model, ok, split = set(), True, set()
+    tp = mesh.shape["model"]
+    for name, shape, spec, whole, got in seen:
+        model_dims = [i for i, e in enumerate(spec) if "model" in ops.entry_axes(e)]
+        if not model_dims:
+            continue
+        if whole:
+            over_model.add(name)
+            continue
+        split.add(name)
+        want = tuple(n // tp if i in model_dims else n for i, n in enumerate(shape))
+        ok &= got == want
+    rec.update(whole_over_model=np.array(sorted(over_model)), split_shapes_ok=ok,
+               split_leaves=np.array(sorted(split)))
 
 
 def _block_bytes(params, ostate, mesh, grad_shapes) -> dict:
@@ -301,7 +380,7 @@ def write_mesh_inputs(data_dir, seed: int = 0) -> None:
     """``mesh_cases``' inputs made by this package alone (numpy and the
     port; no JAX): random bf16 attention inputs, the olmoe smoke block's
     drawn weights, a small forest's packed tables and keys, and the granite
-    smoke model's drawn weights with a token batch."""
+    smoke models' drawn weights with a token batch each (``TRAIN_ARCHS``)."""
     from repro_torch.configs import smoke_config
     from repro_torch.core.flint import float_to_key
     from repro_torch.core.packing import pack_forest
@@ -330,10 +409,11 @@ def write_mesh_inputs(data_dir, seed: int = 0) -> None:
              depth=packed.max_depth, **{k: getattr(packed, k) for k in
                                         ("feature", "threshold_key", "left", "right",
                                          "leaf_fixed")})
-    cfg = smoke_config("granite-3-2b")
-    params = tfm.init_params(cfg, seed, device="cpu")
-    np.savez(d / "train.npz", **pipeline_for(cfg, 8, 64).batch_at(0),
-             **{"p:" + path_key(p): t.numpy() for p, t in flatten_with_paths(params)})
+    for arch in TRAIN_ARCHS:
+        cfg = smoke_config(arch)
+        params = tfm.init_params(cfg, seed, device="cpu")
+        np.savez(d / f"train_{arch}.npz", **pipeline_for(cfg, 8, 64).batch_at(0),
+                 **{"p:" + path_key(p): t.numpy() for p, t in flatten_with_paths(params)})
 
 
 def microbatch_rank(rank, n, out_dir, arch, microbatches, batch, seq):
@@ -363,3 +443,112 @@ def microbatch_rank(rank, n, out_dir, arch, microbatches, batch, seq):
         params, opt.init_opt_state(params), pipeline_for(cfg, batch, seq).batch_at(0))
     np.savez(os.path.join(out_dir, f"micro_{rank}.npz"), counts=np.array(counts),
              loss=float(m["loss"]), world=dist.get_world_size())
+
+
+# the tensor-parallel step against ``chip_smoke.split_control``: a (data 1,
+# model 2) mesh, 8 rows of 64 tokens in microbatches of one row, and a
+# vocabulary of an odd size, so the head stays whole (as granite-3-2b's
+# 49,155 rows do on the card's two ranks)
+TP_CONTROL = dict(shape=(1, 2), rows=8, seq=64, vocab=257)
+
+
+def tp_control_config(arch: str):
+    """``arch``'s smoke model with ``TP_CONTROL``'s vocabulary and
+    microbatches."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    return dataclasses.replace(smoke_config(arch), vocab_size=TP_CONTROL["vocab"],
+                               microbatches=TP_CONTROL["rows"])
+
+
+def tp_control_rank(rank, n, out_dir, arch):
+    """One tensor-parallel step of ``tp_control_config(arch)`` from seed 0's
+    weights on the ``TP_CONTROL`` mesh with ``TRAIN_OPT``; rank 0 saves the
+    gathered parameters, loss and gradient norm as ``tp_control.npz``."""
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import gather, use_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import flatten_with_paths, path_key
+
+    cfg = tp_control_config(arch)
+    mesh = compat_make_mesh(TP_CONTROL["shape"], ("data", "model"), device="cpu")
+    params = tfm.init_params(cfg, 0, device="cpu")
+    params = rules.place(params, rules.params_shardings(params, mesh))
+    with use_mesh(mesh):
+        params, _, m = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT))(
+            params, opt.init_opt_state(params),
+            pipeline_for(cfg, TP_CONTROL["rows"], TP_CONTROL["seq"]).batch_at(0))
+    whole = {path_key(k): gather(v).detach().numpy() for k, v in flatten_with_paths(params)}
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "tp_control.npz"), loss=float(m["loss"]),
+                 grad_norm=float(m["grad_norm"]), **{"p:" + k: v for k, v in whole.items()})
+
+
+# serving with the parameters as blocks on a (data 2, model 2) mesh: name ->
+# (architecture, kv heads (None: the smoke model's), batch, shard the cache's
+# positions over data).  The smoke granite's 2 kv heads split over model
+# (the cache's rows over data), or at batch 1 its positions over data (a
+# flash decode over data); with 1 kv head its positions split over model
+TP_SERVE_CASES = {"heads_split": ("granite-3-2b", None, 4, False),
+                  "positions_over_data": ("granite-3-2b", None, 1, True),
+                  "positions_over_model": ("granite-3-2b", 1, 4, False)}
+TP_SERVE = dict(shape=(2, 2), prompt=16, max_seq=32, steps=2)
+
+
+def tp_serve_rank(rank, n, out_dir):
+    """For each ``TP_SERVE_CASES`` model: ``prefill`` and ``TP_SERVE["steps"]``
+    ``decode_step``s with the parameters as blocks under the mesh, decoding
+    over the prefill's plain cache and over the same cache placed by
+    ``rules.cache_shardings`` as blocks; rank 0 also runs them with whole
+    parameters and no mesh.  Rank 0 saves every last-token logits as
+    ``tp_serve.npz``."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import ops, rules
+
+    mesh = compat_make_mesh(TP_SERVE["shape"], ("data", "model"), device="cpu")
+    out = {}
+    for name, (arch, kv, b, shard_seq) in TP_SERVE_CASES.items():
+        cfg = smoke_config(arch)
+        if kv is not None:
+            cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+        params = tfm.init_params(cfg, 0, device="cpu")
+        rng = np.random.default_rng(1)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, TP_SERVE["prompt"])))
+        steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
+                 for _ in range(TP_SERVE["steps"])]
+
+        def run(p, place):
+            logits, cache = tfm.prefill(cfg, p, {"tokens": prompt}, max_seq=TP_SERVE["max_seq"])
+            got = [logits]
+            cache = place(cache)
+            for t in steps:
+                got.append(tfm.decode_step(cfg, p, cache, t)[0])
+            return [g.float().numpy() for g in got]
+
+        def as_blocks(cache):
+            pos = cache.pop("pos")
+            sh = rules.cache_shardings(mesh, cache, shard_seq=shard_seq)
+            return {**ops.blocks(rules.place(cache, sh), sh), "pos": pos}
+
+        sh = rules.params_shardings(params, mesh)
+        blocks = ops.blocks(rules.place(params, sh), sh)
+        with torch.no_grad(), ops.use_mesh(mesh):
+            for tag, place in (("plain_cache", lambda c: c), ("block_cache", as_blocks)):
+                for i, g in enumerate(run(blocks, place)):
+                    out[f"{name}_{tag}_{i}"] = g
+        if rank == 0:
+            with torch.no_grad():
+                for i, g in enumerate(run(params, lambda c: c)):
+                    out[f"{name}_single_{i}"] = g
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "tp_serve.npz"), **out)
