@@ -180,7 +180,22 @@ with one CUDA card.  It
      the control and within 4e-2 of the plain step; no parameter is gathered
      (``data`` is 1 and no block is gathered over ``model``), and each rank's
      held and peak GiB, its collectives staged through the host over
-     ``model`` and over the batch axes, and its step time are printed.
+     ``model`` and over the batch axes, and its step time are printed; then
+     (14d) mamba2-370m at full width and depth (48 layers, d_model 1,024,
+     32 SSM heads of 64, state 128, vocabulary 50,280) takes the same step
+     the same three ways, each rank computing its SSM heads (its columns of
+     the whole in-projection and conv, the gated norm's sum of squares
+     summed over ``model``, the out-projection row-parallel) and its half of
+     the vocabulary, held bit for bit to the split control (which splits
+     the SSM and the vocabulary as the ranks do) and within 0.11 of the
+     plain step (beside the plain step's own spread in 2-row
+     microbatches), with one reduce-scatter over ``model`` a layer a
+     microbatch for each of the in-projection's and conv's gradients; then
+     its prefill of 4 x 32 tokens and 8 decode steps at full depth, with
+     the parameters and the cache as blocks under the same mesh: every
+     logits the split control's bits and within 0.33 of whole weights
+     without a mesh, and the prefill and 2 decode steps in float32 within
+     1e-3 of whole weights in float32.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -198,6 +213,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import importlib
 import importlib.util
 import json
@@ -483,6 +499,41 @@ FSDP_PROGRAM = (
     "import chip_smoke\n"
     "chip_smoke.fsdp_rank(*sys.argv[1:])\n")
 MESH_TP_PLAIN_TOL = 4e-2
+# 14d: mamba2-370m (state-spaces/mamba2-370m: 48 layers, d_model 1,024, 32
+# SSM heads of 64, state 128, vocabulary 50,280) at full width and depth
+# takes 14c's step as (data 1, model FSDP_RANKS), its SSM heads split over
+# ``model``, in the same processes: the split control's bits exactly
+# (loss, norm and every leaf), and its updates within SSM_TP_PLAIN_TOL of
+# the plain one-process step's.  Then, at full depth too, ``prefill`` of
+# SSM_SERVE_PROMPT tokens and SSM_SERVE_STEPS ``decode_step``s under the
+# same mesh, the parameters as blocks and the cache as blocks after the
+# prefill: every logits equal to the split control's (``split_control``,
+# one process), within SSM_SERVE_TOL of whole weights without a mesh, and,
+# run again with float32 activations and caches for the prefill and
+# SSM_SERVE_F32_STEPS decode steps, within SSM_SERVE_F32_TOL of whole
+# weights in float32.  The float32 run separates the split's algebra
+# (which float32 holds to its own rounding) from bf16 rounding: with random
+# weights each of the 48 layers carries the rounding of a split matmul or
+# norm sum into the next, and the bf16 logits (magnitude about 5) drift.
+SSM_ARCH = "mamba2-370m"
+# SSM_TP_PLAIN_TOL is set from a reading on an NVIDIA H100 80GB HBM3: the
+# tensor-parallel step gave the split control's bits, and both sat 7.42e-2
+# from the plain one-process step (worst ``blocks/ssm/d_skip``, whose
+# gradient sums dy * x over every token and channel of a head); the plain
+# step's own spread between 1-row and 2-row microbatches is printed beside
+# it
+SSM_TP_PLAIN_TOL = 0.11
+SSM_SERVE_PROMPT = (4, 32)
+SSM_SERVE_STEPS = 8
+SSM_SERVE_F32_STEPS = 2
+# SSM_SERVE_TOL is set from a reading on an NVIDIA H100 80GB HBM3: the
+# tensor-parallel prefill at all 48 layers sat 0.22 from whole weights in
+# bf16 (the decode steps 0.18 to 0.21), while whole weights in bf16 sat
+# 0.28 to 0.31 from whole weights in float32.  SSM_SERVE_F32_TOL was set
+# before any float32 reading (float32 rounds 2^15 times finer than bf16);
+# the card then read 2.64e-5
+SSM_SERVE_TOL = 0.33
+SSM_SERVE_F32_TOL = 1e-3
 # the dry-run phase (14b): these cells (architecture, shape, the 2 x 16 x 16
 # mesh or the 16 x 16 one) in processes on the host CPU, started with the run
 # and read at its end, when they have DRYRUN_TIMEOUT_S more to finish
@@ -3081,26 +3132,47 @@ def mesh_phase(ir, seed: int, dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def split_control(n: int):
-    """A context in which the model computes each layer that 14c splits
-    over a ``model`` axis of ``n`` as the ranks would, in one process: every
-    column-parallel matmul (``wq``/``wk``/``wv``/``w_gate``/``w_up``) as ``n``
-    products of a column share, its input gradient as their float32 partials
-    summed in rank order and rounded once; attention on each share's heads;
-    every row-parallel one (``wo``/``w_down``) as the float32 partials of
-    the shares summed and rounded once (``layers._ColumnMM``, ``_RowMM``).
-    Each share is contiguous, as a rank's block is, so each product has a
-    rank's shape.  No collective and no mesh code runs."""
-    import contextlib
-
+    """A context in which the model computes each layer that 14c and 14d
+    split over a ``model`` axis of ``n`` as the ranks would, in one process,
+    in training, ``prefill`` and ``decode_step``: every column-parallel
+    matmul (``wq``/``wk``/``wv``/``w_gate``/``w_up``, the SSM's
+    in-projection) as ``n`` products of a rank's columns, its input
+    gradient as their float32 partials summed in rank order and rounded
+    once; attention on each share's heads; the SSM on each share's heads,
+    each share's parameters taken here by head (each head's channels of z
+    and x in ``w_in``, ``conv_w`` and ``norm_gamma``, its dt column and its
+    leaves; B's and C's columns and conv rows on every share) and its conv
+    history's channels and state alike, the gated norm's float32 sums of
+    squares summed in rank order; every row-parallel one (``wo``/
+    ``w_down``/the SSM's ``w_out``) as the float32 partials of the shares
+    summed and rounded once.  A parameter the shares read in parts
+    (``w_in``, ``conv_w``, the per-head leaves) gets their float32
+    gradients summed, as the ranks' are over ``model``.  A vocabulary that
+    divides ``n`` is split as the ranks split it: each share's embedding
+    rows summed, the logits as each share's columns of the head, and the
+    cross-entropy from those columns, their maxima, sums of exponentials
+    and picked logits joined in rank order.  The global gradient norm is
+    taken as the ranks take it (``optimizer.sharded_global_norm``): a leaf
+    that the rules split over ``model`` as each rank's block's sum of
+    squares, summed in rank order.  Each share has a rank's shape and
+    layout, so each product and sum does too.  The per-head algebra is the
+    layer's own (``ssm._causal_conv``, ``_ssd_scan``, ``_ssd_decode_heads``);
+    which heads, channels and columns make a share, and how the shares are
+    joined, are written here.  No collective and no mesh code runs."""
     import torch
+    import torch.nn.functional as F
 
-    from repro_torch.models import layers
+    from repro_torch.models import layers, ssm
     from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import rules
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.tree import flatten_with_paths
 
     class Columns(torch.autograd.Function):
+        """``x`` times each share's weight (one per rank)."""
+
         @staticmethod
-        def forward(ctx, x, w):
-            ws = [c.contiguous() for c in w.chunk(n, 1)]
+        def forward(ctx, x, *ws):
             ctx.save_for_backward(x, *ws)
             return tuple(x @ c for c in ws)
 
@@ -3108,9 +3180,11 @@ def split_control(n: int):
         def backward(ctx, *gs):
             x, *ws = ctx.saved_tensors
             gx = sum(g.float() @ c.float().t() for g, c in zip(gs, ws)).to(x.dtype)
-            gw = torch.cat([x.reshape(-1, c.shape[0]).t() @ g.reshape(-1, c.shape[1])
-                            for g, c in zip(gs, ws)], 1)
-            return gx, gw
+            return (gx, *(x.reshape(-1, c.shape[0]).t() @ g.reshape(-1, c.shape[1])
+                          for g, c in zip(gs, ws)))
+
+    def columns(x, w):
+        return Columns.apply(x, *(c.contiguous() for c in w.to(x.dtype).chunk(n, 1)))
 
     class Rows(torch.autograd.Function):
         @staticmethod
@@ -3134,7 +3208,7 @@ def split_control(n: int):
         h, kh, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
         if kv_cache is not None or h % n or kh % n:
             raise ValueError("the split control takes a training layer whose heads divide")
-        q, k, v = (Columns.apply(x, params[w].to(x.dtype)) for w in ("wq", "wk", "wv"))
+        q, k, v = (columns(x, params[w]) for w in ("wq", "wk", "wv"))
         outs = []
         for r in range(n):
             xq = layers.apply_rope(q[r].reshape(b, s, h // n, dh), positions, rope_theta)
@@ -3147,19 +3221,177 @@ def split_control(n: int):
 
     def mlp(params, x, act="silu", d_ff=None):
         a = layers.act_fn(act)
-        gate = Columns.apply(x, params["w_gate"].to(x.dtype))
-        up = Columns.apply(x, params["w_up"].to(x.dtype))
+        gate = columns(x, params["w_gate"])
+        up = columns(x, params["w_up"])
         return Rows.apply(params["w_down"].to(x.dtype),
                           *(a(gt) * u for gt, u in zip(gate, up))).to(x.dtype)
 
+    def heads(t, dim, r, h):
+        """``t``'s entries of share ``r``'s heads along ``dim``, which holds
+        ``h`` heads' entries, each head's together and in head order."""
+        hl = h // n
+        return t.unflatten(dim, (h, -1)).narrow(dim, r * hl, hl).flatten(dim, dim + 1)
+
+    def ssm_share(params, r, d_inner, h, state):
+        # share r's heads: each head's channels of z and x (w_in's columns,
+        # conv_w's rows, norm_gamma), its dt column and its leaves; B's and
+        # C's columns and conv rows on every share
+        z, xw, bc, dt = params["w_in"].split([d_inner, d_inner, 2 * state, h], 1)
+        conv_x, conv_bc = params["conv_w"].split([d_inner, 2 * state], 0)
+        share = {"w_in": torch.cat([heads(z, 1, r, h), heads(xw, 1, r, h), bc,
+                                    heads(dt, 1, r, h)], 1),
+                 "conv_w": torch.cat([heads(conv_x, 0, r, h), conv_bc], 0),
+                 "norm_gamma": heads(params["norm_gamma"], 0, r, h)}
+        share.update({k: heads(params[k], 0, r, h) for k in ("a_log", "dt_bias", "d_skip")})
+        return share
+
+    def ssm_shares(params, d_model, expand, state):
+        d_inner, h, _ = ssm.ssm_dims(d_model, expand, state)
+        if h % n:
+            raise ValueError("the split control takes an SSM layer whose heads divide")
+        return d_inner, h, [ssm_share(params, r, d_inner, h, state) for r in range(n)]
+
+    def normed(gs, shares, d_inner, dtype):
+        # the gated norm: each share's channels over the root mean square of
+        # all d_inner, its float32 sums of squares added in rank order
+        total = sum((g * g).sum(dim=-1, keepdim=True) for g in gs)
+        return [((g * torch.rsqrt(total / d_inner + 1e-6)) * (1.0 + sh["norm_gamma"].float())
+                 ).to(dtype) for g, sh in zip(gs, shares)]
+
+    def ssd_forward(params, x, *, d_model, expand, state, chunk=128, return_final_state=False):
+        d_inner, h, shares = ssm_shares(params, d_model, expand, state)
+        cl, hl = d_inner // n, h // n
+        s_real = x.shape[1]
+        if s_real % chunk:
+            x = F.pad(x, (0, 0, 0, (-s_real) % chunk))
+        projs = Columns.apply(x, *(sh["w_in"].to(x.dtype) for sh in shares))
+        gs, finals, ins = [], [], []
+        for sh, proj in zip(shares, projs):
+            z, xs, b, c, dt = proj.split([cl, cl, state, state, hl], -1)
+            ins.append(torch.cat([xs, b, c], -1))
+            xs, b, c = ssm._causal_conv(ins[-1], sh["conv_w"]).split([cl, state, state], -1)
+            y, s_run = ssm._ssd_scan(sh, xs, b, c, dt, chunk=chunk, s_real=s_real)
+            gs.append(y.float() * layers.silu(z).float())
+            finals.append(s_run)
+        ys = normed(gs, shares, d_inner, x.dtype)
+        out = Rows.apply(params["w_out"].to(x.dtype), *ys).to(x.dtype)[:, :s_real]
+        if not return_final_state:
+            return out
+        # the whole conv history: every share's x channels, then B and C
+        conv = torch.cat([t[..., :cl] for t in ins] + [ins[0][..., cl:]], -1)
+        return out, {"conv": conv[:, s_real - (ssm.CONV_K - 1):s_real],
+                     "ssm": torch.cat(finals, 1)}
+
+    def ssd_decode_step(params, x, cache, *, d_model, expand, state):
+        d_inner, h, shares = ssm_shares(params, d_model, expand, state)
+        cl, hl = d_inner // n, h // n
+        projs = Columns.apply(x[:, 0], *(sh["w_in"].to(x.dtype) for sh in shares))
+        old = cache["conv"]
+        old_x, old_bc = old.split([d_inner, 2 * state], -1)
+        gs, states, ins = [], [], []
+        for r, (sh, proj) in enumerate(zip(shares, projs)):
+            z, xs, b, c, dt = proj.split([cl, cl, state, state, hl], -1)
+            ins.append(torch.cat([xs, b, c], -1))
+            hist = torch.cat([torch.cat([heads(old_x, 2, r, h), old_bc], -1), ins[-1][:, None]], 1)
+            conv = layers.silu(torch.einsum("bkc,ck->bc", hist, sh["conv_w"].to(x.dtype)))
+            xs, b, c = conv.split([cl, state, state], -1)
+            y, s_new = ssm._ssd_decode_heads(sh, xs, b, c, dt, heads(cache["ssm"], 1, r, h))
+            gs.append(y.float() * layers.silu(z).float())
+            states.append(s_new)
+        ys = normed(gs, shares, d_inner, x.dtype)
+        out = Rows.apply(params["w_out"].to(x.dtype), *ys).to(x.dtype)
+        new_in = torch.cat([t[:, :cl] for t in ins] + [ins[0][:, cl:]], -1)
+        return out[:, None], {"conv": torch.cat([old, new_in[:, None]], 1)[:, 1:],
+                              "ssm": torch.cat(states, 1)}
+
+    whole_embed_rows, whole_logits = tfm._embed_rows, tfm._logits
+    whole_ce = tfm.chunked_cross_entropy
+
+    def embed_rows(cfg, embed, tokens):
+        if embed.shape[0] % n:
+            return whole_embed_rows(cfg, embed, tokens)
+        tokens, nv = tokens.long(), embed.shape[0] // n
+        parts = []
+        for r in range(n):
+            local = tokens - r * nv
+            rows = embed.narrow(0, r * nv, nv)[local.clamp(0, nv - 1)]
+            parts.append(torch.where(((local >= 0) & (local < nv))[..., None], rows, 0.0))
+        return sum(parts)
+
+    def head_shares(w, dtype):
+        # a rank's head block is its embedding rows transposed: each share
+        # keeps that layout, as the rank's operand has it
+        return [c.to(dtype) for c in w.chunk(n, 1)]
+
+    def logits_of(cfg, params, x):
+        w = tfm.head_weights(cfg, params)
+        if w.shape[1] % n:
+            return whole_logits(cfg, params, x)
+        return torch.cat([t.float() for t in Columns.apply(x, *head_shares(w, x.dtype))], -1)
+
+    def vocab_ce(xi, li, w):
+        logits = [t.float() for t in Columns.apply(xi, *head_shares(w, xi.dtype))]
+        nv = logits[0].shape[-1]
+        m = logits[0].detach().amax(dim=-1)
+        for t in logits[1:]:
+            m = torch.maximum(m, t.detach().amax(dim=-1))
+        logz = m + torch.log(sum(torch.exp(t - m[..., None]).sum(dim=-1) for t in logits))
+        picked = []
+        for r, t in enumerate(logits):
+            local = li - r * nv
+            got = torch.gather(t, -1, local.clamp(0, nv - 1)[..., None])[..., 0]
+            picked.append(torch.where((local >= 0) & (local < nv), got, 0.0))
+        return logz - sum(picked)
+
+    def chunked_cross_entropy(cfg, params, x, labels, *, chunk=512, label_offset=0):
+        # ``transformer.chunked_cross_entropy``'s chunks, each one's
+        # log-softmax from the shares' columns of the head
+        w = tfm.head_weights(cfg, params)
+        if w.shape[1] % n:
+            return whole_ce(cfg, params, x, labels, chunk=chunk, label_offset=label_offset)
+        if label_offset:
+            x = x[:, label_offset:]
+        w, chunk = w.to(tfm.COMPUTE_DTYPE), min(chunk, x.shape[1])
+        pad = (-x.shape[1]) % chunk
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+        labels = labels.long()
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.int32, device=x.device)
+        for start in range(0, x.shape[1], chunk):
+            li = labels[:, start:start + chunk]
+            valid = li >= 0
+            nll = vocab_ce(x[:, start:start + chunk], li, w)
+            tot, cnt = tot + torch.where(valid, nll, 0.0).sum(), cnt + valid.sum(dtype=torch.int32)
+        return tot / torch.clamp(cnt, min=1)
+
+    ranks_mesh = SimpleNamespace(shape={"data": 1, "model": n})  # as the rules read a mesh
+
+    def global_norm(tree):
+        sq = []
+        for path, g in flatten_with_paths(tree):
+            spec = rules.spec_for(path, g.shape, ranks_mesh)
+            dims = [d for d, e in enumerate(spec) if e == "model"]
+            blocks = [c.contiguous() for c in g.chunk(n, dims[0])] if dims else [g]
+            sq.append(sum(torch.sum(torch.square(c.float())) for c in blocks))
+        return torch.sqrt(sum(sq))
+
+    swaps = ((tfm, "attention", attention), (tfm, "mlp", mlp), (tfm, "_embed_rows", embed_rows),
+             (tfm, "_logits", logits_of), (tfm, "chunked_cross_entropy", chunked_cross_entropy),
+             (ssm, "ssd_forward", ssd_forward), (ssm, "ssd_decode_step", ssd_decode_step),
+             (opt, "global_norm", global_norm))
+
     @contextlib.contextmanager
     def patched():
-        saved = tfm.attention, tfm.mlp
-        tfm.attention, tfm.mlp = attention, mlp
+        saved = [getattr(mod, name) for mod, name, _ in swaps]
+        for mod, name, f in swaps:
+            setattr(mod, name, f)
         try:
             yield
         finally:
-            tfm.attention, tfm.mlp = saved
+            for (mod, name, _), f in zip(swaps, saved):
+                setattr(mod, name, f)
 
     return patched()
 
@@ -3173,8 +3405,8 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
     blocks, (data ``world``, model 1) for 14a and (data 1, model ``world``)
     for 14c, and takes the sharded step; after it the parameters are
     gathered a leaf at a time and rank 0 holds each leaf's update against
-    the one-process steps'.  Prints one ``FSDP_RANK`` JSON line."""
-    import contextlib
+    the one-process steps'.  14d does as 14c on mamba2-370m, then serves it
+    (``ssm_serving``).  Prints one ``FSDP_RANK`` JSON line."""
     import dataclasses
 
     import torch
@@ -3197,10 +3429,10 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
                             world_size=world)
     adamw = opt.AdamWConfig(**MESH_TRAIN_OPT)
 
-    def one_process(cfg, batch, control=False):
+    def one_process(cfg, batch, control=False, rows=1):
         # microbatches of one row, as each rank's are: cuBLAS picks its
         # algorithm by shape, and 2-row products moved the updates 1.6e-2
-        one = dataclasses.replace(cfg, microbatches=TRAIN_BATCH)
+        one = dataclasses.replace(cfg, microbatches=TRAIN_BATCH // rows)
         params = tfm.init_params(cfg, seed, device=dev)
         before = {path_key(path): p.detach().to("cpu", copy=True)
                   for path, p in flatten_with_paths(params)}
@@ -3296,10 +3528,129 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
             wants = {"control": (control, before), "plain": (after, before)}
         dist.barrier()
         out["tp"] = sharded(cfg, batch, (1, world), wants, TRAIN_BATCH)
+        del wants
+        if rank == 0:
+            del before, after, control
+
+        # 14d: mamba2-370m at full width and depth, its SSM heads split over
+        # ``model``, against the split control and the plain step; then
+        # serving under the same mesh
+        cfg = get_config(SSM_ARCH)
+        batch = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed).batch_at(0)
+        wants = {}
+        if rank == 0:
+            before, after, out["ssm_single"] = one_process(cfg, batch)
+            _, control, out["ssm_control"] = one_process(cfg, batch, control=True)
+            out["ssm_control"].update(worst({k: update_gap(c.to(dev), after[k], before[k])
+                                             for k, c in control.items()}))
+            # the plain step's own spread: the same step in 2-row microbatches
+            _, rows2, out["ssm_rows2"] = one_process(cfg, batch, rows=2)
+            out["ssm_rows2"].update(worst({k: update_gap(c.to(dev), after[k], before[k])
+                                           for k, c in rows2.items()}))
+            del rows2
+            wants = {"control": (control, before), "plain": (after, before)}
+        dist.barrier()
+        out["ssm_tp"] = sharded(cfg, batch, (1, world), wants, TRAIN_BATCH)
+        del wants
+        if rank == 0:
+            del before, after, control
+        out["ssm_serve"] = ssm_serving(cfg, rank, world, seed, dev, Path(store).parent)
         print("FSDP_RANK " + json.dumps(dict(out, rank=rank, launches=dict(tt.LAUNCHES))),
               flush=True)
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def float32_activations():
+    """The LM's activations and its serving caches in float32
+    (``transformer.COMPUTE_DTYPE``, ``init_cache``; each weight is cast to
+    the activations' dtype where it is used): a run free of bf16
+    rounding, to tell rounding from algebra."""
+    import functools
+
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    saved = tfm.COMPUTE_DTYPE, tfm.init_cache
+    tfm.COMPUTE_DTYPE = torch.float32
+    tfm.init_cache = functools.partial(saved[1], dtype=torch.float32)
+    try:
+        yield
+    finally:
+        tfm.COMPUTE_DTYPE, tfm.init_cache = saved
+
+
+def ssm_serving(cfg, rank: int, world: int, seed: int, dev, out_dir: Path) -> dict:
+    """Step 14d's serving at full depth: ``prefill`` of SSM_SERVE_PROMPT
+    tokens and SSM_SERVE_STEPS ``decode_step``s with the parameters as
+    blocks of a (data 1, model ``world``) mesh (the SSM layers on each
+    rank's heads), decoding over the prefill's cache placed as blocks
+    (``rules.cache_shardings``: each rank holds its heads' state and half
+    the conv history's channels); then the prefill and SSM_SERVE_F32_STEPS
+    decode steps again in float32 (``float32_activations``).  Rank 0 then
+    runs them with whole weights and no mesh, in bf16 and in float32, and
+    under the split control in bf16, and saves every logits as
+    ``ssm_serve.npz`` in ``out_dir``.  Returns the rank's times and staged
+    collectives."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import ops, rules
+
+    mesh = compat_make_mesh((1, world), ("data", "model"), device=dev)
+    params = tfm.init_params(cfg, seed, device=dev)
+    rng = np.random.default_rng(seed)
+    b, s = SSM_SERVE_PROMPT
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1))).to(dev)
+             for _ in range(SSM_SERVE_STEPS)]
+
+    def run(p, place, n_steps=SSM_SERVE_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = tfm.prefill(cfg, p, {"tokens": prompt}, max_seq=s + len(steps))
+        got = [logits.float().cpu()]
+        t1 = time.perf_counter()
+        cache = place(cache)
+        for t in steps[:n_steps]:
+            got.append(tfm.decode_step(cfg, p, cache, t)[0].float().cpu())
+        t2 = time.perf_counter()
+        return got, dict(prefill_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3 / n_steps)
+
+    def as_blocks(cache):
+        pos = cache.pop("pos")
+        sh = rules.cache_shardings(mesh, cache)
+        return {**ops.blocks(rules.place(cache, sh), sh), "pos": pos}
+
+    def same(cache):
+        return cache
+
+    sh = rules.params_shardings(params, mesh)
+    blocks = ops.blocks(rules.place(params, sh), sh)
+    ops.STAGED.clear()
+    dist.barrier()
+    with torch.no_grad(), ops.use_mesh(mesh):
+        got, res = run(blocks, as_blocks)
+        res.update(staged=dict(ops.STAGED))
+        with float32_activations():
+            got32, res["float32"] = run(blocks, as_blocks, SSM_SERVE_F32_STEPS)
+    del blocks
+    if rank == 0:
+        with torch.no_grad():
+            want, res["single"] = run(params, same)
+            with split_control(world):
+                control, res["control"] = run(params, same)
+            with float32_activations():
+                want32, _ = run(params, same, SSM_SERVE_F32_STEPS)
+        runs = dict(got=got, want=want, control=control, got32=got32, want32=want32)
+        np.savez(out_dir / "ssm_serve.npz",
+                 **{f"{k}_{i}": t.numpy() for k, ts in runs.items() for i, t in enumerate(ts)})
+    del params
+    torch.cuda.empty_cache()
+    return res
 
 
 def update_gap(got, want, before, chunk: int = 1 << 26) -> float:
@@ -3317,7 +3668,8 @@ def update_gap(got, want, before, chunk: int = 1 << 26) -> float:
 
 
 def fsdp_phase(seed: int, card: str) -> dict:
-    """Steps 14a and 14c: fault D's repair and the tensor-parallel step at
+    """Steps 14a, 14c and 14d: fault D's repair and the tensor-parallel
+    steps (granite-3-2b, then mamba2-370m's SSM heads, and its serving) at
     full width on the card.  Returns the ranks' kernel launches (all 0: the
     training path runs no hand-written kernel)."""
     shutil.rmtree(FSDP_DIR, ignore_errors=True)
@@ -3327,7 +3679,6 @@ def fsdp_phase(seed: int, card: str) -> dict:
         [[str(r), str(FSDP_RANKS), str(FSDP_DIR / "store"), str(seed)]
          for r in range(FSDP_RANKS)], wrapper=FSDP_PROGRAM), timeout=1000)
     seconds = time.perf_counter() - t0
-    shutil.rmtree(FSDP_DIR, ignore_errors=True)
     ranks = []
     for out in outs:
         lines = [ln for ln in out.splitlines() if ln.startswith("FSDP_RANK ")]
@@ -3409,8 +3760,106 @@ def fsdp_phase(seed: int, card: str) -> dict:
           f"{[r['staged_model'] for r in tp]}, over the batch axes and the norm "
           f"{[r['staged_batch'] for r in tp]}; from the ranks' barrier to the compared "
           f"parameters {[round(r['mesh_s'], 1) for r in tp]} s; 14a and 14c {seconds:.2f} s")
-    return dict(ranks=ranks, norm_gap=norm_gap, tp_norm_gap=tp_norm_gap, seconds=seconds,
-                launches=launches)
+    ssm = ssm_tp_check(ranks, card)
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    print(f"{card} | phase 14's rank processes (14a, 14c, 14d) {seconds:.2f} s")
+    return dict(ranks=ranks, norm_gap=norm_gap, tp_norm_gap=tp_norm_gap, ssm=ssm,
+                seconds=seconds, launches=launches)
+
+
+def ssm_tp_check(ranks: list, card: str) -> dict:
+    """Step 14d's gates: the tensor-parallel mamba2-370m step bit for bit
+    against the split control (loss, norm, every leaf) and within
+    SSM_TP_PLAIN_TOL of the plain step; one reduce-scatter over ``model`` a
+    microbatch for each of a layer's ``w_in`` and ``conv_w`` (their
+    gradients summed over the ranks), and no parameter gathered but those
+    two; the serving logits the split control's bits, within SSM_SERVE_TOL
+    of whole weights, and in float32 within SSM_SERVE_F32_TOL of whole
+    weights in float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SSM_ARCH)
+    tp, single, control, rows2 = ([r["ssm_tp"] for r in ranks], ranks[0]["ssm_single"],
+                                  ranks[0]["ssm_control"], ranks[0]["ssm_rows2"])
+    if any(r["loss"] != control["loss"] or r["grad_norm"] != control["grad_norm"]
+           or r["step"] != 1 for r in tp) or tp[0]["control"]["update_gap"] != 0.0:
+        fail(f"14d: the tensor-parallel {SSM_ARCH} step is not the split control's bits: "
+             f"{[(r['loss'], r['grad_norm']) for r in tp]} against ({control['loss']}, "
+             f"{control['grad_norm']}), worst leaf {tp[0]['control']}")
+    if not tp[0]["plain"]["update_gap"] <= SSM_TP_PLAIN_TOL or \
+            any(abs(r["loss"] - single["loss"]) > MESH_TRAIN_TOL for r in tp):
+        fail(f"14d: the tensor-parallel step is {tp[0]['plain']} from the plain one-process "
+             f"step's updates (limit {SSM_TP_PLAIN_TOL}), losses "
+             f"{[r['loss'] for r in tp]} against {single['loss']}")
+    gathers = 2 * 2 * cfg.n_layers * TRAIN_BATCH  # w_in, conv_w; forward and recompute
+    sums = 2 * cfg.n_layers * TRAIN_BATCH  # their gradients, once a microbatch
+    if any(r["staged_model"].get("model_reduce_scatter", 0) != sums
+           or r["staged_batch"].get("all_gather", 0) > gathers
+           or r["staged_batch"].get("reduce_scatter", 0) for r in tp):
+        fail(f"14d: collectives staged {[(r['staged_model'], r['staged_batch']) for r in tp]}; "
+             f"want {sums} model_reduce_scatter and at most {gathers} all_gather a rank")
+    served = np.load(FSDP_DIR / "ssm_serve.npz")
+    calls = ["prefill"] + [f"decode step {i}" for i in range(1, SSM_SERVE_STEPS + 1)]
+
+    def logits(run, i):
+        return torch.from_numpy(served[f"{run}_{i}"])
+
+    apart = [i for i in range(len(calls))
+             if not np.array_equal(served[f"got_{i}"], served[f"control_{i}"])]
+    if apart:
+        fail(f"14d serving: the tensor-parallel logits are not the split control's bits in "
+             f"{[calls[i] for i in apart]}, at most "
+             f"{max(float((logits('got', i) - logits('control', i)).abs().max()) for i in apart)}")
+    errs = [check_logits(logits("got", i), logits("want", i), SSM_SERVE_TOL,
+                         f"14d serving, {c}")[0] for i, c in enumerate(calls)]
+    errs32 = [check_logits(logits("got32", i), logits("want32", i), SSM_SERVE_F32_TOL,
+                           f"14d serving in float32, {calls[i]}")[0]
+              for i in range(SSM_SERVE_F32_STEPS + 1)]
+    # the bf16 model's own rounding: whole weights in bf16 against float32
+    own = [float((logits("want", i) - logits("want32", i)).abs().max())
+           for i in range(SSM_SERVE_F32_STEPS + 1)]
+    split = [float((logits("got", i) - logits("want32", i)).abs().max())
+             for i in range(SSM_SERVE_F32_STEPS + 1)]
+    serve = [r["ssm_serve"] for r in ranks]
+    print(f"{card} | tp 14d: {SSM_ARCH} at full width and depth ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, 32 SSM heads of 64, state {cfg.ssm_state}, vocabulary "
+          f"{cfg.vocab_size}), one step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens as (data 1, model "
+          f"{FSDP_RANKS}) in phase 14's processes, each rank computing its SSM heads (its "
+          f"columns of the whole w_in, B and C alike on both, the gated norm's sum of squares "
+          f"summed over model, w_out row-parallel), {TRAIN_BATCH} microbatches of one row: "
+          f"the split control's bits (losses {[r['loss'] for r in tp]}, norms "
+          f"{[r['grad_norm'] for r in tp]}, every leaf: worst update gap "
+          f"{tp[0]['control']['update_gap']}); against the plain one-process step (loss "
+          f"{single['loss']:.6f}, norm {single['grad_norm']:.6f}): updates within "
+          f"{tp[0]['plain']['update_gap']:.3e} (worst {tp[0]['plain']['worst_leaf']}; limit "
+          f"{SSM_TP_PLAIN_TOL}), the split control's own {control['update_gap']:.3e} (worst "
+          f"{control['worst_leaf']}), the plain step in 2-row microbatches "
+          f"{rows2['update_gap']:.3e} (worst {rows2['worst_leaf']}); parameters and moments held "
+          f"{[round(r['held_gib'], 3) for r in tp]} GiB a rank; peak memory "
+          f"{[round(r['peak_gib'], 3) for r in tp]} GiB a rank against "
+          f"{single['peak_gib']:.3f} in one process; step {[round(r['step_ms'], 1) for r in tp]} "
+          f"ms a rank against {single['step_ms']:.1f} ms in one process and "
+          f"{control['step_ms']:.1f} for the control (host clock); collectives staged over "
+          f"model {[r['staged_model'] for r in tp]}, the rest {[r['staged_batch'] for r in tp]}")
+    print(f"{card} | tp 14d serving: {SSM_ARCH} at full width and depth, prefill of "
+          f"{SSM_SERVE_PROMPT[0]} x {SSM_SERVE_PROMPT[1]} tokens and {SSM_SERVE_STEPS} decode "
+          f"steps as (data 1, model {FSDP_RANKS}), parameters and cache as blocks: every logits "
+          f"the split control's bits; within {max(errs):.4e} of whole weights without a mesh "
+          f"(tolerance {SSM_SERVE_TOL}; per call {[round(e, 5) for e in errs]}); in float32 (the "
+          f"prefill and {SSM_SERVE_F32_STEPS} decode steps) within {max(errs32):.4e} of whole "
+          f"weights in float32 (tolerance {SSM_SERVE_F32_TOL}; per call "
+          f"{[float(f'{e:.4e}') for e in errs32]}); against those float32 logits, whole weights "
+          f"in bf16 sit {[round(e, 5) for e in own]} and the tensor-parallel bf16 ones "
+          f"{[round(e, 5) for e in split]}; prefill {[round(r['prefill_ms'], 1) for r in serve]} "
+          f"ms and decode {[round(r['decode_ms'], 1) for r in serve]} ms a token a rank against "
+          f"{serve[0]['single']['prefill_ms']:.1f} and {serve[0]['single']['decode_ms']:.1f} "
+          f"without a mesh and {serve[0]['control']['prefill_ms']:.1f} and "
+          f"{serve[0]['control']['decode_ms']:.1f} for the control (host clock); collectives "
+          f"staged {[r['staged'] for r in serve]}")
+    return dict(plain_gap=tp[0]["plain"]["update_gap"], rows2_gap=rows2["update_gap"],
+                serve_err=max(errs), serve_err_f32=max(errs32), serve_own_bf16=max(own))
 
 
 def start_dryrun() -> list:

@@ -348,20 +348,39 @@ class _ColumnMM(torch.autograd.Function):
 
 
 class _RowMM(torch.autograd.Function):
-    """``y @ w``: forward the float32 product of the ``w.dtype`` operands (a
-    partial that ``reduce_from_model`` sums before anything rounds it),
-    backward both gradients as the ``w.dtype`` matmul gives them."""
+    """``y @ w``'s backward: both gradients as the ``w.dtype`` matmul gives
+    them.  Its forward saves ``y`` and ``w`` and returns a placeholder of the
+    product's shape (no memory) through which the product's gradient
+    arrives; ``_RowProduct`` computes the product after it.  So a
+    rematerialized block (``transformer._checkpointed``, whose recompute
+    stops early at the last tensor the block saved) stops before this
+    matmul, as it stops before the whole layer's last one: a custom
+    function saves its tensors only after its forward has run."""
 
     @staticmethod
     def forward(ctx, y, w):
         ctx.save_for_backward(y, w)
-        return y.float() @ w.float()
+        return y.new_zeros((), dtype=torch.float32).expand(*y.shape[:-1], w.shape[1])
 
     @staticmethod
     def backward(ctx, g):
         y, w = ctx.saved_tensors
         g = g.to(w.dtype)
         return g @ w.t(), y.reshape(-1, w.shape[0]).t() @ g.reshape(-1, w.shape[1])
+
+
+class _RowProduct(torch.autograd.Function):
+    """``y @ w`` forward as the float32 product of the ``w.dtype`` operands
+    (a partial that ``reduce_from_model`` sums before anything rounds it);
+    its gradient passes to ``_RowMM``'s placeholder."""
+
+    @staticmethod
+    def forward(ctx, placeholder, y, w):
+        return y.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
 def column_mm(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
@@ -376,7 +395,9 @@ def _row_parallel(y: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
     rounded once."""
     from repro_torch.sharding.ops import reduce_from_model
 
-    return reduce_from_model(_RowMM.apply(y, w.to(y.dtype)), mesh).to(y.dtype)
+    w = w.to(y.dtype)
+    partial = _RowProduct.apply(_RowMM.apply(y, w), y.detach(), w.detach())
+    return reduce_from_model(partial, mesh).to(y.dtype)
 
 
 def _attention_tp(params, x, dims: AttnDims, mesh, *, positions, causal, window, rope_theta,

@@ -27,11 +27,14 @@ model is tensor-parallel over the mesh's ``model`` axis
 batch axes only, into this rank's ``model`` blocks (``_layer_params``), and
 the layers split their work with them, as the reference's partitioned
 program does: attention over query heads, the MLP over its FFN columns,
-the experts, and the embedding, head and cross-entropy over the
-vocabulary where it divides ``model`` (a dimension that does not divide
-stays whole, and every ``model`` rank computes that piece alike).  The SSM
-blocks, and attention whose query heads do not divide ``model``, gather
-their parameters whole.  ``loss_fn`` then takes this rank's rows;
+the experts, the SSM blocks over their heads, and the embedding, head and
+cross-entropy over the vocabulary where it divides ``model`` (a dimension
+that does not divide stays whole, and every ``model`` rank computes that
+piece alike).  Attention whose query heads do not divide ``model``, and
+an SSM whose heads do not, gather their parameters whole.  The SSM's
+packed in-projection and conv are gathered whole on every rank, which
+takes its heads' columns of them (``ssm.tp_share``).  ``loss_fn`` then
+takes this rank's rows;
 ``forward_logits``, ``prefill`` and ``decode_step`` take the whole batch
 under the ambient mesh, as without blocks.
 """
@@ -115,16 +118,38 @@ def _blocks_mesh(params):
     return next((t.mesh for t in tree_leaves(params) if isinstance(t, Block)), None)
 
 
+def _ssm_heads(cfg: ModelConfig) -> int:
+    return ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_state)[1]
+
+
+def _ssm_split_params(tree):
+    """An SSM layer's parameters for its split over ``model``: ``w_out``
+    as this rank's ``model`` block (row-parallel), every other leaf whole,
+    its gradient summed over ``model`` (each rank uses its heads' part of
+    it, and B's and C's columns of ``w_in`` and ``conv_w`` alike)."""
+    from repro_torch.sharding.ops import Block
+
+    def one(k, a):
+        if not isinstance(a, Block):
+            return a
+        return a.model_block() if k == "w_out" else a.whole(sum_over_model=True)
+
+    return {k: one(k, v) for k, v in tree.items()}
+
+
 def _layer_params(cfg: ModelConfig, tree):
     """One layer's parameters gathered where they are blocks: the ``model``
-    blocks of every part that splits its work over ``model``, the whole
-    tensors of the SSM and of attention whose query heads do not divide
-    ``model`` (it runs unsplit, its parameters gathered over ``model``
-    too)."""
+    blocks of every part that splits its work over ``model``; the SSM's
+    ``w_out`` block beside its other leaves whole (``_ssm_split_params``);
+    the whole tensors of attention whose query heads do not divide
+    ``model``, and of an SSM whose heads do not (it runs unsplit, its
+    parameters gathered over ``model`` too)."""
     mesh = _blocks_mesh(tree)
     tp = mesh.shape.get("model", 1) if mesh is not None else 1
-    whole = {"ssm"} | ({"attn"} if cfg.n_heads % tp else set())
-    return {k: _gathered(v, split=k not in whole) for k, v in tree.items()}
+    whole = ({"attn"} if cfg.n_heads % tp else set()) | \
+        ({"ssm"} if "ssm" in tree and _ssm_heads(cfg) % tp else set())
+    return {k: (_ssm_split_params(v) if k == "ssm" and tp > 1 and k not in whole
+                else _gathered(v, split=k not in whole)) for k, v in tree.items()}
 
 
 def _layer(cfg: ModelConfig, tree, idx: int):
@@ -382,7 +407,15 @@ def _checkpointed(fn, remat: bool):
     runs under the ambient mesh and ``use_tp`` mesh of the forward call
     (the backward pass runs after the caller's contexts are gone), so its
     collectives over ``model`` run again: each tensor-parallel layer's
-    all-reduces, once in the forward pass and once more in the backward."""
+    all-reduces, once in the forward pass and once more in the backward.
+    The recompute stops early, at the last tensor the block saved
+    (``set_checkpoint_early_stop``, asked for here rather than taken as
+    torch's default): a built-in matmul saves its operands before it
+    runs, so the block's last matmul is never recomputed, and a
+    row-parallel one (``layers._row_parallel``) saves them in ``_RowMM``,
+    ahead of the product, so that it is not either.  Without the early
+    stop each block would recompute its last matmul and, with a split,
+    its row-parallel product and all-reduce."""
     from repro_torch.sharding import ops
 
     if not remat:
@@ -395,7 +428,8 @@ def _checkpointed(fn, remat: bool):
             with ops.use_mesh(mesh), ops.use_tp(tp):
                 return fn(*a)
 
-        return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
+        with torch.utils.checkpoint.set_checkpoint_early_stop(True):
+            return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
 
     return run
 
@@ -588,8 +622,66 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=COMPUTE_DTYPE, 
     return cache
 
 
+def _ssm_split_mesh(cfg: ModelConfig, bp):
+    """The ``use_tp`` mesh where the SSM layer's parameters ``bp`` are
+    split over its ``model`` axis (``w_out`` a ``model`` block), else
+    None."""
+    from repro_torch.sharding.ops import tp_mesh
+
+    mesh = tp_mesh()
+    d_inner = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_state)[0]
+    return mesh if mesh is not None and bp["ssm"]["w_out"].shape[0] != d_inner else None
+
+
+def _heads_block(state, mesh):
+    """A ``Block`` state cache (L, B, H, N, P) whose heads split over
+    ``model``, seen with its heads as this rank's whole: its layers take
+    and give the rank's heads of every row, cut to the rank's rows."""
+    from repro_torch.sharding.ops import Block, P, entry_axes
+
+    if not isinstance(state, Block) or "model" not in entry_axes(state.spec[2]):
+        return None
+    return Block(state.local, P(*(None if d == 2 else e for d, e in enumerate(state.spec))),
+                 state.mesh)
+
+
+def _ssm_state_heads(cfg, cache, l: int, mesh):
+    """Layer ``l``'s SSM state of this rank's heads (B, h / tp, N, P): a
+    ``Block`` cache split by heads gathers its rows only, a plain one (or
+    one that holds every head) is cut."""
+    from repro_torch.sharding.ops import Block, axis_index
+
+    state = cache["ssm"]["ssm"]
+    if _heads_block(state, mesh) is not None:
+        return state[l].model_block()
+    whole = state[l].whole() if isinstance(state, Block) else state[l]
+    hl = _ssm_heads(cfg) // mesh.shape["model"]
+    return whole.narrow(1, axis_index("model", mesh) * hl, hl)
+
+
+def _put_ssm_layer(cache, l: int, new: dict, mesh) -> None:
+    """Write layer ``l``'s new conv history (whole) and state.  Under a
+    split (``mesh``) the state is this rank's heads': into a ``Block`` cache
+    split by heads as it is (cut to its rows), into any other the heads
+    gathered over ``model``."""
+    from repro_torch.sharding.ops import gather_from_model
+
+    cache["ssm"]["conv"][l] = new["conv"]
+    state = cache["ssm"]["ssm"]
+    heads = _heads_block(state, mesh) if mesh is not None else None
+    if heads is not None:
+        heads[l] = new["ssm"]
+    else:
+        state[l] = new["ssm"] if mesh is None else gather_from_model(new["ssm"], 1, mesh)
+
+
 def _ssm_decode_layer(cfg, bp, x, cache, l: int):
-    layer_cache = _gathered(_select(cache["ssm"], l))
+    mesh = _ssm_split_mesh(cfg, bp)
+    if mesh is None:
+        layer_cache = _gathered(_select(cache["ssm"], l))
+    else:  # the history whole (tiny), the state of this rank's heads
+        layer_cache = {"conv": _gathered(cache["ssm"]["conv"][l]),
+                       "ssm": _ssm_state_heads(cfg, cache, l, mesh)}
     h, new_c = ssm_mod.ssd_decode_step(
         bp["ssm"],
         rms_norm(x, bp["ln1"], cfg.norm_eps),
@@ -598,8 +690,7 @@ def _ssm_decode_layer(cfg, bp, x, cache, l: int):
         expand=cfg.ssm_expand,
         state=cfg.ssm_state,
     )
-    for k, v in new_c.items():
-        cache["ssm"][k][l] = v
+    _put_ssm_layer(cache, l, new_c, mesh)
     return x + h
 
 
@@ -672,9 +763,9 @@ def _prefill(cfg: ModelConfig, params, batch, max_seq):
     cache = init_cache(cfg, b, max_seq, device=x.device)
 
     def ssm_layer(l, x):
-        x, state = _ssm_block_prefill(cfg, _layer(cfg, params["blocks"], l), x)
-        for k, v in state.items():
-            cache["ssm"][k][l] = v
+        bp = _layer(cfg, params["blocks"], l)
+        x, state = _ssm_block_prefill(cfg, bp, x)
+        _put_ssm_layer(cache, l, state, _ssm_split_mesh(cfg, bp))
         return x
 
     if cfg.family == "ssm":

@@ -42,8 +42,15 @@ from its block, as the reference's partitioner splits each layer's
 matmuls.  Three autograd-aware collectives over ``model`` join the shares
 (``copy_to_model``, ``reduce_from_model``, ``gather_from_model``); a value
 that all ``model`` ranks hold alike keeps a gradient that they hold
-alike.  A layer that does not split (the SSM blocks) gathers its
-parameters whole (``Block.whole``).
+alike.  A layer that does not split (attention whose query heads do not
+divide ``model``, an SSM whose heads do not) gathers its parameters whole
+(``Block.whole``); the ``model`` ranks then compute the same gradient,
+and each keeps its block's share of it.  A layer whose ranks use
+different parts of a parameter that its rule cuts otherwise (the SSM's
+packed in-projection and conv, its per-head leaves) gathers it whole with
+``sum_over_model``: the backward sums the ranks' gradients over ``model``
+(a reduce-scatter into the block, or an all-reduce where the rule leaves
+the parameter whole over ``model``).
 
 Every collective goes through ``_collective``.  gloo carries CPU tensors;
 a CUDA tensor on a gloo group (several ranks on one card, where NCCL
@@ -73,9 +80,9 @@ _LOGICAL = {
 }
 
 # host-staged collectives by name ("all_reduce", "all_gather",
-# "reduce_scatter"; "model_all_reduce" and "model_all_gather" for the
-# tensor-parallel layers' collectives over ``model``) in this process; read
-# by the smoke run, reset by the caller
+# "reduce_scatter"; "model_all_reduce", "model_all_gather" and
+# "model_reduce_scatter" for the tensor-parallel layers' collectives over
+# ``model``) in this process; read by the smoke run, reset by the caller
 STAGED: Counter = Counter()
 # the mesh axes a batch splits over (pure data parallelism over pods, FSDP
 # over data); every other axis sees the same rows
@@ -519,12 +526,16 @@ def _gather_local(local: torch.Tensor, spec, mesh: Mesh, axes=None) -> torch.Ten
     return out.clone() if out is local else out
 
 
-def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh, whole: bool = True) -> torch.Tensor:
+def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh, whole: bool = True,
+                     sum_over_model: bool = False) -> torch.Tensor:
     """The gradient of the gathered tensor on this rank's rows -> its sum
     over the batch axes, this rank's block.  For a tensor gathered whole
     (``whole``), ranks along a non-batch axis (``model``) computed the same
-    gradient, so their share is cut, not summed; a ``model`` block's
-    gradient is already this rank's share."""
+    gradient, so their share is cut, not summed; with ``sum_over_model``
+    they computed different parts of it, so it is summed over ``model``
+    first (reduce-scattered into the block, or all-reduced where the spec
+    leaves ``model`` out).  A ``model`` block's gradient is already this
+    rank's share."""
     dims = {}
     for d, axes in _block_entries(spec):
         if len(axes) > 1:
@@ -532,6 +543,14 @@ def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh, whole: bool = True) -
                              f"not {axes}")
         dims[axes[0]] = d
     g = grad
+    if whole and sum_over_model and mesh.shape.get("model", 1) > 1:
+        group = mesh.group("model")
+        if "model" in dims:
+            d = dims.pop("model")
+            g = _collective("reduce_scatter", g.movedim(d, 0), group,
+                            tag="model_").movedim(0, d)
+        else:
+            g = _collective("all_reduce", g, group, tag="model_", op=dist.ReduceOp.SUM)
     for a, d in dims.items():
         if whole and a not in BATCH_AXES and mesh.shape[a] > 1:
             size = g.shape[d] // mesh.shape[a]
@@ -557,28 +576,32 @@ class _GatherBlock(torch.autograd.Function):
     (microbatches)."""
 
     @staticmethod
-    def forward(ctx, local, spec, mesh, whole):
-        ctx.spec, ctx.mesh, ctx.whole = spec, mesh, whole
+    def forward(ctx, local, spec, mesh, whole, sum_over_model):
+        ctx.spec, ctx.mesh, ctx.whole, ctx.sum_over_model = spec, mesh, whole, sum_over_model
         return _gather_local(local, spec, mesh, None if whole else BATCH_AXES)
 
     @staticmethod
     def backward(ctx, grad):
-        return _reduce_to_block(grad, ctx.spec, ctx.mesh, ctx.whole), None, None, None
+        g = _reduce_to_block(grad, ctx.spec, ctx.mesh, ctx.whole, ctx.sum_over_model)
+        return g, None, None, None, None
 
 
-def gather_block(local: torch.Tensor, spec, mesh: Mesh, *, whole: bool = True) -> torch.Tensor:
+def gather_block(local: torch.Tensor, spec, mesh: Mesh, *, whole: bool = True,
+                 sum_over_model: bool = False) -> torch.Tensor:
     """The whole tensor whose block on this rank is ``local`` under
     ``spec`` (or, ``whole`` False, its ``model`` block: gathered over the
     batch axes only); its gradient flows back to ``local`` summed over the
-    batch axes."""
-    return _GatherBlock.apply(local, spec, mesh, whole)
+    batch axes, and with ``sum_over_model`` over ``model`` too (the
+    ``model`` ranks used different parts of the whole tensor)."""
+    return _GatherBlock.apply(local, spec, mesh, whole, sum_over_model)
 
 
 class Block:
     """This rank's block (``local``) of a global tensor under ``spec`` on
     ``mesh``.  A stacked leaf's leading (layer) dimension is never sharded:
     ``block[l]`` and ``block.unbind(0)`` give layer blocks with no
-    communication, ``whole()`` gathers one (``gather_block``),
+    communication, ``whole()`` gathers one (``gather_block``; with
+    ``sum_over_model`` its backward sums the ``model`` ranks' gradients),
     ``model_block()`` gathers it over the batch axes only, and
     ``block[l] = value`` / ``put`` write this rank's share of a global
     value (a cache's layer, or positions of one)."""
@@ -616,8 +639,8 @@ class Block:
         inner = self._inner()
         return tuple(Block(t, inner, self.mesh) for t in self.local.unbind(0))
 
-    def whole(self) -> torch.Tensor:
-        return gather_block(self.local, self.spec, self.mesh)
+    def whole(self, *, sum_over_model: bool = False) -> torch.Tensor:
+        return gather_block(self.local, self.spec, self.mesh, sum_over_model=sum_over_model)
 
     def model_block(self) -> torch.Tensor:
         """This rank's ``model`` block of the tensor: whole along every

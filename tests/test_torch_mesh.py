@@ -15,13 +15,15 @@ about 1: the port adds each token's gated expert rows in float32 and rounds
 once, the reference adds them in bf16), with equal expert ids and equal
 dispatch tables (so the same pairs are dropped); the tree step bit for bit
 with no collective; the train step (tensor-parallel over ``model``, for a
-dense, an MoE and a hybrid smoke model) with its loss within the
+dense, an MoE, a hybrid and an SSM smoke model) with its loss within the
 reference's 5e-2 of the single-device step's and of the reference's mesh
 loss, and its gradient norm and updated parameters near both
 (``NORM_TOL``, ``UPDATE_TOL``; olmoe against the reference's mesh step
 ``REF_MESH_TOLS``), no parameter that its rule splits over ``model``
-gathered over ``model``.  Fault C's two-rank case and the (1, 1)
-mesh's bits are here too.
+gathered over ``model`` but the SSM's packed in-projection and conv; the
+SSM's gated norm split over ``model`` within ``GATED_NORM_TOL`` of the
+one-process norm.  Fault C's two-rank case and the (1, 1) mesh's bits are
+here too.
 """
 import json
 import os
@@ -39,10 +41,12 @@ from repro_torch.models import transformer as tfm
 from repro_torch.train import optimizer as opt
 from repro_torch.train.step import make_train_step
 from repro_torch.train.tree import flatten_with_paths, path_key
-from torch_dist_ranks import (ATTN_CASES, MOE_CAPACITY, MOE_SHAPE, TP_CONTROL, TP_SERVE,
-                              TP_SERVE_CASES, TRAIN_ARCHS, TRAIN_OPT, _unflatten, mesh_cases,
+from torch_dist_ranks import (ATTN_CASES, GATED_NORM_SHAPE, MOE_CAPACITY, MOE_SHAPE,
+                              TP_CONTROL, TP_SERVE, TP_SERVE_CASES, TP_SERVE_CONTROL,
+                              TRAIN_ARCHS, TRAIN_OPT, _unflatten, gated_norm_rank, mesh_cases,
                               mesh_rank, microbatch_rank, run_ranks, tp_control_config,
-                              tp_control_rank, tp_serve_rank)
+                              tp_control_rank, tp_serve_control_rank, tp_serve_control_run,
+                              tp_serve_control_tokens, tp_serve_rank)
 
 ROOT = Path(__file__).resolve().parents[1]
 RANKS, SHAPE, AXES = 8, (2, 4), ("data", "model")
@@ -301,7 +305,8 @@ def test_sharded_train_step_matches_single_device_and_the_reference(arch, sides)
     it over the wrong axis or sums the ``model`` ranks' shares wrongly moves
     the parameters elsewhere.  (The MoE router's update is farther from the
     one-device step's than the rest: on a mesh the load-balancing loss is
-    the mean of each data shard's, as on the reference's mesh.)"""
+    the mean of each data shard's, as on the reference's mesh.)  Each
+    reading is printed beside its limit (``pytest -s``)."""
     ref, ranks = sides
     tr = np.load(ref / f"train_{arch}.npz")
     key = f"train[{arch}]_"
@@ -319,6 +324,8 @@ def test_sharded_train_step_matches_single_device_and_the_reference(arch, sides)
     for name, want, tol in (("port", float(m["grad_norm"]), NORM_TOL),
                             ("reference", float(tr["norm_single"]), NORM_TOL),
                             ("reference mesh", float(tr["norm_mesh"]), lim.get("norm", NORM_TOL))):
+        print(f"{arch}: gradient norm {abs(norm - want) / want:.3e} from the {name} step's "
+              f"(limit {tol})")
         assert abs(norm - want) / want < tol, (name, norm, want)
     for name, want, tol in (
             ("port", single, dict.fromkeys(single, UPDATE_TOL)),
@@ -329,6 +336,8 @@ def test_sharded_train_step_matches_single_device_and_the_reference(arch, sides)
               for k in single})):
         gaps = _update_gaps(got, want, before)
         worst = max(gaps, key=lambda k: gaps[k] / tol[k])
+        print(f"{arch}: updates at most {gaps[worst]:.3e} ({worst}, limit {tol[worst]}) from "
+              f"the {name} step's")
         assert gaps[worst] < tol[worst], (name, worst, gaps[worst])
     for r in ranks:
         assert all(np.array_equal(r[f"{key}p:{k}"], got[k]) for k in single)
@@ -351,14 +360,26 @@ def test_sharded_step_holds_only_blocks(arch, sides):
         assert r[key + "block_grads_match"] and not r[key + "block_grads_left"]
 
 
-# the leaves a layer that does not split over ``model`` gathers whole (and so
-# over ``model``): the hybrid's SSM blocks
-WHOLE_OVER_MODEL = {"granite-3-2b": set(), "olmoe-1b-7b": set(),
-                    "zamba2-2.7b": {"blocks/ssm/conv_w", "blocks/ssm/w_in", "blocks/ssm/w_out"}}
+# the leaves gathered whole over ``model`` though their rule splits them
+# there: the SSM's packed in-projection and conv, whose rank blocks do not
+# line up with heads (each rank takes its heads' columns of the whole)
+SSM_WHOLE = {"blocks/ssm/conv_w", "blocks/ssm/w_in"}
+WHOLE_OVER_MODEL = {"granite-3-2b": set(), "olmoe-1b-7b": set(), "zamba2-2.7b": SSM_WHOLE,
+                    "mamba2-370m": SSM_WHOLE}
+# leaves each model must gather into their ``model`` blocks: attention's
+# query and output weights, the SSM's out-projection and the embedding
+SPLIT_LEAVES = {"granite-3-2b": {"blocks/attn/wq", "blocks/attn/wo", "embed"},
+                "olmoe-1b-7b": {"blocks/attn/wq", "blocks/attn/wo", "embed"},
+                "zamba2-2.7b": {"shared/attn/wq", "shared/attn/wo", "blocks/ssm/w_out", "embed"},
+                "mamba2-370m": {"blocks/ssm/w_out", "embed"}}
 # the ceiling on the 8 ranks' flops over the one-device step's (with the
-# ``model`` ranks repeating their data shard's work it was 4 and more), for
-# the models whose every layer splits: the replicated router and norms
+# ``model`` ranks repeating their data shard's work it was 4 and more): the
+# replicated router and norms, the SSM's B and C columns and its (Q x Q)
+# scores, which every ``model`` rank computes
 TP_FLOPS_RATIO = 1.15
+# the gated norm split over two ranks against the one-process norm:
+# relative to the largest output and gradient
+GATED_NORM_TOL = 1e-6
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
@@ -366,10 +387,9 @@ def test_no_split_block_is_gathered_over_model(arch, sides):
     """In the (2, 4) mesh's step each rank gathers every parameter whose
     rule splits it over ``model`` over the batch axes only, into its
     ``model`` block (whole along every other dimension, cut by 4 along that
-    one: the shape of the weight operand its matmuls take), except the
-    hybrid's SSM leaves, which are gathered whole; and the ranks' flops
-    together are the one-device step's, not four times them, where every
-    layer splits."""
+    one: the shape of the weight operand its matmuls take), except the SSM's
+    in-projection and conv, which are gathered whole; and the ranks' flops
+    together are the one-device step's, not four times them."""
     ref, ranks = sides
     key = f"train[{arch}]_"
     tr = np.load(ref / f"train_{arch}.npz")
@@ -378,30 +398,21 @@ def test_no_split_block_is_gathered_over_model(arch, sides):
         assert set(r[key + "whole_over_model"].tolist()) == WHOLE_OVER_MODEL[arch]
         assert r[key + "split_shapes_ok"]
         split = set(r[key + "split_leaves"].tolist())
-        assert {"blocks/attn/wq", "blocks/attn/wo"} <= split or \
-            {"shared/attn/wq", "shared/attn/wo"} <= split, split
-        assert "embed" in split
+        assert SPLIT_LEAVES[arch] <= split, split
     ratio = sum(r[key + "flops"] for r in ranks) / single_flops
-    if not WHOLE_OVER_MODEL[arch]:
-        assert ratio < TP_FLOPS_RATIO, ratio
+    assert ratio < TP_FLOPS_RATIO, ratio
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-2.7b"])
-def test_tensor_parallel_step_is_the_split_control_bit_for_bit(arch, tmp_path):
-    """The (data 1, model 2) tensor-parallel step on two gloo ranks gives,
-    bit for bit, the loss, gradient norm and every parameter of the
-    one-process step whose split matmuls are computed as the ranks' shares
-    (``chip_smoke.split_control``, the control of ``chip_smoke.py``'s phase
-    14c): the ranks' collectives, the gradients of the column-parallel
-    inputs, the kv heads and the replicated leaves add exactly what one
-    process adds.  The vocabulary is odd, so the head stays whole in both."""
+def _split_control_step(arch: str, vocab: int, tmp_path):
+    """(the two ranks' ``tp_control.npz``, the split control's loss,
+    gradient norm and parameters by path)."""
     import chip_smoke
 
     from repro_torch.data.tokens import pipeline_for
 
-    run_ranks(tp_control_rank, 2, str(tmp_path), arch)
+    run_ranks(tp_control_rank, 2, str(tmp_path), arch, vocab)
     tp = np.load(tmp_path / "tp_control.npz")
-    cfg = tp_control_config(arch)
+    cfg = tp_control_config(arch, vocab)
     params = tfm.init_params(cfg, 0, device="cpu")
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # as each rank runs: a CPU matmul may split its sums by threads
@@ -413,11 +424,104 @@ def test_tensor_parallel_step_is_the_split_control_bit_for_bit(arch, tmp_path):
     finally:
         torch.set_num_threads(threads)
     control = {path_key(k): p.detach().numpy() for k, p in flatten_with_paths(params)}
+    return tp, m, control
+
+
+def _assert_same_bits(tp, m, control):
     assert float(tp["loss"]) == float(m["loss"])
     assert float(tp["grad_norm"]) == float(m["grad_norm"])
     assert {k[2:] for k in tp.files if k.startswith("p:")} == set(control)
     for k, want in control.items():
         np.testing.assert_array_equal(tp["p:" + k], want, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-2.7b", "mamba2-370m"])
+def test_tensor_parallel_step_is_the_split_control_bit_for_bit(arch, tmp_path):
+    """The (data 1, model 2) tensor-parallel step on two gloo ranks gives,
+    bit for bit, the loss, gradient norm and every parameter of the
+    one-process step whose split matmuls are computed as the ranks' shares
+    (``chip_smoke.split_control``, the control of ``chip_smoke.py``'s steps
+    14c and 14d): the ranks' collectives, the gradients of the
+    column-parallel inputs, the kv heads, the SSM's heads, its gated norm's
+    sums and the gradients of the leaves the ranks read in parts
+    (``w_in``, ``conv_w``, the per-head leaves) add exactly what one process
+    adds.  The vocabulary is odd, so the head stays whole in both."""
+    _assert_same_bits(*_split_control_step(arch, TP_CONTROL["vocab"], tmp_path))
+
+
+def test_split_control_splits_the_vocabulary_as_the_ranks_do(tmp_path):
+    """The same for the smoke mamba2 with its own vocabulary of 256, which
+    divides the two ranks, so the embedding, the tied head and the
+    cross-entropy split over ``model`` (as mamba2-370m's 50,280 rows do in
+    ``chip_smoke.py``'s step 14d): the control's split of the embedding
+    rows and of the log-softmax gives the ranks' bits."""
+    from repro_torch.configs import smoke_config
+
+    vocab = smoke_config("mamba2-370m").vocab_size
+    assert vocab % TP_CONTROL["shape"][1] == 0
+    _assert_same_bits(*_split_control_step("mamba2-370m", vocab, tmp_path))
+
+
+@pytest.fixture(scope="module")
+def tp_serve_control(tmp_path_factory):
+    """(the two ranks' logits, the split control's): ``tp_serve_control_rank``
+    on 2 gloo ranks, and the same prefill and decode steps with whole
+    parameters in one process under ``chip_smoke.split_control``."""
+    import chip_smoke
+
+    out = tmp_path_factory.mktemp("tp_serve_control")
+    run_ranks(tp_serve_control_rank, 2, str(out))
+    cfg = smoke_config(TP_SERVE_CONTROL["arch"])
+    prompt, steps = tp_serve_control_tokens(cfg)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as each rank runs
+    try:
+        with torch.no_grad(), chip_smoke.split_control(TP_SERVE_CONTROL["shape"][1]):
+            control = tp_serve_control_run(cfg, params, prompt, steps, lambda cache: cache)
+    finally:
+        torch.set_num_threads(threads)
+    return dict(np.load(out / "tp_serve_control.npz")), control
+
+
+@pytest.mark.parametrize("cache", ["plain_cache", "block_cache"])
+def test_tensor_parallel_serving_is_the_split_control_bit_for_bit(cache, tp_serve_control):
+    """``prefill`` and ``decode_step`` of the smoke mamba2 on blocks of a
+    (data 1, model 2) mesh, its SSM heads and vocabulary split over the two
+    ranks, give bit for bit the logits of the split control
+    (``chip_smoke.split_control``: one process, each share's heads, conv
+    channels, conv history and state taken by head, the sums joined in rank
+    order), over a plain cache and over a block cache: the control of
+    ``chip_smoke.py``'s step 14d serving at full depth."""
+    got, control = tp_serve_control
+    assert len(control) == TP_SERVE_CONTROL["steps"] + 1
+    for i, want in enumerate(control):
+        assert np.isfinite(want).all()
+        np.testing.assert_array_equal(got[f"{cache}_{i}"], want, err_msg=f"{cache} call {i}")
+
+
+def test_gated_norm_split_over_model_matches_one_process(tmp_path):
+    """``ssm.gated_norm_tp`` on two gloo ranks, each holding half the
+    channels of the gated product and of gamma: its output and the
+    gradients of its channels and gamma share against ``layers.rms_norm``
+    of the whole in one process, within ``GATED_NORM_TOL`` of the largest.
+    A rank that sums only its own squares, or whose backward does not sum
+    the total's gradient over the ranks, misses by far more."""
+    from repro_torch.models.layers import rms_norm
+
+    run_ranks(gated_norm_rank, 2, str(tmp_path))
+    ranks = [dict(np.load(tmp_path / f"gated_norm_{r}.npz")) for r in range(2)]
+    g = torch.from_numpy(ranks[0]["g"]).requires_grad_(True)
+    gamma = torch.from_numpy(ranks[0]["gamma"]).requires_grad_(True)
+    y = rms_norm(g, gamma)
+    (y * torch.from_numpy(ranks[0]["weight"])).sum().backward()
+    c = GATED_NORM_SHAPE[2]
+    for name, want in (("y", y.detach()), ("g_grad", g.grad), ("gamma_grad", gamma.grad)):
+        got = np.concatenate([r[name] for r in ranks], axis=-1)
+        want = want.numpy()
+        assert got.shape == want.shape and got.shape[-1] == 2 * c
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err < GATED_NORM_TOL, (name, err)
 
 
 @pytest.fixture(scope="module")

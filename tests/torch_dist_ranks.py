@@ -112,9 +112,10 @@ MOE_CAPACITY = (4.0, 1.0)  # the smoke model's (dropless), and one that drops
 MOE_SHAPE = (4, 16)  # batch, seq of the olmoe smoke block's input
 # the train step's smoke models: a dense model whose kv heads do not divide
 # the model axis (the merged-head split, K/V gathered from the ranks'
-# columns), an MoE model (the experts over model), and a hybrid (the SSM
-# blocks gathered whole, the shared attention and MLP split)
-TRAIN_ARCHS = ("granite-3-2b", "olmoe-1b-7b", "zamba2-2.7b")
+# columns), an MoE model (the experts over model), a hybrid (the SSM blocks
+# and the shared attention and MLP split) and an SSM model (its heads over
+# model, the in-projection and conv gathered whole)
+TRAIN_ARCHS = ("granite-3-2b", "olmoe-1b-7b", "zamba2-2.7b", "mamba2-370m")
 # the train case's AdamW: with eps 1, no warmup and no weight decay, the
 # first step moves each parameter by g / (|g| + 1) of the clipped gradient g
 # (the default config's first step is about lr * sign(g), which hides the
@@ -281,8 +282,8 @@ def _gather_records(params, mesh):
     real = ops.gather_block
     seen = []
 
-    def spy(local, spec, mesh_, *, whole=True):
-        got = real(local, spec, mesh_, whole=whole)
+    def spy(local, spec, mesh_, *, whole=True, sum_over_model=False):
+        got = real(local, spec, mesh_, whole=whole, sum_over_model=sum_over_model)
         name, shape = where[local.untyped_storage().data_ptr()]
         seen.append((name, shape[len(shape) - got.dim():], tuple(spec), whole, tuple(got.shape)))
         return got
@@ -452,21 +453,22 @@ def microbatch_rank(rank, n, out_dir, arch, microbatches, batch, seq):
 TP_CONTROL = dict(shape=(1, 2), rows=8, seq=64, vocab=257)
 
 
-def tp_control_config(arch: str):
-    """``arch``'s smoke model with ``TP_CONTROL``'s vocabulary and
-    microbatches."""
+def tp_control_config(arch: str, vocab: int = TP_CONTROL["vocab"]):
+    """``arch``'s smoke model with ``TP_CONTROL``'s vocabulary (or
+    ``vocab``) and microbatches."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
 
-    return dataclasses.replace(smoke_config(arch), vocab_size=TP_CONTROL["vocab"],
+    return dataclasses.replace(smoke_config(arch), vocab_size=vocab,
                                microbatches=TP_CONTROL["rows"])
 
 
-def tp_control_rank(rank, n, out_dir, arch):
-    """One tensor-parallel step of ``tp_control_config(arch)`` from seed 0's
-    weights on the ``TP_CONTROL`` mesh with ``TRAIN_OPT``; rank 0 saves the
-    gathered parameters, loss and gradient norm as ``tp_control.npz``."""
+def tp_control_rank(rank, n, out_dir, arch, vocab=TP_CONTROL["vocab"]):
+    """One tensor-parallel step of ``tp_control_config(arch, vocab)`` from
+    seed 0's weights on the ``TP_CONTROL`` mesh with ``TRAIN_OPT``; rank 0
+    saves the gathered parameters, loss and gradient norm as
+    ``tp_control.npz``."""
     from repro_torch.data.tokens import pipeline_for
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.models import transformer as tfm
@@ -476,7 +478,7 @@ def tp_control_rank(rank, n, out_dir, arch):
     from repro_torch.train.step import make_train_step
     from repro_torch.train.tree import flatten_with_paths, path_key
 
-    cfg = tp_control_config(arch)
+    cfg = tp_control_config(arch, vocab)
     mesh = compat_make_mesh(TP_CONTROL["shape"], ("data", "model"), device="cpu")
     params = tfm.init_params(cfg, 0, device="cpu")
     params = rules.place(params, rules.params_shardings(params, mesh))
@@ -494,10 +496,15 @@ def tp_control_rank(rank, n, out_dir, arch):
 # (architecture, kv heads (None: the smoke model's), batch, shard the cache's
 # positions over data).  The smoke granite's 2 kv heads split over model
 # (the cache's rows over data), or at batch 1 its positions over data (a
-# flash decode over data); with 1 kv head its positions split over model
+# flash decode over data); with 1 kv head its positions split over model.
+# The smoke mamba2's and zamba2's 4 SSM heads split over model (a block
+# cache holds its rank's rows and heads of the state, its rows and a
+# contiguous share of the conv history's channels)
 TP_SERVE_CASES = {"heads_split": ("granite-3-2b", None, 4, False),
                   "positions_over_data": ("granite-3-2b", None, 1, True),
-                  "positions_over_model": ("granite-3-2b", 1, 4, False)}
+                  "positions_over_model": ("granite-3-2b", 1, 4, False),
+                  "ssm_heads_split": ("mamba2-370m", None, 4, False),
+                  "hybrid_heads_split": ("zamba2-2.7b", None, 4, False)}
 TP_SERVE = dict(shape=(2, 2), prompt=16, max_seq=32, steps=2)
 
 
@@ -552,3 +559,96 @@ def tp_serve_rank(rank, n, out_dir):
                     out[f"{name}_single_{i}"] = g
     if rank == 0:
         np.savez(os.path.join(out_dir, "tp_serve.npz"), **out)
+
+
+# serving against the split control on a (data 1, model 2) mesh: the smoke
+# mamba2 (3 layers, 4 SSM heads, a vocabulary of 256 that divides the ranks),
+# a prompt that is no multiple of its chunk of 32, then decode steps
+TP_SERVE_CONTROL = dict(arch="mamba2-370m", shape=(1, 2), batch=2, prompt=40, steps=3)
+
+
+def tp_serve_control_rank(rank, n, out_dir):
+    """``prefill`` and ``TP_SERVE_CONTROL["steps"]`` ``decode_step``s of
+    its model from seed 0's weights, the parameters as blocks of its mesh,
+    decoding over the prefill's plain cache and over the same cache placed
+    as blocks; rank 0 saves every last-token logits as
+    ``tp_serve_control.npz``."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import ops, rules
+
+    c = TP_SERVE_CONTROL
+    cfg = smoke_config(c["arch"])
+    mesh = compat_make_mesh(c["shape"], ("data", "model"), device="cpu")
+    params = tfm.init_params(cfg, 0, device="cpu")
+    prompt, steps = tp_serve_control_tokens(cfg)
+    sh = rules.params_shardings(params, mesh)
+    blocks = ops.blocks(rules.place(params, sh), sh)
+
+    def as_blocks(cache):
+        pos = cache.pop("pos")
+        csh = rules.cache_shardings(mesh, cache)
+        return {**ops.blocks(rules.place(cache, csh), csh), "pos": pos}
+
+    out = {}
+    with torch.no_grad(), ops.use_mesh(mesh):
+        for tag, place in (("plain_cache", lambda cache: cache), ("block_cache", as_blocks)):
+            for i, g in enumerate(tp_serve_control_run(cfg, blocks, prompt, steps, place)):
+                out[f"{tag}_{i}"] = g
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "tp_serve_control.npz"), **out)
+
+
+def tp_serve_control_tokens(cfg):
+    """(prompt, decode tokens) of ``TP_SERVE_CONTROL``, from a seeded
+    generator."""
+    c = TP_SERVE_CONTROL
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (c["batch"], c["prompt"])))
+    return prompt, [torch.from_numpy(rng.integers(0, cfg.vocab_size, (c["batch"], 1)))
+                    for _ in range(c["steps"])]
+
+
+def tp_serve_control_run(cfg, params, prompt, steps, place) -> list:
+    """The prefill's and each decode step's logits (float32 numpy), the
+    cache placed by ``place`` after the prefill."""
+    from repro_torch.models import transformer as tfm
+
+    logits, cache = tfm.prefill(cfg, params, {"tokens": prompt},
+                                max_seq=prompt.shape[1] + len(steps))
+    got = [logits]
+    cache = place(cache)
+    for t in steps:
+        got.append(tfm.decode_step(cfg, params, cache, t)[0])
+    return [g.float().numpy() for g in got]
+
+
+# the gated norm split over model: (batch, seq, channels a rank) of the
+# gated product on each of 2 ranks
+GATED_NORM_SHAPE = (2, 8, 64)
+
+
+def gated_norm_rank(rank, n, out_dir):
+    """``ssm.gated_norm_tp`` on a (data 1, model ``n``) mesh: rank r takes
+    channels [r c, (r + 1) c) of one seeded float32 gated product and of
+    gamma, and saves its output and the gradients of its channels and of
+    its gamma share, under a loss that weights each output channel
+    differently, as ``gated_norm_<r>.npz``."""
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models.ssm import gated_norm_tp
+
+    mesh = compat_make_mesh((1, n), ("data", "model"), device="cpu")
+    b, s, c = GATED_NORM_SHAPE
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.normal(size=(b, s, n * c)).astype(np.float32))
+    gamma = torch.from_numpy(rng.normal(size=(n * c,)).astype(np.float32))
+    weight = torch.from_numpy(rng.normal(size=(n * c,)).astype(np.float32))
+    share = lambda t: t[..., rank * c:(rank + 1) * c]
+    gl = share(g).clone().requires_grad_(True)
+    gam = share(gamma).clone().requires_grad_(True)
+    y = gated_norm_tp(gl, gam, mesh, n * c, torch.float32)
+    (y * share(weight)).sum().backward()
+    np.savez(os.path.join(out_dir, f"gated_norm_{rank}.npz"), y=y.detach().numpy(),
+             g_grad=gl.grad.numpy(), gamma_grad=gam.grad.numpy(),
+             g=g.numpy(), gamma=gamma.numpy(), weight=weight.numpy())
