@@ -195,7 +195,16 @@ with one CUDA card.  It
      the parameters and the cache as blocks under the same mesh: every
      logits the split control's bits and within 0.33 of whole weights
      without a mesh, and the prefill and 2 decode steps in float32 within
-     1e-3 of whole weights in float32.
+     1e-3 of whole weights in float32; then (14e) granite-3-2b at full width
+     and depth, its matmul weights in bf16, as blocks of (data 2, model 1)
+     in the same processes, serves 4 rows of 32 tokens and 8 greedy decode
+     steps on each rank's rows (its 2 rows of every layer and of the cache;
+     the logits gathered over ``data``): each rank's logits the bits of one
+     process serving its 2 rows alone with whole weights, within 0.2 of one
+     process serving the whole batch fed the same tokens, each rank's peak
+     memory below that process's, with every greedy token that differs from
+     that process's (not gated), the prefill and decode times and the
+     collectives staged through the host printed.
 
 ``--kernels-only`` builds the kernels and the model and only checks and
 times the kernel cases of step 5, printing them as one JSON line;
@@ -534,6 +543,25 @@ SSM_SERVE_F32_STEPS = 2
 # the card then read 2.64e-5
 SSM_SERVE_TOL = 0.33
 SSM_SERVE_F32_TOL = 1e-3
+# 14e: fault E's repair at full width.  granite-3-2b whole (40 layers), its
+# matmul weights in bf16 as ``LMEngine`` keeps them, placed as blocks of a
+# (data FSDP_RANKS, model 1) mesh in phase 14's processes, serves
+# ROWS_SERVE_BATCH rows of ROWS_SERVE_PROMPT tokens and ROWS_SERVE_STEPS
+# greedy decode steps, each rank computing its rows only (its share of the
+# cache, its rows of the logits, gathered over ``data`` at the end).  Gates:
+# each rank's logits the bits of its row control (one process serving that
+# rank's rows alone with whole weights, fed the same tokens: cuBLAS picks its
+# product by shape), within ROWS_SERVE_TOL (``PERF.md`` section 2's decode
+# tolerance) of the one-process whole-batch call's rows fed the same tokens,
+# and each rank's peak memory below that call's.  Every greedy token that
+# differs from that call's is printed with its two candidates' gap in the
+# one-process logits, and not gated: the 2-row against 4-row products alone
+# flip near-ties (1 of 36 on an NVIDIA H100 80GB HBM3 at seed 0, 0.0625
+# apart), and any flip the logits gate lets through is one of those
+ROWS_SERVE_BATCH = 4
+ROWS_SERVE_PROMPT = 32
+ROWS_SERVE_STEPS = 8
+ROWS_SERVE_TOL = LM_CONSISTENCY_TOL
 # the dry-run phase (14b): these cells (architecture, shape, the 2 x 16 x 16
 # mesh or the 16 x 16 one) in processes on the host CPU, started with the run
 # and read at its end, when they have DRYRUN_TIMEOUT_S more to finish
@@ -3555,6 +3583,8 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
         if rank == 0:
             del before, after, control
         out["ssm_serve"] = ssm_serving(cfg, rank, world, seed, dev, Path(store).parent)
+        # 14e: granite-3-2b served on each rank's rows
+        out["rows_serve"] = rows_serving(rank, world, seed, dev, Path(store).parent)
         print("FSDP_RANK " + json.dumps(dict(out, rank=rank, launches=dict(tt.LAUNCHES))),
               flush=True)
     finally:
@@ -3653,6 +3683,162 @@ def ssm_serving(cfg, rank: int, world: int, seed: int, dev, out_dir: Path) -> di
     return res
 
 
+def rows_serving(rank: int, world: int, seed: int, dev, out_dir: Path) -> dict:
+    """Step 14e in one rank: granite-3-2b at full width and depth, its
+    matmul weights in bf16, as blocks of a (data ``world``, model 1) mesh,
+    serving ROWS_SERVE_BATCH rows: ``prefill`` and ROWS_SERVE_STEPS greedy
+    ``decode_step``s on plain whole tokens, each rank computing its rows (the
+    logits gathered over ``data`` after each call).  Rank 0 then serves the
+    whole batch in one process and each rank's rows alone (the row
+    controls), each fed the mesh's greedy tokens, so every call sees the
+    mesh run's context.  Each rank saves
+    its rows of every logits and the greedy tokens as ``rows_serve_<r>.npz``
+    in ``out_dir``, rank 0 the one-process runs as
+    ``rows_serve_single.npz``.  Returns the rank's times, held and peak
+    memory and staged collectives, and rank 0's of the one-process calls."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import ops, rules
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = get_config(LM_ARCH)
+    b, s, n = ROWS_SERVE_BATCH, ROWS_SERVE_PROMPT, ROWS_SERVE_STEPS
+    tokens = torch.as_tensor(pipeline_for(cfg, b, s, seed=seed).batch_at(0)["tokens"]).to(dev)
+    per = b // world
+    weights = lambda: tfm.cast_matmul_weights(tfm.init_params(cfg, seed, device=dev))
+
+    def serve(params, prompt, feed=None):
+        # the prefill and n decode steps, each fed the argmax of the logits
+        # before it (or ``feed``'s tokens): (logits on the host, the fed
+        # tokens, each call's host-clock ms)
+        got, fed, ms = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tfm.prefill(cfg, params, {"tokens": prompt}, max_seq=s + n)
+        for i in range(n + 1):
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.append(logits.float().cpu())
+            if i == n:
+                break
+            fed.append(torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                       if feed is None else feed[i])
+            t0 = time.perf_counter()
+            logits, cache = tfm.decode_step(cfg, params, cache, fed[-1])
+        return got, fed, ms
+
+    def timing(ms, peak):
+        return dict(prefill_ms=ms[0], decode_ms=statistics.median(ms[1:]),
+                    peak_gib=peak / 2**30)
+
+    t_setup = time.perf_counter()
+    mesh = compat_make_mesh((world, 1), ("data", "model"), device=dev)
+    params = weights()
+    sh = rules.params_shardings(params, mesh)
+    blocks = ops.blocks(rules.place(params, sh), sh)
+    del params
+    torch.cuda.empty_cache()
+    held = sum(t.local.numel() * t.local.element_size() for t in tree_leaves(blocks))
+    ops.STAGED.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    with torch.no_grad(), ops.use_mesh(mesh):
+        got, fed, ms = serve(blocks, tokens)
+    res = dict(timing(ms, torch.cuda.max_memory_allocated(dev)), held_gib=held / 2**30,
+               staged=dict(ops.STAGED), mesh_s=time.perf_counter() - t_setup)
+    del blocks
+    torch.cuda.empty_cache()
+    mine = slice(rank * per, (rank + 1) * per)
+    np.savez(out_dir / f"rows_serve_{rank}.npz",
+             tokens=np.stack([g.argmax(-1).numpy() for g in got]),
+             **{f"got_{i}": g[mine].numpy() for i, g in enumerate(got)})
+    dist.barrier()
+    if rank == 0:
+        params = weights()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            want, _, ms = serve(params, tokens, fed)
+            res["single"] = timing(ms, torch.cuda.max_memory_allocated(dev))
+            runs = {f"want_{i}": g.numpy() for i, g in enumerate(want)}
+            for r in range(world):
+                rows = slice(r * per, (r + 1) * per)
+                control, _, ms = serve(params, tokens[rows], [t[rows] for t in fed])
+                res[f"control_{r}"] = timing(ms, 0)
+                runs.update({f"control_{r}_{i}": g.numpy() for i, g in enumerate(control)})
+        np.savez(out_dir / "rows_serve_single.npz", **runs)
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def rows_serve_check(ranks: list, card: str) -> dict:
+    """Step 14e's gates: each rank's logits the bits of its row control,
+    within ROWS_SERVE_TOL of the one-process whole-batch call's rows (both
+    fed the mesh's greedy tokens), and each rank's peak below that call's.
+    Every greedy token that differs from that call's is listed with its
+    candidates' gap, ungated.  The readings are printed before any gate is
+    applied."""
+    single = np.load(FSDP_DIR / "rows_serve_single.npz")
+    per = ROWS_SERVE_BATCH // len(ranks)
+    calls = ["prefill"] + [f"decode step {i}" for i in range(1, ROWS_SERVE_STEPS + 1)]
+    faults, errs, flips = [], [], []
+    for r in ranks:
+        rank = r["rank"]
+        got = np.load(FSDP_DIR / f"rows_serve_{rank}.npz")
+        rows = slice(rank * per, (rank + 1) * per)
+        apart = [c for i, c in enumerate(calls)
+                 if not np.array_equal(got[f"got_{i}"], single[f"control_{rank}_{i}"])]
+        if apart:
+            faults.append(f"rank {rank}'s logits are not its row control's bits in {apart}")
+        errs.append([])
+        for i, c in enumerate(calls):
+            mine, want = got[f"got_{i}"], single[f"want_{i}"][rows]
+            diff = np.abs(mine - want).max(axis=-1)
+            errs[-1].append(float(diff.max()) if np.isfinite(mine).all() else float("inf"))
+            for j, (a, b) in enumerate(zip(mine.argmax(-1), want.argmax(-1))):
+                if a != b:
+                    gap = float(want[j, b] - want[j, a])
+                    flips.append(dict(call=c, row=rank * per + j, token=int(a), want=int(b),
+                                      gap=gap, logits_apart=float(diff[j])))
+    serve = [r["rows_serve"] for r in ranks]
+    one = serve[0]["single"]
+    worst = max(max(e) for e in errs)
+    if not worst <= ROWS_SERVE_TOL:
+        faults.append(f"logits {worst} from the one-process call's (tolerance {ROWS_SERVE_TOL})")
+    if not all(r["peak_gib"] < one["peak_gib"] for r in serve):
+        faults.append(f"peak memory a rank {[r['peak_gib'] for r in serve]} GiB is not below the "
+                      f"one-process whole-batch call's {one['peak_gib']} GiB")
+    controls = [serve[0][f"control_{r}"] for r in range(len(ranks))]
+    print(f"{card} | rows 14e: {LM_ARCH} at full width and depth (matmul weights in bf16) served "
+          f"on each rank's rows as (data {len(ranks)}, model 1) in phase 14's processes, "
+          f"{ROWS_SERVE_BATCH} rows of {ROWS_SERVE_PROMPT} tokens and {ROWS_SERVE_STEPS} greedy "
+          f"decode steps, {per} rows a rank: logits apart from the row controls' in "
+          f"{len([f for f in faults if 'row control' in f])} ranks; within {worst:.4e} of the "
+          f"one-process whole-batch call's rows fed the same tokens (tolerance "
+          f"{ROWS_SERVE_TOL}; per call, worst rank {[round(max(c), 5) for c in zip(*errs)]}); "
+          f"greedy tokens apart from that call's (not gated) at {len(flips)} of "
+          f"{len(calls) * ROWS_SERVE_BATCH} (step, row) pairs {flips}; peak "
+          f"{[round(r['peak_gib'], 3) for r in serve]} GiB a rank (held "
+          f"{[round(r['held_gib'], 3) for r in serve]}) against {one['peak_gib']:.3f} in one "
+          f"process; prefill {[round(r['prefill_ms'], 1) for r in serve]} ms and decode "
+          f"{[round(r['decode_ms'], 1) for r in serve]} ms a token a rank against "
+          f"{one['prefill_ms']:.1f} and {one['decode_ms']:.1f} in one process on every row and "
+          f"{[round(c['prefill_ms'], 1) for c in controls]} and "
+          f"{[round(c['decode_ms'], 1) for c in controls]} for the row controls (host clock); "
+          f"collectives staged {[r['staged'] for r in serve]}; from the weights' draw to the "
+          f"mesh run's end {[round(r['mesh_s'], 1) for r in serve]} s a rank")
+    if faults:
+        fail("14e: " + "; ".join(faults))
+    return dict(max_err=worst, flips=flips, peak_gib=[r["peak_gib"] for r in serve],
+                single_peak_gib=one["peak_gib"])
+
+
 def update_gap(got, want, before, chunk: int = 1 << 26) -> float:
     """||got - want|| / ||want - before|| in float64, ``got`` on the card
     and the host's ``want`` and ``before`` moved there a chunk at a time."""
@@ -3668,9 +3854,10 @@ def update_gap(got, want, before, chunk: int = 1 << 26) -> float:
 
 
 def fsdp_phase(seed: int, card: str) -> dict:
-    """Steps 14a, 14c and 14d: fault D's repair and the tensor-parallel
-    steps (granite-3-2b, then mamba2-370m's SSM heads, and its serving) at
-    full width on the card.  Returns the ranks' kernel launches (all 0: the
+    """Steps 14a, 14c, 14d and 14e: fault D's repair and the
+    tensor-parallel steps (granite-3-2b, then mamba2-370m's SSM heads, and
+    its serving), then granite-3-2b served on each rank's rows, at full
+    width on the card.  Returns the ranks' kernel launches (all 0: the
     training path runs no hand-written kernel)."""
     shutil.rmtree(FSDP_DIR, ignore_errors=True)
     FSDP_DIR.mkdir(parents=True)
@@ -3761,9 +3948,10 @@ def fsdp_phase(seed: int, card: str) -> dict:
           f"{[r['staged_batch'] for r in tp]}; from the ranks' barrier to the compared "
           f"parameters {[round(r['mesh_s'], 1) for r in tp]} s; 14a and 14c {seconds:.2f} s")
     ssm = ssm_tp_check(ranks, card)
+    rows = rows_serve_check(ranks, card)
     shutil.rmtree(FSDP_DIR, ignore_errors=True)
-    print(f"{card} | phase 14's rank processes (14a, 14c, 14d) {seconds:.2f} s")
-    return dict(ranks=ranks, norm_gap=norm_gap, tp_norm_gap=tp_norm_gap, ssm=ssm,
+    print(f"{card} | phase 14's rank processes (14a, 14c, 14d, 14e) {seconds:.2f} s")
+    return dict(ranks=ranks, norm_gap=norm_gap, tp_norm_gap=tp_norm_gap, ssm=ssm, rows=rows,
                 seconds=seconds, launches=launches)
 
 

@@ -198,3 +198,52 @@ def predict_mode(packed, X, mode: str, *, device, arrays=None):
                                  packed.scale)
     scores = spec.finalize(acc.cpu().numpy(), packed.n_trees, packed.scale)
     return scores, np.argmax(scores, axis=1).astype(np.int32)
+
+
+def predict_float(packed, X, *, device, arrays=None):
+    """float32 path: ``(probs (B, C) float32, preds int32)``, the trees
+    added in the reference's order and the sums divided by ``n``, as the
+    reference's eager ``predict_float`` divides (its jitted routes, and
+    ``predict_mode`` here, multiply by the float32 reciprocal)."""
+    if arrays is None:
+        arrays = ensemble_device_arrays(packed, "float", device)
+    x = torch.as_tensor(np.asarray(X, np.float32), device=device)
+    scores = _predict(arrays, x, packed.max_depth, False).cpu().numpy() / np.float32(packed.n_trees)
+    return scores, np.argmax(scores, axis=1).astype(np.int32)
+
+
+def predict_flint(packed, X, *, device, arrays=None):
+    """FlInt-keyed path: integer compares, exact uint32 partials, float32
+    probabilities through the finalize's reciprocal multiply."""
+    return predict_mode(packed, X, "flint", device=device, arrays=arrays)
+
+
+def predict_integer(packed, X, *, device, arrays=None):
+    """InTreeger path: integer compares and uint32 fixed-point sums."""
+    return predict_mode(packed, X, "integer", device=device, arrays=arrays)
+
+
+def integer_probs(packed, acc) -> np.ndarray:
+    """Ensemble-average probabilities (float32 numpy) from the uint32
+    scores (a numpy array or a tensor of uint32 or their int32 bits)."""
+    from repro_torch.core.fixedpoint import fixed_to_prob
+
+    if not torch.is_tensor(acc):
+        acc = torch.from_numpy(np.ascontiguousarray(acc, np.uint32).view(np.int32))
+    return fixed_to_prob(acc, packed.n_trees).cpu().numpy()
+
+
+def make_partials_fn(packed, mode: str, *, device):
+    """``X -> (B, C) uint32 partials`` (deterministic modes only) over the
+    mode's tables, put on ``device`` once: the backend's half of a plan."""
+    if not mode_spec(mode).deterministic:
+        raise ValueError(f"mode {mode!r} does not produce integer partials")
+    arrays = ensemble_device_arrays(packed, mode, device)
+    return lambda x: predict_partials_mode(packed, x, mode, device=device, arrays=arrays)
+
+
+def make_predict_fn(packed, mode: str, *, device):
+    """``X -> (scores, preds)`` over the mode's tables, put on ``device``
+    once."""
+    arrays = ensemble_device_arrays(packed, mode, device)
+    return lambda x: predict_mode(packed, x, mode, device=device, arrays=arrays)

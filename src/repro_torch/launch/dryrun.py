@@ -29,7 +29,10 @@ decode and the tree cells run
 ``tfm.prefill`` (or ``forward_logits`` for an encoder), ``decode_step``
 over a cache placed by ``rules.cache_shardings`` and
 ``core.serving.tree_serve_step``, the parameters as blocks gathered a
-layer at a time into the same split layers, on the whole batch.
+layer at a time into the same split layers, each rank on its rows of the
+batch as ``specs`` places it (over ``pod`` x ``data`` where the batch
+divides them, as the reference's partitioned program computes each
+device's rows; long_500k's one row whole on every rank).
 
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-27b --shape train_4k
@@ -91,22 +94,22 @@ def lower_cell(cfg, shape_name: str, mesh):
         return make_train_step(cfg, opt.AdamWConfig()), \
             (params, sp.opt_state_specs(cfg, mesh), batch), True
     # serving: the parameters as blocks, a layer gathered at a time; the
-    # model takes its inputs whole on every rank (gathered, and counted)
+    # batch and the decode tokens as ``specs`` places them, so each rank
+    # takes its rows where the batch splits over the batch axes (and the
+    # whole batch, replicated, where it does not: long_500k's one row)
     blocks = ops.blocks(params, rules.params_shardings(params, mesh))
-    whole = lambda tree: {k: ops.gather(v) for k, v in tree.items()}
     if mode == "prefill":
         batch = sp.batch_specs(cfg, shape_name, mesh, with_labels=False)
         if cfg.encoder_only:
-            return (lambda p, b: tfm.forward_logits(cfg, p, whole(b))), (blocks, batch), False
+            return (lambda p, b: tfm.forward_logits(cfg, p, b)), (blocks, batch), False
         seq = SHAPES[shape_name]["seq"]
-        return (lambda p, b: tfm.prefill(cfg, p, whole(b), max_seq=seq)), (blocks, batch), False
+        return (lambda p, b: tfm.prefill(cfg, p, b, max_seq=seq)), (blocks, batch), False
     cache, _ = sp.cache_specs(cfg, shape_name, mesh)
     pos = cache.pop("pos")
     cache = {**ops.blocks(cache, rules.cache_shardings(
         mesh, cache, shard_seq=shape_name == "long_500k")), "pos": pos}
     tokens = sp.decode_token_specs(cfg, shape_name, mesh)
-    return (lambda p, c, t: tfm.decode_step(cfg, p, c, ops.gather(t))), \
-        (blocks, cache, tokens), False
+    return (lambda p, c, t: tfm.decode_step(cfg, p, c, t)), (blocks, cache, tokens), False
 
 
 def measure(fn, args, *, trains: bool, chips: int) -> dict:

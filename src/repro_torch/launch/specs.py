@@ -10,27 +10,14 @@ meta kernel), which is what the dry run measures.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.shapes import SHAPES, TREE_SHAPES
 from repro_torch.models import transformer as tfm
 from repro_torch.sharding import ops, rules
-from repro_torch.sharding.ops import P
+from repro_torch.sharding.ops import P, local_shape
 from repro_torch.train.tree import flatten_with_paths, path_key, unflatten_like
-
-
-def local_shape(shape, mesh, spec) -> tuple:
-    """The shape of one rank's block of a ``shape`` tensor under ``spec``."""
-    out = list(shape)
-    for d, entry in enumerate(spec):
-        n = math.prod(mesh.shape[a] for a in ops.entry_axes(entry))
-        if out[d] % n:
-            raise ValueError(f"dimension {d} of {tuple(shape)} does not split over {entry!r}")
-        out[d] //= n
-    return tuple(out)
 
 
 def sds(shape, dtype, mesh, spec):

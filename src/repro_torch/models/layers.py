@@ -14,7 +14,11 @@ sharded train step and the dry run hand the model ``Block``s), the layers
 split their work over ``model`` as the reference's partitioned program
 does (``_attention_tp``, ``mlp``): ``wq``/``wk``/``wv``/``w_gate``/``w_up``
 column-parallel on the rank's heads or FFN columns, ``wo``/``w_down``
-row-parallel, then one all-reduce over ``model``.  A partial that is
+row-parallel, then one all-reduce over ``model``.  Serving on each rank's
+rows (``transformer._rows_of``) the ambient mesh is put aside: the layers
+are given the rank's rows and cut or gather none, and a cache whose
+positions split over ``model`` is read by a flash decode over ``model``
+(``_core_on_position_shares``).  A partial that is
 summed over the ranks, forward (a row-parallel output) or backward (each
 column-parallel matmul's input gradient), is the float32 product of the
 bf16 operands, summed in float32 and rounded once where the whole layer's
@@ -283,7 +287,7 @@ def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int 
     the query weights as ``model`` blocks the layer is tensor-parallel
     (``_attention_tp``).
     """
-    from repro_torch.sharding.ops import current_mesh, tp_mesh
+    from repro_torch.sharding.ops import Block, current_mesh, tp_mesh
 
     b, s, _ = x.shape
     h, kh, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
@@ -309,8 +313,14 @@ def attention(params, x, dims: AttnDims, *, positions, causal=True, window: int 
                              f"at position {cache_pos}")
         _write_cache(ck, cache_pos, xk)
         _write_cache(cv, cache_pos, xv)
-        out = _attn_core(xq.reshape(b, s, kh, g, dh), ck, cv, causal=causal, window=window,
-                         q_chunk=q_chunk, q_offset=cache_pos, kv_len=cache_pos + s, mesh=mesh)
+        q = xq.reshape(b, s, kh, g, dh)
+        if mesh is None and isinstance(ck, Block):
+            # this rank's rows of a cache whose positions split over `model`
+            out = _core_on_position_shares(q, xk, xv, ck, cv, causal=causal, window=window,
+                                           q_chunk=q_chunk, cache_pos=cache_pos)
+        else:
+            out = _attn_core(q, ck, cv, causal=causal, window=window, q_chunk=q_chunk,
+                             q_offset=cache_pos, kv_len=cache_pos + s, mesh=mesh)
     else:
         if merged_tp and s > 1:
             # repeat KV to one head per query head; merged heads shard cleanly
@@ -458,6 +468,18 @@ def _attention_tp(params, x, dims: AttnDims, mesh, *, positions, causal, window,
     return _row_parallel(out.reshape(b, s, hl * dh), params["wo"], mesh), None
 
 
+def _core_on_position_shares(q, xk, xv, ck, cv, *, causal, window, q_chunk, cache_pos):
+    """Attention of ``q`` (B, S, KH, G, Dh) on this rank's rows over a
+    ``Block`` cache whose positions split over ``model``, the new K/V
+    (B, S, KH, Dh) already written into it: at position 0 over the new K/V
+    themselves (all the cache holds; its zero tail is masked anyway), else a
+    flash decode over the ``model`` shares of the positions."""
+    if cache_pos == 0:
+        return _chunked_softmax_attn(q, xk, xv, causal=causal, window=window, q_chunk=q_chunk)
+    return _flash_decode_partial(q, ck.local, cv.local, window, cache_pos,
+                                 cache_pos + q.shape[1], "model", ck.mesh)
+
+
 def _cached_core_tp(xq, xk, xv, kv_cache, dims: AttnDims, mesh, *, causal, window, q_chunk,
                     cache_pos):
     """``_attention_tp``'s core with a cache: this rank's new K/V written
@@ -466,19 +488,25 @@ def _cached_core_tp(xq, xk, xv, kv_cache, dims: AttnDims, mesh, *, causal, windo
     whole; a ``Block`` cache (``rules.cache_shardings``) holds this rank's
     rows, its kv heads where they split over ``model``, and its positions
     where they split over ``data``, so the rank writes its heads.  The
-    core runs on the rank's rows (the cache's, or its share over the batch
-    axes), a flash decode over ``data`` where the positions split, and the
-    rows are gathered.  A cache whose positions split over
-    ``model`` (kv heads that do not divide it) needs every query head on
-    every rank: q is gathered and the mesh core runs (``_attn_core``)."""
+    core runs on the rows it is given, and nothing cuts or gathers them:
+    on each rank's rows (``transformer._rows_of``) they are the rank's own,
+    and under the ambient mesh the batch axes do not divide the batch (a
+    batch they divide takes the rows' route), so every rank holds every row
+    and runs a flash decode over ``data`` where the positions split.  A
+    cache whose positions split over ``model`` (kv heads that do not divide
+    it) needs every query head on every rank: q is gathered and the mesh
+    core runs (``_attn_core``), or on the rank's rows a flash decode over
+    ``model`` (``_core_on_position_shares``; at position 0 the rank's query
+    heads read the new K/V)."""
     from repro_torch.sharding.ops import (Block, P, axis_index, current_mesh, entry_axes,
-                                          gather_block, gather_from_model, local_block)
+                                          gather_from_model)
 
     ck, cv = kv_cache["k"], kv_cache["v"]
     b, s = xq.shape[:2]
     h, kh, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
     tp = mesh.shape["model"]
     hl, kv_local, me = h // tp, kh % tp == 0, axis_index("model", mesh)
+    ambient = current_mesh()
     if cache_pos + s > ck.shape[1]:
         raise ValueError(f"cache of {ck.shape[1]} positions cannot take {s} more "
                          f"at position {cache_pos}")
@@ -486,9 +514,20 @@ def _cached_core_tp(xq, xk, xv, kv_cache, dims: AttnDims, mesh, *, causal, windo
     if "model" in entry_axes(spec[1]):
         _write_cache(ck, cache_pos, xk)
         _write_cache(cv, cache_pos, xv)
-        out = _attn_core(gather_from_model(xq, 2, mesh).reshape(b, s, kh, h // kh, dh), ck, cv,
-                         causal=causal, window=window, q_chunk=q_chunk, q_offset=cache_pos,
-                         kv_len=cache_pos + s, mesh=current_mesh())
+        if ambient is None and cache_pos == 0:  # the rank's heads over the new K/V
+            heads = (torch.arange(hl, device=xq.device) + me * hl) // (h // kh)
+            out = _core_on_position_shares(
+                xq.reshape(b, s, hl, 1, dh), xk.index_select(2, heads),
+                xv.index_select(2, heads), ck, cv, causal=causal, window=window,
+                q_chunk=q_chunk, cache_pos=0)
+            return out.reshape(b, s, hl * dh)
+        q = gather_from_model(xq, 2, mesh).reshape(b, s, kh, h // kh, dh)
+        if ambient is None:
+            out = _core_on_position_shares(q, xk, xv, ck, cv, causal=causal, window=window,
+                                           q_chunk=q_chunk, cache_pos=cache_pos)
+        else:
+            out = _attn_core(q, ck, cv, causal=causal, window=window, q_chunk=q_chunk,
+                             q_offset=cache_pos, kv_len=cache_pos + s, mesh=ambient)
         return out.reshape(b, s, h * dh).narrow(2, me * hl * dh, hl * dh)
     heads_split = bool(entry_axes(spec[2]))
     for c, new in ((ck, xk), (cv, xv)):
@@ -498,31 +537,22 @@ def _cached_core_tp(xq, xk, xv, kv_cache, dims: AttnDims, mesh, *, causal, windo
             Block(c.local, P(spec[0], spec[1], None, None), c.mesh).put(1, cache_pos, new)
         else:
             c[:, cache_pos:cache_pos + s] = new.to(c.dtype)
-    if isinstance(ck, Block):
-        rows = P(spec[0], None, None, None)
-        kc, vc = ck.local, cv.local
-    else:  # this rank's share of the rows over the batch axes that divide them
-        rows = P(_attn_specs(mesh, b, kh, 1, None, s)[0] or None, None, None, None)
-        kc, vc = (local_block(t, mesh, rows) for t in (ck, cv))
-    q = local_block(xq, mesh, rows)
+    kc, vc = (ck.local, cv.local) if isinstance(ck, Block) else (ck, cv)
     if kv_local:
         if not heads_split:
             kc, vc = (t.narrow(2, me * (kh // tp), kh // tp) for t in (kc, vc))
-        q = q.reshape(q.shape[0], s, kh // tp, h // kh, dh)
+        q = xq.reshape(b, s, kh // tp, h // kh, dh)
     else:  # each query head reads its kv head
-        heads = (torch.arange(hl, device=q.device) + me * hl) // (h // kh)
+        heads = (torch.arange(hl, device=xq.device) + me * hl) // (h // kh)
         kc, vc = (t.index_select(2, heads) for t in (kc, vc))
-        q = q.reshape(q.shape[0], s, hl, 1, dh)
+        q = xq.reshape(b, s, hl, 1, dh)
     seq = entry_axes(spec[1])
     if seq:
         out = _flash_decode_partial(q, kc, vc, window, cache_pos, cache_pos + s, seq[0], mesh)
     else:
         out = _chunked_softmax_attn(q, kc, vc, causal=causal, window=window, q_chunk=q_chunk,
                                     q_offset=cache_pos, kv_len=cache_pos + s)
-    out = out.reshape(q.shape[0], s, hl * dh)
-    if entry_axes(rows[0]):
-        out = gather_block(out, P(rows[0], None, None), mesh)
-    return out
+    return out.reshape(b, s, hl * dh)
 
 
 def _attn_core(xq, xk, xv, *, causal=True, window: int = 0, q_chunk=512, q_offset: int = 0,

@@ -4,7 +4,9 @@ The PyTorch counterpart of the JAX package's ``models/moe.py``: the
 single-program path, and under a mesh with a ``model`` axis the
 expert-parallel path (``moe_block_ep``; with the expert weights as this
 rank's ``model`` block, as the sharded train step gives them, its body
-runs directly on the rows the rank is given, ``moe_block_tp``).  Expert
+runs directly on the rows the rank is given, ``moe_block_tp``; serving on
+each rank's rows, ``_moe_block_rows`` drops the pairs the reference's
+program on the whole batch drops).  Expert
 selection only needs the *order* of router logits, so top-k runs on FlInt
 int32 keys (``repro_torch.core.flint``): a stable descending sort of the
 keys, which puts the lower expert index first among equal keys, as
@@ -16,6 +18,8 @@ same expert, in token order.  Pairs at slot >= capacity are dropped and read
 0 at the combine (Switch/GShard semantics with ``capacity_factor``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -63,28 +67,39 @@ def moe_block(params, x, *, n_experts: int, k: int, act: str = "silu",
     ``model`` axis is active (``moe_block_ep``), or when the expert
     weights are this rank's ``model`` block (``moe_block_tp``); otherwise
     the single-program scatter path below (CPU tests, 1-device meshes).
+    On each rank's rows (``sharding.ops.use_rows``: serving on a mesh) the
+    block drops the pairs the reference's program on the whole batch drops
+    (``_moe_block_rows``).
     """
-    from repro_torch.sharding.ops import current_mesh, tp_mesh
+    from repro_torch.sharding.ops import current_mesh, rows_split, tp_mesh
 
     tpm = tp_mesh()
-    if tpm is not None and params["w_gate_e"].shape[0] != n_experts:
-        return moe_block_tp(params, x, n_experts=n_experts, k=k, act=act,
-                            capacity_factor=capacity_factor, mesh=tpm)
+    split = tpm is not None and params["w_gate_e"].shape[0] != n_experts
+    kw = dict(n_experts=n_experts, k=k, act=act, capacity_factor=capacity_factor)
+    if rows_split() is not None:
+        return _moe_block_rows(params, x, rows=rows_split(), tpm=tpm if split else None, **kw)
+    if split:
+        return moe_block_tp(params, x, mesh=tpm, **kw)
     mesh = current_mesh()
-    if mesh is not None and mesh.shape.get("model", 1) > 1 and n_experts % mesh.shape["model"] == 0:
-        # EP only pays off when the per-shard expert batch amortizes the
-        # weight gather and keeps capacity sane; at decode (a few tokens per
-        # shard) the single-program path is both faster and drop-free.
-        b, s, _ = x.shape
-        dp = 1
-        for a in ("pod", "data"):
-            dp *= mesh.shape.get(a, 1)
-        t_loc = (b * s) // max(dp, 1)
-        if t_loc * k >= 4 * n_experts:
-            return moe_block_ep(params, x, n_experts=n_experts, k=k, act=act,
-                                capacity_factor=capacity_factor, mesh=mesh)
-    return _moe_block_jit(params, x, n_experts=n_experts, k=k, act=act,
-                          capacity_factor=capacity_factor)
+    b, s, _ = x.shape
+    if _takes_ep(mesh, n_experts, k, b * s):
+        return moe_block_ep(params, x, mesh=mesh, **kw)
+    return _moe_block_jit(params, x, **kw)
+
+
+def _takes_ep(mesh, n_experts: int, k: int, tokens: int) -> bool:
+    """Whether the reference's ``moe_block`` takes its expert-parallel path
+    for ``tokens`` tokens of the whole batch on ``mesh``: ``model`` splits
+    the experts, and each of the ``pod`` x ``data`` shards has enough tokens.
+    EP only pays off when the per-shard expert batch amortizes the weight
+    gather and keeps capacity sane; at decode (a few tokens per shard) the
+    single-program path is both faster and drop-free."""
+    if mesh is None or mesh.shape.get("model", 1) <= 1 or n_experts % mesh.shape["model"]:
+        return False
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= mesh.shape.get(a, 1)
+    return (tokens // max(dp, 1)) * k >= 4 * n_experts
 
 
 def dispatch_slots(ids_flat, n_experts: int):
@@ -254,3 +269,83 @@ def moe_block_tp(params, x, *, n_experts: int, k: int, act: str, capacity_factor
                     params["w_down_e"], x, n_experts=n_experts,
                     e_loc=n_experts // mesh.shape["model"], k=k, act=act,
                     capacity_factor=capacity_factor, batch_axes=(), mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# serving on each rank's rows
+# ---------------------------------------------------------------------------
+#
+# The reference jits the serving program on the mesh with the whole batch,
+# so which pairs its capacity drops is decided over the whole batch: per
+# ``pod`` x ``data`` shard where it takes expert parallelism (``_ep_body``'s
+# capacity counts the shard's tokens, its slots the shard's pairs), and
+# over every token where it takes its one program (decode: the capacity
+# counts the whole batch, a pair's slot every earlier pair of its expert in
+# the batch).  On each rank's rows the port drops the same pairs.
+
+def _moe_block_rows(params, x, *, n_experts: int, k: int, act: str, capacity_factor: float,
+                    rows, tpm):
+    """``moe_block`` on this rank's rows ``x`` of a batch split over the
+    mesh axes of ``rows`` (``sharding.ops.rows_split``), the expert weights
+    this rank's ``model`` block where ``tpm`` is the mesh: where the
+    reference's program takes expert parallelism, ``moe_block_tp``'s body
+    on these rows (the shard's capacity and slots, as its per-shard body);
+    else its one program's drops (``_moe_one_program_rows``).  The aux loss
+    (not used in serving) is 0."""
+    mesh, axes = rows
+    b, s, _ = x.shape
+    n = math.prod(mesh.shape[a] for a in axes)
+    kw = dict(n_experts=n_experts, k=k, act=act, capacity_factor=capacity_factor)
+    if tpm is not None and _takes_ep(mesh, n_experts, k, b * s * n):
+        y, _ = moe_block_tp(params, x, mesh=tpm, **kw)
+    else:
+        y = _moe_one_program_rows(params, x, mesh=mesh, axes=axes, tpm=tpm, **kw)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _moe_one_program_rows(params, x, *, n_experts: int, k: int, act: str,
+                          capacity_factor: float, mesh, axes, tpm):
+    """The reference's one-program MoE (``_moe_block_jit`` on the whole
+    batch) from this rank's rows: every rank's tokens are gathered over the
+    batch axes (a few at decode), routed, and given their slots among the
+    whole batch's pairs, so the same pairs drop as in one program.  Each
+    rank computes its experts' (its ``model`` block's, or all) slots in its
+    share of the capacity (a range over the batch axes), and the gated
+    expert rows, summed in float32 over the mesh, are rounded once; the
+    rank keeps its rows."""
+    from repro_torch.sharding.ops import gather_rows, psum, rows_index
+
+    b, s, d = x.shape
+    t_own = b * s
+    xt = gather_rows(x.reshape(t_own, d), mesh, axes)  # (T, d): the batch's tokens in order
+    t = xt.shape[0]
+    _, gates, ids = route(params, xt, k)
+    capacity = int(max(1, (t * k * capacity_factor) // n_experts))
+    ids_flat = ids.reshape(-1)
+    slot_flat = dispatch_slots(ids_flat, n_experts)
+
+    e_loc = params["w_gate_e"].shape[0]
+    lo = tpm.axis_index("model") * e_loc if tpm is not None else 0
+    r, n = rows_index(mesh, axes), math.prod(mesh.shape[a] for a in axes)
+    per = -(-capacity // n)  # this rank's slots: [r * per, (r + 1) * per) of the capacity
+    col = slot_flat - r * per
+    mine = (ids_flat >= lo) & (ids_flat < lo + e_loc) & (slot_flat < capacity) & \
+        (col >= 0) & (col < per)
+    # pairs of other ranks' experts or slots, and dropped pairs, land in a
+    # spare row and column that are cut off
+    row = torch.where(mine, ids_flat - lo, e_loc)
+    col = torch.where(mine, col, per)
+    buf = torch.zeros((e_loc + 1, per + 1, d), dtype=x.dtype, device=x.device)
+    buf[row, col] = torch.repeat_interleave(xt, k, dim=0)
+    buf = buf[:e_loc, :per]
+
+    a = act_fn(act)
+    gate = a(torch.einsum("ecd,edf->ecf", buf, params["w_gate_e"].to(x.dtype)))
+    up = torch.einsum("ecd,edf->ecf", buf, params["w_up_e"].to(x.dtype))
+    out_e = torch.einsum("ecf,efd->ecd", gate * up, params["w_down_e"].to(x.dtype))
+
+    yrep = out_e[row.clamp(max=e_loc - 1), col.clamp(max=per - 1)]
+    yrep = torch.where(mine[:, None], yrep, 0.0)
+    y = (yrep.reshape(t, k, d).float() * gates[..., None].to(x.dtype).float()).sum(dim=1)
+    y = psum(y, tuple(axes) + (("model",) if tpm is not None else ()), mesh)
+    return y.narrow(0, r * t_own, t_own).to(x.dtype).reshape(b, s, d)

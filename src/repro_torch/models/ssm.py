@@ -258,13 +258,19 @@ def _ssd_forward_tp(params, x, mesh, *, d_model: int, expand: int, state: int, c
     return out
 
 
+def ssm_cache_layout(batch: int, d_model: int, expand: int, state: int, dtype=torch.float32):
+    """The SSM cache's leaves as (shape, dtype): the conv history
+    (B, K - 1, conv channels) in ``dtype`` and the state (B, H, N, P) in
+    float32."""
+    _, h, conv_dim = ssm_dims(d_model, expand, state)
+    return {"conv": ((batch, CONV_K - 1, conv_dim), dtype),
+            "ssm": ((batch, h, state, HEADDIM), torch.float32)}
+
+
 def ssm_init_cache(batch: int, d_model: int, expand: int, state: int, dtype=torch.float32,
                    device=None):
-    d_inner, h, conv_dim = ssm_dims(d_model, expand, state)
-    return {
-        "conv": torch.zeros((batch, CONV_K - 1, conv_dim), dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, h, state, HEADDIM), dtype=torch.float32, device=device),
-    }
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in ssm_cache_layout(batch, d_model, expand, state, dtype).items()}
 
 
 def _ssd_decode_heads(hp, xs, b, c, dt, state):

@@ -34,13 +34,24 @@ piece alike).  Attention whose query heads do not divide ``model``, and
 an SSM whose heads do not, gather their parameters whole.  The SSM's
 packed in-projection and conv are gathered whole on every rank, which
 takes its heads' columns of them (``ssm.tp_share``).  ``loss_fn`` then
-takes this rank's rows;
-``forward_logits``, ``prefill`` and ``decode_step`` take the whole batch
-under the ambient mesh, as without blocks.
+takes this rank's rows.  So do ``forward_logits``, ``prefill`` and
+``decode_step`` wherever ``rules.batch_pspec`` splits the batch over the
+batch axes (``pod`` x ``data``), as the reference's partitioned serving
+program computes each device's rows: each batch leaf is the rank's rows (a
+``DTensor`` placed over the batch axes gives its local tensor, a plain
+whole tensor is cut, with no communication), the cache a tree of
+``Block``s placed by ``rules.cache_shardings`` for the whole batch of which
+the rank allocates and writes its share only, and the logits come back as
+the rank's rows (a ``DTensor``) for ``DTensor`` inputs, or gathered over the
+batch axes for plain ones (``_rows_of``).  Where the batch axes do not
+divide the batch (batch 1), every rank takes the whole batch under the
+ambient mesh, as the reference does.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -95,19 +106,36 @@ def _select(tree, idx: int):
     return tree_map(lambda a: a[idx], tree)
 
 
-def _gathered(tree, *, split: bool = False):
-    """``tree`` with each ``sharding.ops.Block`` (a rank's share of a
-    parameter, as the sharded train step passes them) gathered whole, or
-    (``split``) into this rank's ``model`` block; its gradient flows back
-    to the block.  Plain tensors pass as they are."""
+def _gathered(tree, *, split: bool = False, name: str = "", weights: bool = False):
+    """``tree`` (a leaf named ``name``, or a dict of them) with each
+    ``sharding.ops.Block`` (a rank's share of a parameter, as the sharded
+    train step passes them) gathered whole, or (``split``) into this rank's
+    ``model`` block; its gradient flows back to the block.  Plain tensors
+    pass as they are; the ``weights`` of a model are gathered as
+    ``_for_rows`` gives them."""
     from repro_torch.sharding.ops import Block
 
-    def one(a):
+    def one(k, a):
+        if isinstance(a, dict):
+            return {kk: one(kk, v) for kk, v in a.items()}
         if not isinstance(a, Block):
             return a
+        a = _for_rows(k, a) if weights else a
         return a.model_block() if split else a.whole()
 
-    return tree_map(one, tree)
+    return one(name, tree)
+
+
+def _for_rows(name: str, block):
+    """A parameter's ``Block`` as it is gathered: serving on each rank's
+    rows (no gradient), a matmul weight's block in the compute dtype, which
+    every use casts it to (half the bytes moved and held, the same
+    values); else as it is."""
+    from repro_torch.sharding.ops import Block, rows_split
+
+    if rows_split() is None or name in FLOAT32_LEAVES:
+        return block
+    return Block(block.local.to(COMPUTE_DTYPE), block.spec, block.mesh)
 
 
 def _blocks_mesh(params):
@@ -132,6 +160,7 @@ def _ssm_split_params(tree):
     def one(k, a):
         if not isinstance(a, Block):
             return a
+        a = _for_rows(k, a)
         return a.model_block() if k == "w_out" else a.whole(sum_over_model=True)
 
     return {k: one(k, v) for k, v in tree.items()}
@@ -149,7 +178,8 @@ def _layer_params(cfg: ModelConfig, tree):
     whole = ({"attn"} if cfg.n_heads % tp else set()) | \
         ({"ssm"} if "ssm" in tree and _ssm_heads(cfg) % tp else set())
     return {k: (_ssm_split_params(v) if k == "ssm" and tp > 1 and k not in whole
-                else _gathered(v, split=k not in whole)) for k, v in tree.items()}
+                else _gathered(v, split=k not in whole, name=k, weights=True))
+            for k, v in tree.items()}
 
 
 def _layer(cfg: ModelConfig, tree, idx: int):
@@ -163,7 +193,7 @@ def gather_top(params):
     final norm) gathered where they are blocks, into this rank's ``model``
     blocks: once a forward pass, or once a step where the step gathers
     them first."""
-    return {k: v if k in ("blocks", "shared") else _gathered(v, split=True)
+    return {k: v if k in ("blocks", "shared") else _gathered(v, split=True, name=k, weights=True)
             for k, v in params.items()}
 
 
@@ -178,6 +208,98 @@ def _split_over(params, *, own_rows: bool):
     mesh = _blocks_mesh(params)
     with use_tp(mesh), (use_mesh(None) if own_rows and mesh is not None
                         else contextlib.nullcontext()):
+        yield
+
+
+def _rows_of(params, b: int, cache=None):
+    """(mesh, batch axes) where the model runs on each rank's rows: the
+    parameters are ``Block``s and ``rules.batch_pspec`` splits ``b`` rows
+    over the batch axes of their mesh (and a ``Block`` cache, if given,
+    splits its rows over the same axes); else None, and the model takes the
+    whole batch."""
+    from repro_torch.sharding.ops import Block, entry_axes
+    from repro_torch.sharding.rules import batch_pspec
+    from repro_torch.train.tree import tree_leaves
+
+    mesh = _blocks_mesh(params)
+    if mesh is None:
+        return None
+    spec = batch_pspec(mesh, b)
+    axes = entry_axes(spec[0]) if len(spec) else ()
+    if not axes or any(isinstance(t, Block) and entry_axes(t.spec[1]) != axes
+                       for t in tree_leaves(cache or {})):
+        return None
+    return mesh, axes
+
+
+def _own_rows(batch: dict, mesh, axes) -> dict:
+    """This rank's rows of each batch leaf: a ``DTensor`` placed over the
+    batch axes gives its local tensor, a plain whole tensor is cut (a view;
+    no communication)."""
+    from repro_torch.sharding.ops import P, to_local
+
+    return {k: to_local(v, mesh, P(axes)) for k, v in batch.items()}
+
+
+def _whole(batch: dict) -> dict:
+    """Each batch leaf whole: a ``DTensor`` gathered (a replicated one with
+    no communication), a plain tensor as it is."""
+    from repro_torch.sharding.ops import gather
+
+    return {k: gather(v) for k, v in batch.items()}
+
+
+def _rows_out(logits, mesh, axes, batch: dict):
+    """The rank's rows of the logits as the caller reads them: a ``DTensor``
+    over the batch axes where the inputs were ``DTensor``s, else gathered
+    over the batch axes (the one collective on those axes)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.ops import P, from_local, gather_rows
+
+    if any(isinstance(v, DTensor) for v in batch.values()):
+        return from_local(logits.contiguous(), mesh, P(axes))
+    return gather_rows(logits, mesh, axes)
+
+
+def _rows_view(cache, mesh, axes):
+    """The cache as the layers see it on this rank's rows (sharing its
+    memory, so their writes land in it): a ``Block`` with its rows taken as
+    whole (its local rows are this rank's), or its local tensor where
+    nothing else of it is split; a plain whole tensor cut to this rank's
+    rows (no communication)."""
+    from repro_torch.sharding.ops import Block, P, entry_axes, local_block
+
+    def one(t):
+        if isinstance(t, Block):
+            spec = P(*(None if d == 1 else e for d, e in enumerate(t.spec)))
+            return Block(t.local, spec, t.mesh) if any(map(entry_axes, spec)) else t.local
+        return local_block(t, mesh, P(None, axes)) if torch.is_tensor(t) else t
+
+    return tree_map(one, cache)
+
+
+def _block_cache(cfg: ModelConfig, b: int, max_seq: int, mesh, device):
+    """Zeroed caches for ``b`` rows (the whole batch) as ``Block``s placed
+    by ``rules.cache_shardings``: this rank allocates its share only."""
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ops import Block, local_shape
+
+    layout = cache_layout(cfg, b, max_seq)
+    pos = layout.pop("pos")
+    zeros = lambda leaf, s: Block(torch.zeros(local_shape(leaf.shape, mesh, s.spec),
+                                              dtype=leaf.dtype, device=device), s.spec, mesh)
+    return {**tree_map(zeros, layout, rules.cache_shardings(mesh, layout)), "pos": pos}
+
+
+@contextlib.contextmanager
+def _on_rows(params, mesh, axes):
+    """The layers split over ``model`` on this rank's rows (``_split_over``
+    with ``own_rows``), the rows' split set for the layers that read it
+    (``sharding.ops.use_rows``)."""
+    from repro_torch.sharding.ops import use_rows
+
+    with _split_over(params, own_rows=True), use_rows(mesh, axes):
         yield
 
 
@@ -583,12 +705,23 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
 
 
 def forward_logits(cfg: ModelConfig, params, batch):
-    """Full logits (B, S, V) float32 (smoke tests / small models only)."""
-    with _split_over(params, own_rows=False):
-        params = gather_top(params)
-        x, _ = embed_inputs(cfg, params, batch)
-        x, _ = backbone(cfg, params, x, remat=False)
-        return _logits(cfg, params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+    """Full logits (B, S, V) float32 (smoke tests / small models only).
+    With the parameters as ``Block``s and a batch that splits over the
+    batch axes, each rank computes its rows (``_rows_of``): ``DTensor``
+    inputs give the rank's rows as a ``DTensor``, plain ones every row."""
+    rows = _rows_of(params, next(iter(batch.values())).shape[0])
+    if rows is None:
+        with _split_over(params, own_rows=False):
+            return _forward_logits(cfg, gather_top(params), _whole(batch))
+    with _on_rows(params, *rows):
+        logits = _forward_logits(cfg, gather_top(params), _own_rows(batch, *rows))
+    return _rows_out(logits, *rows, batch)
+
+
+def _forward_logits(cfg: ModelConfig, params, batch):
+    x, _ = embed_inputs(cfg, params, batch)
+    x, _ = backbone(cfg, params, x, remat=False)
+    return _logits(cfg, params, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
 def _last_logits(cfg, params, x):
@@ -599,27 +732,38 @@ def _last_logits(cfg, params, x):
 # serving: prefill + decode with caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=COMPUTE_DTYPE, device=None):
-    """Zeroed caches: K/V (layers or groups, B, max_seq, K, Dh) in ``dtype``;
-    SSM conv history in ``dtype`` and state in float32; ``pos`` 0."""
+@dataclasses.dataclass(frozen=True)
+class CacheLeaf:
+    """One serving-cache leaf's global shape and dtype (no memory)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def cache_layout(cfg: ModelConfig, batch: int, max_seq: int, dtype=None):
+    """The serving caches' tree with each leaf a ``CacheLeaf``: K/V (layers
+    or groups, B, max_seq, K, Dh) in ``dtype`` (the activations' unless
+    given); the SSM's conv history (L, B, K - 1, conv channels) in ``dtype``
+    and state (L, B, H, N, P) in float32; ``pos`` 0."""
+    dtype = dtype or COMPUTE_DTYPE
     dims = _attn_dims(cfg)
-
-    def kv(n):
-        shape = (n, batch, max_seq, dims.n_kv_heads, dims.head_dim)
-        return (torch.zeros(shape, dtype=dtype, device=device),
-                torch.zeros(shape, dtype=dtype, device=device))
-
+    kv = lambda n: CacheLeaf((n, batch, max_seq, dims.n_kv_heads, dims.head_dim), dtype)
     cache = {"pos": 0}
     if cfg.family in ("ssm", "hybrid"):
-        per = ssm_mod.ssm_init_cache(batch, cfg.d_model, cfg.ssm_expand, cfg.ssm_state, dtype,
-                                     device=device)
-        cache["ssm"] = {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
-                        for k, v in per.items()}
+        per = ssm_mod.ssm_cache_layout(batch, cfg.d_model, cfg.ssm_expand, cfg.ssm_state, dtype)
+        cache["ssm"] = {k: CacheLeaf((cfg.n_layers,) + shape, dt)
+                        for k, (shape, dt) in per.items()}
         if cfg.family == "hybrid":
-            cache["k"], cache["v"] = kv(_hybrid_groups(cfg)[0])
+            cache["k"] = cache["v"] = kv(_hybrid_groups(cfg)[0])
         return cache
-    cache["k"], cache["v"] = kv(cfg.n_layers)
+    cache["k"] = cache["v"] = kv(cfg.n_layers)
     return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device=None):
+    """Zeroed caches of ``cache_layout`` on ``device``."""
+    return tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
+                    if isinstance(leaf, CacheLeaf) else leaf,
+                    cache_layout(cfg, batch, max_seq, dtype))
 
 
 def _ssm_split_mesh(cfg: ModelConfig, bp):
@@ -697,9 +841,20 @@ def _ssm_decode_layer(cfg, bp, x, cache, l: int):
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One decode step.  tokens: (B, 1) -> last-token logits (B, V) float32;
     ``cache`` advances in place (and is returned, as the reference returns
-    its new cache)."""
-    with _split_over(params, own_rows=False):
-        return _decode_step(cfg, gather_top(params), cache, tokens)
+    its new cache).  On each rank's rows (``_rows_of``) the rank reads and
+    writes its rows of the cache: of a ``Block`` cache (``prefill``'s) its
+    share, of a whole plain one its rows (no communication); the logits
+    come back as in ``forward_logits``."""
+    rows = _rows_of(params, tokens.shape[0], cache)
+    if rows is None:
+        with _split_over(params, own_rows=False):
+            return _decode_step(cfg, gather_top(params), cache, _whole({"t": tokens})["t"])
+    with _on_rows(params, *rows):
+        view = _rows_view(cache, *rows)
+        logits, view = _decode_step(cfg, gather_top(params), view,
+                                    _own_rows({"tokens": tokens}, *rows)["tokens"])
+    cache["pos"] = view["pos"]
+    return _rows_out(logits, *rows, {"tokens": tokens}), cache
 
 
 def _decode_step(cfg: ModelConfig, params, cache, tokens):
@@ -750,17 +905,33 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: Optional[int] = None):
     ``max_seq`` positions as the forward pass computes them.  SSM/hybrid:
     the chunked SSD returns the final (conv, state) pair per layer, handing
     off exactly to ``ssd_decode_step``.
+
+    On each rank's rows (``_rows_of``) the cache is a tree of ``Block``s
+    placed by ``rules.cache_shardings`` for the whole batch, of which this
+    rank holds and writes its share only; the logits come back as in
+    ``forward_logits``.
     """
-    with _split_over(params, own_rows=False):
-        return _prefill(cfg, gather_top(params), batch, max_seq)
+    rows = _rows_of(params, next(iter(batch.values())).shape[0])
+    if rows is None:
+        with _split_over(params, own_rows=False):
+            return _prefill(cfg, gather_top(params), _whole(batch), max_seq)
+    with _on_rows(params, *rows):
+        logits, cache = _prefill(cfg, gather_top(params), _own_rows(batch, *rows), max_seq, rows)
+    return _rows_out(logits, *rows, batch), cache
 
 
-def _prefill(cfg: ModelConfig, params, batch, max_seq):
+def _prefill(cfg: ModelConfig, params, batch, max_seq, rows=None):
     x, _ = embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     max_seq = max_seq or s
-    cache = init_cache(cfg, b, max_seq, device=x.device)
+    if rows is None:
+        out = cache = init_cache(cfg, b, max_seq, device=x.device)
+    else:  # the whole batch's cache as blocks; the layers write this rank's rows
+        mesh, axes = rows
+        out = _block_cache(cfg, b * math.prod(mesh.shape[a] for a in axes), max_seq, mesh,
+                           x.device)
+        cache = _rows_view(out, mesh, axes)
 
     def ssm_layer(l, x):
         bp = _layer(cfg, params["blocks"], l)
@@ -785,5 +956,5 @@ def _prefill(cfg: ModelConfig, params, batch, max_seq):
             x, _, _ = _apply_attn_block(cfg, _layer(cfg, params["blocks"], l), x, positions, w,
                                         kv_cache={"k": cache["k"][l], "v": cache["v"][l]},
                                         cache_pos=0, causal=not cfg.encoder_only)
-    cache["pos"] = s
-    return _last_logits(cfg, params, x), cache
+    out["pos"] = s
+    return _last_logits(cfg, params, x), out

@@ -70,6 +70,7 @@ import torch.distributed as dist
 
 _ACTIVE: list = []
 _TP: list = []
+_ROWS: list = []
 
 _LOGICAL = {
     "batch": ("pod", "data"),
@@ -183,6 +184,41 @@ def tp_mesh() -> Optional[Mesh]:
     return mesh if mesh is not None and mesh.shape.get("model", 1) > 1 else None
 
 
+@contextlib.contextmanager
+def use_rows(mesh: Optional[Mesh], axes: tuple = ()):
+    """The batch the model is given is this rank's share of the rows, split
+    over the mesh ``axes`` (the batch axes ``rules.batch_pspec`` gives): the
+    serving entry points set it when they run on each rank's rows.  A layer
+    whose result depends on the other ranks' rows (the MoE's capacity and
+    slots) reads it (``rows_split``)."""
+    _ROWS.append((mesh, tuple(axes)) if mesh is not None else None)
+    try:
+        yield
+    finally:
+        _ROWS.pop()
+
+
+def rows_split() -> Optional[tuple]:
+    """(mesh, axes) of the ``use_rows`` split, or None where the model has
+    the whole batch."""
+    return _ROWS[-1] if _ROWS else None
+
+
+def rows_index(mesh: Mesh, axes: tuple) -> int:
+    """This rank's position among the ranks that split the rows over
+    ``axes`` (the first axis the most significant, as in a spec entry)."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.axis_index(a)
+    return idx
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh, axes: tuple, dim: int = 0) -> torch.Tensor:
+    """Every rank's rows ``x`` along ``dim``, concatenated in the order of
+    ``rows_index`` (no gradient): the whole batch from each rank's rows."""
+    return _gather_local(x, P(*([None] * dim), tuple(axes)), mesh)
+
+
 def is_trivial(mesh) -> bool:
     """No mesh, or one whose every axis has size 1 (the local path runs)."""
     return mesh is None or all(n <= 1 for n in mesh.shape.values())
@@ -235,6 +271,17 @@ def placements(mesh: Mesh, spec) -> tuple:
         for a in axes:
             out[a] = Shard(d)
     return tuple(out[a] for a in mesh.axis_names)
+
+
+def local_shape(shape, mesh, spec) -> tuple:
+    """The shape of one rank's block of a ``shape`` tensor under ``spec``."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        n = math.prod(mesh.shape[a] for a in entry_axes(entry))
+        if out[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not split over {entry!r}")
+        out[d] //= n
+    return tuple(out)
 
 
 def local_block(x: torch.Tensor, mesh: Mesh, spec) -> torch.Tensor:

@@ -136,12 +136,14 @@ def cache_shardings(mesh, cache_tree, *, shard_seq: bool = False):
     dim is sharded over data instead — attention over the sharded cache
     becomes a distributed flash-decode (partial softmax + combine,
     ``models.layers._flash_decode_partial``).  The position (``pos``, an
-    int here) replicates.
+    int here) replicates.  A leaf is read by its global ``shape``: a tensor,
+    a ``Block`` (a cache that ``prefill`` made on each rank's rows) or a
+    ``transformer.CacheLeaf`` (a shape and dtype, no memory).
     """
 
     def one(path, leaf):
         name = _leaf_name(path)
-        shape = tuple(leaf.shape) if torch.is_tensor(leaf) else ()
+        shape = tuple(getattr(leaf, "shape", ()))
         if name in ("k", "v") and len(shape) == 5:
             l, b, s, k, dh = shape
             bspec = batch_pspec(mesh, b)

@@ -946,7 +946,8 @@ def test_mesh_branches_on_card_ranks_match_cpu_ranks(card, tmp_path):
     """Four gloo ranks as a (data 2, model 2) mesh, holding CUDA tensors
     (their collectives staged through the host), against four CPU ranks on
     the same inputs: the tree step bit for bit with no collective, each
-    attention core within the reference's 0.02, the MoE block within 0.05,
+    attention core within the reference's 0.02, the MoE block within 0.05
+    (also on each rank's rows, as serving runs it),
     each smoke model's tensor-parallel train step's loss within 2e-3 (the
     card-against-CPU tolerance of the training tests), each rank holding
     only its parameters' blocks and gathering none whose rule splits it
@@ -969,6 +970,8 @@ def test_mesh_branches_on_card_ranks_match_cpu_ranks(card, tmp_path):
             assert np.abs(g[f"attn_{name}"] - c[f"attn_{name}"]).max() < 0.02, name
         for cf in MOE_CAPACITY:
             assert np.abs(g[f"moe_y_{cf}"] - c[f"moe_y_{cf}"]).max() < 0.05, cf
+            for tag in ("prefill", "decode"):  # on each rank's rows
+                assert np.abs(g[f"moe_rows_{tag}_{cf}"] - c[f"moe_rows_{tag}_{cf}"]).max() < 0.05
         for arch in TRAIN_ARCHS:
             key = f"train[{arch}]_"
             assert abs(float(g[key + "loss"]) - float(c[key + "loss"])) < 2e-3, arch

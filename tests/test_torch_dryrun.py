@@ -102,9 +102,25 @@ with mesh, use_mesh(mesh):
 plain = {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in batch.items()}
 one = jaxpr_cost.analyze(fn, shapes, plain)
 one_dots = dot_flops(jax.make_jaxpr(fn)(shapes, plain).jaxpr)
+# serving on the same mesh: a prefill of the 8 x 64 tokens into a cache of
+# 64 positions, and a decode step over such a cache placed by
+# cache_shardings, the batch placed by batch_pspec
+serve = {}
+with mesh, use_mesh(mesh):
+    cache = jax.eval_shape(lambda: tfm.init_cache(cfg, 8, 64))
+    cache = jax.tree.map(lambda s, h: jax.ShapeDtypeStruct(s.shape, s.dtype, sharding=h),
+                         cache, rules.cache_shardings(mesh, cache))
+    cells = {"prefill": (lambda p, b: tfm.prefill(cfg, p, b, max_seq=64),
+                         (params, {"tokens": batch["tokens"]})),
+             "decode": (lambda p, c, t: tfm.decode_step(cfg, p, c, t),
+                        (params, cache, jax.ShapeDtypeStruct((8, 1), jnp.int32, sharding=bs)))}
+    for mode, (f, args) in cells.items():
+        serve[mode] = {"dot_flops": dot_flops(jax.make_jaxpr(f)(*args).jaxpr),
+                       "argument": jax.jit(f).lower(*args).compile().memory_analysis()
+                       .argument_size_in_bytes}
 print(json.dumps({"flops": jc["flops"], "dot_flops": dots, "coll": cb["total"],
                   "temp": ma.temp_size_in_bytes, "argument": ma.argument_size_in_bytes,
-                  "one_flops": one["flops"], "one_dot_flops": one_dots}))
+                  "one_flops": one["flops"], "one_dot_flops": one_dots, "serve": serve}))
 """
 
 
@@ -161,6 +177,49 @@ def test_dryrun_entry_on_small_mesh_against_the_reference(reference):
     # router, computed alike by each ``model`` rank
     ratio = _contraction_flops(rec["jaxpr_cost"]["by_op"]) / reference["dot_flops"]
     assert ratio <= TP_FLOPS_RATIO, ratio
+
+
+# the ceiling on the port's serving cells' contraction flops over the
+# reference mesh program's, each rank on its rows: what repeats is the
+# replicated router, computed alike by each ``model`` rank
+SERVE_FLOPS_RATIO = 1.10
+
+
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+def test_dryrun_serving_on_small_mesh_against_the_reference(mode, reference):
+    """(a) for serving, fault E: the olmoe smoke model's prefill of 8 x 64
+    tokens and a decode step over a cache of 64 positions placed by
+    ``rules.cache_shardings``, on the fake (data 2, model 4) mesh, the
+    batch as ``DTensor``s over ``data`` (``rules.batch_pspec``), through the
+    dry run's analyses: each rank serves its rows, so the 8 ranks'
+    contraction flops are within ``SERVE_FLOPS_RATIO`` of the reference
+    mesh program's (about the ``data`` extent, 2, while every rank served
+    the whole batch), and a rank's argument bytes equal the reference's
+    compiled program's (its ``pos``, a 4-byte array there, is a Python int
+    here)."""
+    cfg = smoke_config("olmoe-1b-7b")
+    with dryrun.fake_world(8), compat_make_mesh((2, 4), ("data", "model"), device="cpu") as mesh, \
+            use_mesh(mesh):
+        params = sp.params_specs(cfg, mesh)
+        blocks = ops.blocks(params, rules.params_shardings(params, mesh))
+        if mode == "prefill":
+            batch = {"tokens": sp.sds((8, 64), torch.int32, mesh, P("data", None))}
+            fn, args = (lambda p, b: tfm.prefill(cfg, p, b, max_seq=64)), (blocks, batch)
+        else:
+            cache = tfm.init_cache(cfg, 8, 64, device="meta")
+            pos = cache.pop("pos")
+            sh = rules.cache_shardings(mesh, cache)
+            cache = {**ops.blocks(rules.place(cache, sh), sh), "pos": pos}
+            tokens = sp.sds((8, 1), torch.int32, mesh, P("data", None))
+            fn, args = (lambda p, c, t: tfm.decode_step(cfg, p, c, t)), (blocks, cache, tokens)
+        rec = dryrun.measure(fn, args, trains=False, chips=8)
+    want = reference["serve"][mode]
+    ratio = _contraction_flops(rec["jaxpr_cost"]["by_op"]) / want["dot_flops"]
+    print(f"{mode}: the 8 ranks' contraction flops {ratio:.4f} times the reference mesh "
+          f"program's (limit {SERVE_FLOPS_RATIO})")
+    assert ratio <= SERVE_FLOPS_RATIO, ratio
+    pos_bytes = 4 if mode == "decode" else 0
+    assert rec["memory"]["argument_size_in_bytes"] + pos_bytes == want["argument"]
 
 
 def test_trip_count_awareness():

@@ -6,7 +6,8 @@ fabric), of the host-C slice (the emitters, the C backends, ``gbt``), of
 the drivers-and-LM slice (configs, the token pipeline, the serving step, the
 driver, the examples, the LM models), of the training slice and of the mesh
 slice (``sharding``, the mesh constructors, shapes, roofline, and the
-modules with mesh branches) must be among them."""
+modules with mesh branches) and of ``core`` (with the reference's predict
+helpers) must be among them."""
 import os
 import subprocess
 import sys
@@ -73,6 +74,12 @@ MESH_SLICE = [f"repro_torch.{m}" for m in (
     "train.optimizer", "launch.train", "checkpoint.manager",
 )]
 
+# the reference's ``core`` predict helpers (``predict_float`` ...
+# ``make_predict_fn``), exported from ``repro_torch.core``
+CORE_SLICE = [f"repro_torch.{m}" for m in (
+    "core", "core.ensemble", "core.fixedpoint", "core.flint", "core.packing",
+)]
+
 
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -80,7 +87,7 @@ def test_port_imports_no_jax_and_no_repro():
                            ",".join(GATEWAY_SLICE + QUICKSCORER_AND_PLANS_SLICE
                                     + DEPLOYMENT_SLICE + HOST_C_SLICE
                                     + DRIVERS_AND_LM_SLICE + TRAIN_SLICE
-                                    + MESH_SLICE)],
+                                    + MESH_SLICE + CORE_SLICE)],
                           env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

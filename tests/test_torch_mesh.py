@@ -42,11 +42,12 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.step import make_train_step
 from repro_torch.train.tree import flatten_with_paths, path_key
 from torch_dist_ranks import (ATTN_CASES, GATED_NORM_SHAPE, MOE_CAPACITY, MOE_SHAPE,
-                              TP_CONTROL, TP_SERVE, TP_SERVE_CASES, TP_SERVE_CONTROL,
-                              TRAIN_ARCHS, TRAIN_OPT, _unflatten, gated_norm_rank, mesh_cases,
-                              mesh_rank, microbatch_rank, run_ranks, tp_control_config,
-                              tp_control_rank, tp_serve_control_rank, tp_serve_control_run,
-                              tp_serve_control_tokens, tp_serve_rank)
+                              REF_SERVE_CASES, TP_CONTROL, TP_SERVE, TP_SERVE_CASES,
+                              TP_SERVE_CONTROL, TRAIN_ARCHS, TRAIN_OPT, _unflatten,
+                              gated_norm_rank, mesh_cases, mesh_rank, microbatch_rank,
+                              ref_serve_rank, run_ranks, serve_config, serve_max_seq, serve_run,
+                              tp_control_config, tp_control_rank, tp_serve_control_rank,
+                              tp_serve_control_run, tp_serve_control_tokens, tp_serve_rank)
 
 ROOT = Path(__file__).resolve().parents[1]
 RANKS, SHAPE, AXES = 8, (2, 4), ("data", "model")
@@ -135,11 +136,25 @@ def dispatch(ids, lo, e_loc, capacity):
     src_tok = jnp.full((e_loc, capacity), t, jnp.int32)
     return src_tok.at[ids_flat, slot_flat].set(pair_tok, mode="drop")
 
+def dropped_by_one_program(xb, cf):
+    # the pairs the one program drops: slots counted over the whole batch
+    _, ids = route(xb, p["w_router"])
+    cap = int(max(1, (ids.shape[0] * kk * cf) // e))
+    flat = ids.reshape(-1)
+    onehot = jax.nn.one_hot(flat, e, dtype=jnp.int32)
+    slot = jnp.take_along_axis(jnp.cumsum(onehot, axis=0) - onehot, flat[:, None], axis=1)[:, 0]
+    return int((slot >= cap).sum())
+
 for cf in capacities:
     fn = functools.partial(jmoe.moe_block, n_experts=e, k=kk, act=cfg.act, capacity_factor=cf)
     y_loc, aux_loc = jax.jit(fn)(p, x)
     with mesh, use_mesh(mesh):
         y, aux = jax.jit(fn)(p, x)
+        # a decode step's tokens (one a row): the mesh's program takes its
+        # one program there, the capacity over the whole batch
+        res[f"y_mesh_decode_{cf}"] = f32(jax.jit(fn)(p, x[:, :1])[0])
+    res[f"dropped_one_{cf}"] = dropped_by_one_program(x, cf)
+    res[f"dropped_decode_{cf}"] = dropped_by_one_program(x[:, :1], cf)
     res[f"y_local_{cf}"], res[f"aux_local_{cf}"] = f32(y_loc), float(aux_loc)
     res[f"y_mesh_{cf}"], res[f"aux_mesh_{cf}"] = f32(y), float(aux)
     half = moe_shape[0] // 2
@@ -183,7 +198,54 @@ for arch in json.loads(sys.argv[6]):
              norm_mesh=float(m2["grad_norm"]), **{"p:" + k: v for k, v in flat(params).items()},
              **{"p1:" + k: v for k, v in flat(p1).items()},
              **{"p2:" + k: v for k, v in flat(p2).items()})
+
+# serving: prefill and one decode step of each smoke model jitted on a
+# (data 2, model 2) mesh of 4 of the devices, the parameters placed by
+# params_shardings and every batch leaf by batch_shardings (batch_pspec)
+import dataclasses
+smesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+serve = json.loads(sys.argv[7])
+for name, (arch, overrides, b, prompt, max_seq) in serve.items():
+    cfg = dataclasses.replace(smoke_config(arch), **overrides)
+    params = jtfm.init_params(cfg, jax.random.PRNGKey(1))
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, prompt)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(size=(b, cfg.vision_patches, cfg.frontend_dim)
+                                      ).astype(np.float32)
+    step = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    with smesh, use_mesh(smesh):
+        pp = jax.tree.map(jax.device_put, params, rules.params_shardings(params, smesh))
+        bb = jax.tree.map(jax.device_put, batch, rules.batch_shardings(smesh, batch))
+        tt = jax.device_put(step, rules.batch_shardings(smesh, {"t": step})["t"])
+        lg0, cache = jax.jit(lambda p, x: jtfm.prefill(cfg, p, x, max_seq=max_seq))(pp, bb)
+        lg1, _ = jax.jit(lambda p, c, t: jtfm.decode_step(cfg, p, c, t))(pp, cache, tt)
+    single = {}
+    if cfg.family == "moe":  # the same calls in one program on one device
+        pre = jax.jit(lambda p, x: jtfm.prefill(cfg, p, x, max_seq=max_seq))
+        dec = jax.jit(lambda p, c, t: jtfm.decode_step(cfg, p, c, t))
+        sg0, scache = pre(params, batch)
+        sg1, _ = dec(params, scache, step)
+        # and dropping as the mesh program does: the prefill on each data
+        # shard's rows alone (capacity and slots per shard, as its expert
+        # parallelism), the decode step over the whole batch (its one program)
+        halves = [pre(params, {k: v[h:h + b // 2] for k, v in batch.items()})
+                  for h in (0, b // 2)]
+        hcache = {kv: np.concatenate([np.asarray(c[kv]) for _, c in halves], axis=1)
+                  for kv in ("k", "v")}
+        hg1, _ = dec(params, dict(hcache, pos=halves[0][1]["pos"]), step)
+        single = dict(single_0=f32(sg0), single_1=f32(sg1), shards_1=f32(hg1),
+                      shards_0=np.concatenate([f32(g) for g, _ in halves]))
+    np.savez(out / f"serve_{name}.npz", logits_0=f32(lg0), logits_1=f32(lg1), step=step,
+             **batch, **single, **{"p:" + k: v for k, v in flat(params).items()})
 """
+
+
+def _ref_serve_args() -> dict:
+    """Each ``REF_SERVE_CASES`` model for the reference's side: (arch,
+    overrides, batch, prompt, cache positions)."""
+    return {name: (arch, over, b, TP_SERVE["prompt"], serve_max_seq(serve_config(arch, over)))
+            for name, (arch, over, b, _) in REF_SERVE_CASES.items()}
 
 
 @pytest.fixture(scope="module")
@@ -195,7 +257,7 @@ def sides(tmp_path_factory):
     proc = subprocess.run(
         [sys.executable, "-c", JAX_SIDE, str(ref), json.dumps(ATTN_CASES),
          json.dumps(MOE_CAPACITY), json.dumps(MOE_SHAPE), json.dumps(TRAIN_OPT),
-         json.dumps(TRAIN_ARCHS)],
+         json.dumps(TRAIN_ARCHS), json.dumps(_ref_serve_args())],
         capture_output=True, text=True, timeout=600, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu"))
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -253,6 +315,42 @@ def test_moe_block_matches_the_reference_mesh(cf, sides):
         landed = landed[landed < t]
         dropped = t * 2 - landed.size
         assert (dropped == 0) == (cf == MOE_CAPACITY[0]), dropped
+
+
+@pytest.mark.parametrize("cf", MOE_CAPACITY)
+def test_moe_on_each_ranks_rows_drops_what_the_reference_mesh_drops(cf, sides):
+    """The MoE block on each rank's rows (serving on a mesh,
+    ``sharding.ops.use_rows``), its experts the rank's ``model`` block,
+    against the reference's ``moe_block`` jitted on its (data 2, model 4)
+    mesh with the whole batch: the prefill's 4 x 16 tokens, where the
+    reference takes expert parallelism (capacity and slots per data
+    shard), and a decode step's 4 x 1, where it takes its one program
+    (capacity and slots over the whole batch).  Each rank's rows within
+    ``MOE_TOL``, so the same pairs land.  At a capacity factor of 1 both
+    sides drop pairs, and not the same: one program over the prefill's
+    tokens drops other pairs than the data shards do, and gives other
+    outputs."""
+    ref, ranks = sides
+    m = np.load(ref / "moe.npz")
+    for rank, r in enumerate(ranks):
+        i = rank // 4  # the data coordinate: rows [2i, 2i + 2)
+        for tag, want in (("prefill", m[f"y_mesh_{cf}"]), ("decode", m[f"y_mesh_decode_{cf}"])):
+            got = r[f"moe_rows_{tag}_{cf}"]
+            assert got.shape == want[2 * i:2 * i + 2].shape
+            err = np.abs(got - want[2 * i:2 * i + 2]).max()
+            assert err < MOE_TOL, (cf, tag, rank, err)
+    t = MOE_SHAPE[0] * MOE_SHAPE[1] // 2
+    per_shard = sum(t * 2 - int((np.concatenate([m[f"src_tok_{cf}_{i}_{j}"].ravel()
+                                                 for j in range(4)]) < t).sum())
+                    for i in range(2))
+    one, decode = int(m[f"dropped_one_{cf}"]), int(m[f"dropped_decode_{cf}"])
+    print(f"capacity factor {cf}: pairs dropped by the data shards {per_shard}, by one program "
+          f"over the prefill's tokens {one}, by the decode step's one program {decode}")
+    if cf == MOE_CAPACITY[0]:
+        assert per_shard == one == decode == 0
+    else:
+        assert per_shard > 0 and decode > 0 and one != per_shard
+        assert np.abs(m[f"y_local_{cf}"] - m[f"y_mesh_{cf}"]).max() > MOE_TOL
 
 
 def test_tree_serve_step_is_bit_identical_and_runs_no_collective(sides):
@@ -525,11 +623,19 @@ def test_gated_norm_split_over_model_matches_one_process(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def tp_serve(tmp_path_factory):
-    """The logits of ``tp_serve_rank`` on 4 gloo ranks."""
+def tp_serve_ranks(tmp_path_factory):
+    """(rank 0's logits of ``tp_serve_rank`` on 4 gloo ranks, every rank's
+    ``DTensor`` rows and flops)."""
     out = tmp_path_factory.mktemp("tp_serve")
     run_ranks(tp_serve_rank, 4, str(out))
-    return dict(np.load(out / "tp_serve.npz"))
+    return dict(np.load(out / "tp_serve.npz")), \
+        [dict(np.load(out / f"tp_serve_{r}.npz")) for r in range(4)]
+
+
+@pytest.fixture(scope="module")
+def tp_serve(tp_serve_ranks):
+    """The logits of ``tp_serve_rank`` on 4 gloo ranks."""
+    return tp_serve_ranks[0]
 
 
 @pytest.mark.parametrize("cache", ["plain_cache", "block_cache"])
@@ -546,6 +652,119 @@ def test_tensor_parallel_serving_matches_whole_weights(name, cache, tp_serve):
         assert got.shape == want.shape and np.isfinite(got).all()
         err = np.abs(got - want).max() / np.abs(want).max()
         assert err < TP_SERVE_TOL, (name, cache, i, err)
+
+
+# the rows of the batch each rank of the (data 2, model 2) mesh serves
+ROWS_4 = {0: slice(0, 2), 1: slice(2, 4)}
+
+
+@pytest.mark.parametrize("name", [k for k, v in TP_SERVE_CASES.items() if v[2] == 4])
+def test_serving_on_dtensor_rows_matches_whole_weights(name, tp_serve_ranks):
+    """Fault E, the rows' half: ``prefill`` and ``decode_step`` fed the batch
+    as ``DTensor``s over the batch axes give each rank its own 2 rows of the
+    logits (a ``DTensor``), within ``TP_SERVE_TOL`` of those rows of whole
+    weights without a mesh; the two ``model`` ranks of a data shard agree
+    bit for bit."""
+    single, ranks = tp_serve_ranks
+    for i in range(TP_SERVE["steps"] + 1):
+        want = single[f"{name}_single_{i}"]
+        for r in ranks:
+            got = r[f"{name}_dtensor_{i}"]
+            rows = want[ROWS_4[int(r["coords"][0])]]
+            assert got.shape == rows.shape and np.isfinite(got).all()
+            err = np.abs(got - rows).max() / np.abs(want).max()
+            assert err < TP_SERVE_TOL, (name, i, r["coords"], err)
+        for a, b in ((0, 1), (2, 3)):
+            np.testing.assert_array_equal(ranks[a][f"{name}_dtensor_{i}"],
+                                          ranks[b][f"{name}_dtensor_{i}"])
+
+
+# the ceiling on the 4 ranks' contraction flops over one process's
+# whole-batch call (prefill and the decode steps): each rank computes its
+# rows and its share of every split layer; what repeats is the replicated
+# router and the SSM's B and C columns and (Q x Q) scores.  With every rank
+# on the whole batch it was about the data extent (2) times one process's.
+TP_SERVE_FLOPS_RATIO = 1.10
+
+
+@pytest.mark.parametrize("cache", ["plain_cache", "block_cache"])
+@pytest.mark.parametrize("name", [k for k, v in TP_SERVE_CASES.items() if v[2] == 4])
+def test_serving_on_rows_does_not_repeat_the_batch(name, cache, tp_serve_ranks):
+    """Fault E, the cost's half: the mesh's ranks together compute the
+    contractions of one process's whole-batch call, not the ``data``
+    extent times them."""
+    single, ranks = tp_serve_ranks
+    ratio = sum(r[f"{name}_{cache}_flops"] for r in ranks) / single[f"{name}_single_flops"]
+    print(f"{name} {cache}: the ranks' flops {ratio:.4f} times one process's "
+          f"(limit {TP_SERVE_FLOPS_RATIO})")
+    assert ratio <= TP_SERVE_FLOPS_RATIO, (name, cache, ratio)
+
+
+# each rank's logits on its rows against the reference's serving program
+# jitted on its (data 2, model 2) mesh: set before any reading at 0.08, the
+# tolerance the LM smoke tests hold the port's logits to against the
+# reference's on one device (``tests/test_torch_lm_*.py``)
+REF_SERVE_TOL = 0.08
+# the rows not held to the reference's mesh program, by case: (call, row)
+# pairs, the prefill call 0.  On them the reference's mesh program sits far
+# from its own one-device program run with the same drops (below): on the
+# dropless smoke olmoe 0.335 (prefill) and 0.200 (decode) on row 1, at a
+# capacity factor of 1 1.137 and 1.647 (prefill, rows 1 and 3) and 0.326
+# (decode, row 1), where every other row reads at most 0.052 (``PERF.md``
+# section 6).  The mesh program rounds the ``model`` ranks' partial sums to
+# bf16 where the one-device program and the port keep float32, and an
+# expert flips on those rows
+REF_SERVE_OFF_MESH_ROWS = {"moe_experts_split": {(0, 1), (1, 1)},
+                           "moe_drops": {(0, 1), (0, 3), (1, 1)}}
+
+
+@pytest.fixture(scope="module")
+def ref_serve(sides, tmp_path_factory):
+    """(the reference's directory, each rank's ``ref_serve_rank`` rows)."""
+    ref, _ = sides
+    out = tmp_path_factory.mktemp("ref_serve")
+    run_ranks(ref_serve_rank, 4, str(ref), str(out))
+    return ref, [dict(np.load(out / f"ref_serve_{r}.npz")) for r in range(4)]
+
+
+@pytest.mark.parametrize("name", list(REF_SERVE_CASES))
+def test_serving_on_rows_matches_the_reference_mesh(name, ref_serve):
+    """Each rank's rows of the prefill's and one decode step's logits
+    against the reference's program jitted on its mesh, within
+    ``REF_SERVE_TOL``, row by row, but for the rows that
+    ``REF_SERVE_OFF_MESH_ROWS`` names.  Every row of an MoE model is also
+    held, within the same tolerance, to the reference's one-device program
+    run with the mesh program's drops: the prefill on each data shard's
+    rows alone (capacity and slots per shard, as its expert parallelism),
+    the decode step over the whole batch (as its one program).  In
+    ``moe_drops`` both sides drop pairs, and the one-device program over
+    the whole batch drops others: it sits more than the tolerance from the
+    shard-dropping one.  Every reading is printed."""
+    ref, ranks = ref_serve
+    d = np.load(ref / f"serve_{name}.npz")
+    off_mesh = REF_SERVE_OFF_MESH_ROWS.get(name, set())
+    for i in range(2):
+        want = d[f"logits_{i}"]
+        shards = d[f"shards_{i}"] if f"shards_{i}" in d.files else None
+        for r in ranks:
+            got = r[f"{name}_{i}"]
+            rows = ROWS_4[int(r["coords"][0])]
+            assert got.shape == want[rows].shape and np.isfinite(got).all()
+            for j, row in enumerate(range(rows.start, rows.stop)):
+                errs = {} if (i, row) in off_mesh else {"mesh": want[row]}
+                if shards is not None:
+                    errs["shard-dropping one-device"] = shards[row]
+                errs = {what: float(np.abs(got[j] - w).max()) for what, w in errs.items()}
+                apart = ("" if shards is None else
+                         f"; its mesh program {np.abs(want[row] - shards[row]).max():.3e} from "
+                         f"its shard-dropping one-device program")
+                print(f"{name} call {i} rank {r['coords'].tolist()} row {row}: from the "
+                      f"reference's programs {errs} (limit {REF_SERVE_TOL}){apart}")
+                for what, err in errs.items():
+                    assert err < REF_SERVE_TOL, (name, i, row, what, err)
+    if name == "moe_drops":
+        assert max(np.abs(d[f"single_{i}"] - d[f"shards_{i}"]).max() for i in range(2)) \
+            > REF_SERVE_TOL
 
 
 def test_checkpoint_restores_onto_another_mesh(sides):

@@ -143,7 +143,8 @@ def mesh_cases(data_dir: str, mesh, device: str) -> dict:
     from repro_torch.core.serving import tree_serve_step
     from repro_torch.models.layers import _attn_core
     from repro_torch.models.moe import ep_dispatch, moe_block, route
-    from repro_torch.sharding.ops import P, constrain, from_local, gather, local_block, use_mesh
+    from repro_torch.sharding.ops import (P, constrain, from_local, gather, local_block, use_mesh,
+                                          use_rows, use_tp)
 
     d = Path(data_dir)
     bf16 = lambda a: torch.from_numpy(a).to(device, torch.bfloat16)
@@ -190,6 +191,17 @@ def mesh_cases(data_dir: str, mesh, device: str) -> dict:
                                      capacity)
             out[f"moe_ids_{cf}"] = ids.cpu().numpy()
             out[f"moe_src_tok_{cf}"] = src_tok.cpu().numpy()
+            # serving on each rank's rows: the block on this rank's data
+            # shard of the tokens, its experts its ``model`` block, for the
+            # prefill's tokens and a decode step's (one a row)
+            experts = {k: v if k == "w_router" else local_block(v, mesh, P("model"))
+                       for k, v in mp_.items()}
+            for tag, xs in (("prefill", x), ("decode", x[:, :1])):
+                with use_mesh(None), use_tp(mesh), use_rows(mesh, ("data",)):
+                    y, _ = moe_block(experts, local_block(xs, mesh, P("data")),
+                                     n_experts=cfg.n_experts, k=cfg.experts_per_token,
+                                     act=cfg.act, capacity_factor=cf)
+                out[f"moe_rows_{tag}_{cf}"] = y.float().cpu().numpy()
 
         t = np.load(d / "trees.npz")
         tables = {k: t[k] for k in ("feature", "threshold_key", "left", "right", "leaf_fixed")}
@@ -493,54 +505,112 @@ def tp_control_rank(rank, n, out_dir, arch, vocab=TP_CONTROL["vocab"]):
 
 
 # serving with the parameters as blocks on a (data 2, model 2) mesh: name ->
-# (architecture, kv heads (None: the smoke model's), batch, shard the cache's
-# positions over data).  The smoke granite's 2 kv heads split over model
-# (the cache's rows over data), or at batch 1 its positions over data (a
-# flash decode over data); with 1 kv head its positions split over model.
-# The smoke mamba2's and zamba2's 4 SSM heads split over model (a block
-# cache holds its rank's rows and heads of the state, its rows and a
-# contiguous share of the conv history's channels)
-TP_SERVE_CASES = {"heads_split": ("granite-3-2b", None, 4, False),
-                  "positions_over_data": ("granite-3-2b", None, 1, True),
-                  "positions_over_model": ("granite-3-2b", 1, 4, False),
-                  "ssm_heads_split": ("mamba2-370m", None, 4, False),
-                  "hybrid_heads_split": ("zamba2-2.7b", None, 4, False)}
+# (architecture, its smoke config's overrides, batch, shard the cache's
+# positions over data).  At batch 4 each rank serves its 2 rows (the batch
+# over data), the layers split over model: the smoke granite's 2 kv heads
+# split over model, or with 1 kv head its positions split over model; the
+# smoke olmoe's experts split over model; the smoke mamba2's and zamba2's 4
+# SSM heads split over model (a block cache holds its rank's rows and heads
+# of the state, its rows and a contiguous share of the conv history's
+# channels); the smoke llava's heads split, its patches cut to the rank's
+# rows.  At batch 1 (positions_over_data) the rows stay whole on every rank
+# and the cache's positions split over data (a flash decode over data).
+TP_SERVE_CASES = {"heads_split": ("granite-3-2b", {}, 4, False),
+                  "positions_over_data": ("granite-3-2b", {}, 1, True),
+                  "positions_over_model": ("granite-3-2b", {"n_kv_heads": 1}, 4, False),
+                  "ssm_heads_split": ("mamba2-370m", {}, 4, False),
+                  "hybrid_heads_split": ("zamba2-2.7b", {}, 4, False),
+                  "moe_experts_split": ("olmoe-1b-7b", {}, 4, False),
+                  "vlm_heads_split": ("llava-next-34b", {}, 4, False)}
 TP_SERVE = dict(shape=(2, 2), prompt=16, max_seq=32, steps=2)
+# serving on each rank's rows against the reference's program jitted on its
+# (data 2, model 2) mesh: the batch-4 cases above, and the smoke olmoe at a
+# capacity factor of 1, where both programs drop pairs (per data shard at
+# the prefill, over the whole batch at the decode step), so its rows leave
+# whole weights and are held to the reference's mesh program only
+REF_SERVE_CASES = {**{k: v for k, v in TP_SERVE_CASES.items() if v[2] == 4},
+                   "moe_drops": ("olmoe-1b-7b", {"moe_capacity_factor": 1.0}, 4, False)}
+
+
+def serve_config(arch: str, overrides: dict):
+    """``arch``'s smoke model with ``overrides``."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    return dataclasses.replace(smoke_config(arch), **overrides)
+
+
+def serve_max_seq(cfg) -> int:
+    """The cache's positions: ``TP_SERVE["max_seq"]``, after a vision
+    model's patches."""
+    return TP_SERVE["max_seq"] + (cfg.vision_patches if cfg.family == "vlm" else 0)
+
+
+def serve_inputs(cfg, b: int, seed: int = 1):
+    """(the prompt's batch, the decode steps' tokens) as numpy, from a
+    seeded generator: ``TP_SERVE["prompt"]`` tokens a row, and a vision
+    model's patches."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, TP_SERVE["prompt"])).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(size=(b, cfg.vision_patches, cfg.frontend_dim)
+                                      ).astype(np.float32)
+    steps = [rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+             for _ in range(TP_SERVE["steps"])]
+    return batch, steps
+
+
+def serve_run(cfg, params, batch: dict, steps: list, place=lambda cache: cache) -> list:
+    """The prefill's and each decode step's logits, the cache placed by
+    ``place`` after the prefill; each as this rank's rows where the logits
+    come back as a ``DTensor`` (float32 numpy)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import transformer as tfm
+
+    local = lambda t: (t.to_local() if isinstance(t, DTensor) else t).float().numpy()
+    logits, cache = tfm.prefill(cfg, params, batch, max_seq=serve_max_seq(cfg))
+    got = [local(logits)]
+    cache = place(cache)
+    for t in steps:
+        got.append(local(tfm.decode_step(cfg, params, cache, t)[0]))
+    return got
+
+
+def _placed_inputs(batch: dict, steps: list, mesh):
+    """The batch and the decode tokens as ``DTensor``s, each placed over
+    the batch axes by ``rules.batch_shardings``."""
+    from repro_torch.sharding import rules
+
+    place = lambda tree: rules.place(tree, rules.batch_shardings(mesh, tree))
+    return place(batch), [place({"t": t})["t"] for t in steps]
 
 
 def tp_serve_rank(rank, n, out_dir):
     """For each ``TP_SERVE_CASES`` model: ``prefill`` and ``TP_SERVE["steps"]``
-    ``decode_step``s with the parameters as blocks under the mesh, decoding
-    over the prefill's plain cache and over the same cache placed by
-    ``rules.cache_shardings`` as blocks; rank 0 also runs them with whole
-    parameters and no mesh.  Rank 0 saves every last-token logits as
-    ``tp_serve.npz``."""
-    import dataclasses
+    ``decode_step``s with the parameters as blocks under the mesh, on plain
+    whole inputs, decoding over the prefill's cache and over that cache
+    placed again by ``rules.cache_shardings`` as blocks, then on inputs
+    placed as ``DTensor``s over the batch axes (each rank's rows come back);
+    rank 0 also runs them with whole parameters and no mesh.  Every run's
+    contraction flops are counted.  Rank 0 saves every last-token logits
+    of the plain inputs as ``tp_serve.npz``; each rank saves its rows of
+    the ``DTensor`` run and its flops as ``tp_serve_<r>.npz``."""
+    from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.configs import smoke_config
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.models import transformer as tfm
     from repro_torch.sharding import ops, rules
 
     mesh = compat_make_mesh(TP_SERVE["shape"], ("data", "model"), device="cpu")
-    out = {}
-    for name, (arch, kv, b, shard_seq) in TP_SERVE_CASES.items():
-        cfg = smoke_config(arch)
-        if kv is not None:
-            cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+    out, mine = {}, {}
+    for name, (arch, overrides, b, shard_seq) in TP_SERVE_CASES.items():
+        cfg = serve_config(arch, overrides)
         params = tfm.init_params(cfg, 0, device="cpu")
-        rng = np.random.default_rng(1)
-        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, TP_SERVE["prompt"])))
-        steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
-                 for _ in range(TP_SERVE["steps"])]
-
-        def run(p, place):
-            logits, cache = tfm.prefill(cfg, p, {"tokens": prompt}, max_seq=TP_SERVE["max_seq"])
-            got = [logits]
-            cache = place(cache)
-            for t in steps:
-                got.append(tfm.decode_step(cfg, p, cache, t)[0])
-            return [g.float().numpy() for g in got]
+        batch, steps = serve_inputs(cfg, b)
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        steps = [torch.from_numpy(t) for t in steps]
 
         def as_blocks(cache):
             pos = cache.pop("pos")
@@ -551,14 +621,53 @@ def tp_serve_rank(rank, n, out_dir):
         blocks = ops.blocks(rules.place(params, sh), sh)
         with torch.no_grad(), ops.use_mesh(mesh):
             for tag, place in (("plain_cache", lambda c: c), ("block_cache", as_blocks)):
-                for i, g in enumerate(run(blocks, place)):
+                with FlopCounterMode(display=False) as flops:
+                    got = serve_run(cfg, blocks, batch, steps, place)
+                for i, g in enumerate(got):
                     out[f"{name}_{tag}_{i}"] = g
+                mine[f"{name}_{tag}_flops"] = float(flops.get_total_flops())
+            for i, g in enumerate(serve_run(cfg, blocks, *_placed_inputs(batch, steps, mesh))):
+                mine[f"{name}_dtensor_{i}"] = g
         if rank == 0:
-            with torch.no_grad():
-                for i, g in enumerate(run(params, lambda c: c)):
-                    out[f"{name}_single_{i}"] = g
+            with torch.no_grad(), FlopCounterMode(display=False) as flops:
+                got = serve_run(cfg, params, batch, steps)
+            for i, g in enumerate(got):
+                out[f"{name}_single_{i}"] = g
+            out[f"{name}_single_flops"] = float(flops.get_total_flops())
+    mine["coords"] = np.array([mesh.axis_index(a) for a in mesh.axis_names])
+    np.savez(os.path.join(out_dir, f"tp_serve_{rank}.npz"), **mine)
     if rank == 0:
         np.savez(os.path.join(out_dir, "tp_serve.npz"), **out)
+
+
+def ref_serve_rank(rank, n, data_dir, out_dir):
+    """Each ``REF_SERVE_CASES`` model on the weights, prompt and decode
+    tokens the reference wrote to ``serve_<name>.npz`` (its parameters drawn
+    by its ``init_params``): ``prefill`` and one ``decode_step`` with the
+    parameters as blocks of the (data 2, model 2) mesh and the inputs as
+    ``DTensor``s placed over the batch axes by ``rules.batch_pspec``; each
+    rank saves its rows of both logits as ``ref_serve_<r>.npz``."""
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import ops, rules
+
+    mesh = compat_make_mesh(TP_SERVE["shape"], ("data", "model"), device="cpu")
+    out = {}
+    for name, (arch, overrides, b, _) in REF_SERVE_CASES.items():
+        cfg = serve_config(arch, overrides)
+        d = np.load(Path(data_dir) / f"serve_{name}.npz")
+        params = tfm.params_from_numpy(
+            cfg, _unflatten({k[2:]: d[k] for k in d.files if k.startswith("p:")}), device="cpu")
+        batch = {k: torch.from_numpy(d[k]) for k in ("tokens", "patches") if k in d.files}
+        sh = rules.params_shardings(params, mesh)
+        blocks = ops.blocks(rules.place(params, sh), sh)
+        with torch.no_grad(), ops.use_mesh(mesh):
+            got = serve_run(cfg, blocks, *_placed_inputs(batch, [torch.from_numpy(d["step"])],
+                                                          mesh))
+        for i, g in enumerate(got):
+            out[f"{name}_{i}"] = g
+    out["coords"] = np.array([mesh.axis_index(a) for a in mesh.axis_names])
+    np.savez(os.path.join(out_dir, f"ref_serve_{rank}.npz"), **out)
 
 
 # serving against the split control on a (data 1, model 2) mesh: the smoke
