@@ -183,19 +183,23 @@ with one CUDA card.  It
      ``model`` and over the batch axes, and its step time are printed; then
      (14d) mamba2-370m at full width and depth (48 layers, d_model 1,024,
      32 SSM heads of 64, state 128, vocabulary 50,280) takes the same step
-     the same three ways, each rank computing its SSM heads (its columns of
-     the whole in-projection and conv, the gated norm's sum of squares
-     summed over ``model``, the out-projection row-parallel) and its half of
-     the vocabulary, held bit for bit to the split control (which splits
-     the SSM and the vocabulary as the ranks do) and within 0.11 of the
-     plain step (beside the plain step's own spread in 2-row
-     microbatches), with one reduce-scatter over ``model`` a layer a
-     microbatch for each of the in-projection's and conv's gradients; then
+     the same three ways, each rank computing its SSM heads and its half of
+     B and C (its pieces of the in-projection and conv, exchanged from the
+     ranks' blocks; B and C gathered after the conv; the gated norm's sum
+     of squares summed over ``model``, the out-projection row-parallel) and
+     its half of the vocabulary, held bit for bit to the split control
+     (which splits the SSM and the vocabulary as the ranks do) and within
+     0.11 of the plain step (beside the plain step's own spread in 2-row
+     microbatches), with each layer's collectives over ``model`` a
+     microbatch counted (the pieces' all-to-alls, the B and C gathers and
+     their gradients' reduce-scatter; no parameter gathered whole), each
+     rank's in-projection columns and the bytes a layer printed; then
      its prefill of 4 x 32 tokens and 8 decode steps at full depth, with
      the parameters and the cache as blocks under the same mesh: every
      logits the split control's bits and within 0.33 of whole weights
      without a mesh, and the prefill and 2 decode steps in float32 within
-     1e-3 of whole weights in float32; then (14e) granite-3-2b at full width
+     1e-3 of whole weights in float32, the bytes a layer of the prefill and
+     of a decode step printed; then (14e) granite-3-2b at full width
      and depth, its matmul weights in bf16, as blocks of (data 2, model 1)
      in the same processes, serves 4 rows of 32 tokens and 8 greedy decode
      steps on each rank's rows (its 2 rows of every layer and of the cache;
@@ -3169,8 +3173,10 @@ def split_control(n: int):
     once; attention on each share's heads; the SSM on each share's heads,
     each share's parameters taken here by head (each head's channels of z
     and x in ``w_in``, ``conv_w`` and ``norm_gamma``, its dt column and its
-    leaves; B's and C's columns and conv rows on every share) and its conv
-    history's channels and state alike, the gated norm's float32 sums of
+    leaves) and its r-th ``state / n`` columns and conv rows of B and of C,
+    its conv history's channels and state alike, B and C joined from the
+    shares after the conv (their gradients the shares' float32 gradients
+    summed in rank order, rounded once), the gated norm's float32 sums of
     squares summed in rank order; every row-parallel one (``wo``/
     ``w_down``/the SSM's ``w_out``) as the float32 partials of the shares
     summed and rounded once.  A parameter the shares read in parts
@@ -3262,22 +3268,52 @@ def split_control(n: int):
 
     def ssm_share(params, r, d_inner, h, state):
         # share r's heads: each head's channels of z and x (w_in's columns,
-        # conv_w's rows, norm_gamma), its dt column and its leaves; B's and
-        # C's columns and conv rows on every share
-        z, xw, bc, dt = params["w_in"].split([d_inner, d_inner, 2 * state, h], 1)
-        conv_x, conv_bc = params["conv_w"].split([d_inner, 2 * state], 0)
-        share = {"w_in": torch.cat([heads(z, 1, r, h), heads(xw, 1, r, h), bc,
-                                    heads(dt, 1, r, h)], 1),
-                 "conv_w": torch.cat([heads(conv_x, 0, r, h), conv_bc], 0),
+        # conv_w's rows, norm_gamma), its dt column and its leaves; and the
+        # r-th state / n of B's and of C's columns and conv rows
+        sl = state // n
+        z, xw, b, c, dt = params["w_in"].split([d_inner, d_inner, state, state, h], 1)
+        conv_x, conv_b, conv_c = params["conv_w"].split([d_inner, state, state], 0)
+        share = {"w_in": torch.cat([heads(z, 1, r, h), heads(xw, 1, r, h), b.narrow(1, r * sl, sl),
+                                    c.narrow(1, r * sl, sl), heads(dt, 1, r, h)], 1),
+                 "conv_w": torch.cat([heads(conv_x, 0, r, h), conv_b.narrow(0, r * sl, sl),
+                                      conv_c.narrow(0, r * sl, sl)], 0),
                  "norm_gamma": heads(params["norm_gamma"], 0, r, h)}
         share.update({k: heads(params[k], 0, r, h) for k in ("a_log", "dt_bias", "d_skip")})
         return share
 
     def ssm_shares(params, d_model, expand, state):
         d_inner, h, _ = ssm.ssm_dims(d_model, expand, state)
-        if h % n:
-            raise ValueError("the split control takes an SSM layer whose heads divide")
+        if h % n or state % n:
+            raise ValueError("the split control takes an SSM layer whose heads and state divide")
         return d_inner, h, [ssm_share(params, r, d_inner, h, state) for r in range(n)]
+
+    class Joined(torch.autograd.Function):
+        """The shares' [B_r | C_r] channels after the conv, joined in rank
+        order along the last dimension: one copy a share, each share's
+        gradient its own; backward their float32 sum in rank order,
+        rounded once, cut back into the shares' channels."""
+
+        @staticmethod
+        def forward(ctx, *bcs):
+            ctx.width = bcs[0].shape[-1]
+            joined = torch.cat(bcs, -1)
+            return tuple(joined.clone() for _ in bcs)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            total = sum(g.float() for g in gs).to(gs[0].dtype)
+            return tuple(total.split(ctx.width, -1))
+
+    def b_and_c(joined, state):
+        # B and C whole from the joined [B_0 | C_0 | B_1 | C_1 | ...]
+        parts = joined.unflatten(-1, (n, 2, state // n))
+        return parts[..., 0, :].flatten(-2), parts[..., 1, :].flatten(-2)
+
+    def history(ins, cl, sl):
+        # the whole conv history's channels: every share's x, then its B,
+        # then its C
+        return torch.cat([t[..., a:a + w] for a, w in ((0, cl), (cl, sl), (cl + sl, sl))
+                          for t in ins], -1)
 
     def normed(gs, shares, d_inner, dtype):
         # the gated norm: each share's channels over the root mean square of
@@ -3292,12 +3328,16 @@ def split_control(n: int):
         s_real = x.shape[1]
         if s_real % chunk:
             x = F.pad(x, (0, 0, 0, (-s_real) % chunk))
+        sl = state // n
         projs = Columns.apply(x, *(sh["w_in"].to(x.dtype) for sh in shares))
-        gs, finals, ins = [], [], []
-        for sh, proj in zip(shares, projs):
-            z, xs, b, c, dt = proj.split([cl, cl, state, state, hl], -1)
-            ins.append(torch.cat([xs, b, c], -1))
-            xs, b, c = ssm._causal_conv(ins[-1], sh["conv_w"]).split([cl, state, state], -1)
+        split = [proj.split([cl, cl + 2 * sl, hl], -1) for proj in projs]
+        ins = [conv_in for _, conv_in, _ in split]
+        convs = [ssm._causal_conv(t, sh["conv_w"]).split([cl, 2 * sl], -1)
+                 for t, sh in zip(ins, shares)]
+        joined = Joined.apply(*(bc for _, bc in convs))
+        gs, finals = [], []
+        for sh, (z, _, dt), (xs, _), whole in zip(shares, split, convs, joined):
+            b, c = b_and_c(whole, state)
             y, s_run = ssm._ssd_scan(sh, xs, b, c, dt, chunk=chunk, s_real=s_real)
             gs.append(y.float() * layers.silu(z).float())
             finals.append(s_run)
@@ -3305,30 +3345,35 @@ def split_control(n: int):
         out = Rows.apply(params["w_out"].to(x.dtype), *ys).to(x.dtype)[:, :s_real]
         if not return_final_state:
             return out
-        # the whole conv history: every share's x channels, then B and C
-        conv = torch.cat([t[..., :cl] for t in ins] + [ins[0][..., cl:]], -1)
-        return out, {"conv": conv[:, s_real - (ssm.CONV_K - 1):s_real],
-                     "ssm": torch.cat(finals, 1)}
+        conv = history([t[:, s_real - (ssm.CONV_K - 1):s_real] for t in ins], cl, sl)
+        return out, {"conv": conv, "ssm": torch.cat(finals, 1)}
 
     def ssd_decode_step(params, x, cache, *, d_model, expand, state):
         d_inner, h, shares = ssm_shares(params, d_model, expand, state)
         cl, hl = d_inner // n, h // n
+        sl = state // n
         projs = Columns.apply(x[:, 0], *(sh["w_in"].to(x.dtype) for sh in shares))
         old = cache["conv"]
-        old_x, old_bc = old.split([d_inner, 2 * state], -1)
-        gs, states, ins = [], [], []
-        for r, (sh, proj) in enumerate(zip(shares, projs)):
-            z, xs, b, c, dt = proj.split([cl, cl, state, state, hl], -1)
-            ins.append(torch.cat([xs, b, c], -1))
-            hist = torch.cat([torch.cat([heads(old_x, 2, r, h), old_bc], -1), ins[-1][:, None]], 1)
+        old_x, old_b, old_c = old.split([d_inner, state, state], -1)
+        split = [proj.split([cl, cl + 2 * sl, hl], -1) for proj in projs]
+        ins = [conv_in for _, conv_in, _ in split]
+        convs = []
+        for r, (sh, t) in enumerate(zip(shares, ins)):
+            mine = torch.cat([heads(old_x, 2, r, h), old_b.narrow(2, r * sl, sl),
+                              old_c.narrow(2, r * sl, sl)], -1)
+            hist = torch.cat([mine, t[:, None]], 1)
             conv = layers.silu(torch.einsum("bkc,ck->bc", hist, sh["conv_w"].to(x.dtype)))
-            xs, b, c = conv.split([cl, state, state], -1)
+            convs.append(conv.split([cl, 2 * sl], -1))
+        joined = Joined.apply(*(bc for _, bc in convs))
+        gs, states = [], []
+        for r, (sh, (z, _, dt), (xs, _), whole) in enumerate(zip(shares, split, convs, joined)):
+            b, c = b_and_c(whole, state)
             y, s_new = ssm._ssd_decode_heads(sh, xs, b, c, dt, heads(cache["ssm"], 1, r, h))
             gs.append(y.float() * layers.silu(z).float())
             states.append(s_new)
         ys = normed(gs, shares, d_inner, x.dtype)
         out = Rows.apply(params["w_out"].to(x.dtype), *ys).to(x.dtype)
-        new_in = torch.cat([t[:, :cl] for t in ins] + [ins[0][:, cl:]], -1)
+        new_in = history(ins, cl, sl)
         return out[:, None], {"conv": torch.cat([old, new_in[:, None]], 1)[:, 1:],
                               "ssm": torch.cat(states, 1)}
 
@@ -3446,7 +3491,7 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.models import transformer as tfm
     from repro_torch.sharding import rules
-    from repro_torch.sharding.ops import STAGED, gather, use_mesh
+    from repro_torch.sharding.ops import STAGED, STAGED_BYTES, gather, use_mesh
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step
     from repro_torch.train.tree import flatten_with_paths, path_key, tree_leaves
@@ -3498,6 +3543,7 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
         held = sum(t.to_local().numel() * 4 for tree in (params, ostate["m"], ostate["v"])
                    for t in tree_leaves(tree))
         STAGED.clear()
+        STAGED_BYTES.clear()
         torch.cuda.reset_peak_memory_stats(dev)
         dist.barrier()
         torch.cuda.synchronize()
@@ -3511,7 +3557,8 @@ def fsdp_rank(rank: str, world: str, store: str, seed: str, device: str = "cuda"
                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
                    held_gib=held / 2**30,
                    staged_model={k: v for k, v in STAGED.items() if k.startswith("model_")},
-                   staged_batch={k: v for k, v in STAGED.items() if not k.startswith("model_")})
+                   staged_batch={k: v for k, v in STAGED.items() if not k.startswith("model_")},
+                   staged_bytes=sum(STAGED_BYTES.values()))
         t0 = time.perf_counter()
         gaps = {name: {} for name in wants}
         with torch.no_grad():
@@ -3640,15 +3687,19 @@ def ssm_serving(cfg, rank: int, world: int, seed: int, dev, out_dir: Path) -> di
              for _ in range(SSM_SERVE_STEPS)]
 
     def run(p, place, n_steps=SSM_SERVE_STEPS):
-        t0 = time.perf_counter()
+        # the staged collectives' bytes (all over ``model``: data is 1) of
+        # the prefill and of a decode step
+        t0, b0 = time.perf_counter(), sum(ops.STAGED_BYTES.values())
         logits, cache = tfm.prefill(cfg, p, {"tokens": prompt}, max_seq=s + len(steps))
         got = [logits.float().cpu()]
-        t1 = time.perf_counter()
+        t1, b1 = time.perf_counter(), sum(ops.STAGED_BYTES.values())
         cache = place(cache)
+        b2 = sum(ops.STAGED_BYTES.values())
         for t in steps[:n_steps]:
             got.append(tfm.decode_step(cfg, p, cache, t)[0].float().cpu())
-        t2 = time.perf_counter()
-        return got, dict(prefill_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3 / n_steps)
+        t2, b3 = time.perf_counter(), sum(ops.STAGED_BYTES.values())
+        return got, dict(prefill_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3 / n_steps,
+                         prefill_bytes=b1 - b0, decode_bytes=(b3 - b2) / n_steps)
 
     def as_blocks(cache):
         pos = cache.pop("pos")
@@ -3958,15 +4009,19 @@ def fsdp_phase(seed: int, card: str) -> dict:
 def ssm_tp_check(ranks: list, card: str) -> dict:
     """Step 14d's gates: the tensor-parallel mamba2-370m step bit for bit
     against the split control (loss, norm, every leaf) and within
-    SSM_TP_PLAIN_TOL of the plain step; one reduce-scatter over ``model`` a
-    microbatch for each of a layer's ``w_in`` and ``conv_w`` (their
-    gradients summed over the ranks), and no parameter gathered but those
-    two; the serving logits the split control's bits, within SSM_SERVE_TOL
-    of whole weights, and in float32 within SSM_SERVE_F32_TOL of whole
-    weights in float32."""
+    SSM_TP_PLAIN_TOL of the plain step; a layer's collectives over
+    ``model`` a microbatch as its split asks (``w_in``'s and ``conv_w``'s
+    pieces exchanged forward, in the recompute and for their gradients; B
+    and C gathered forward and in the recompute, their gradients summed
+    once), and no parameter gathered whole; the serving logits the split
+    control's bits, within SSM_SERVE_TOL of whole weights, and in float32
+    within SSM_SERVE_F32_TOL of whole weights in float32.  Prints each
+    rank's in-projection columns and the bytes its collectives brought back
+    a layer."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.models import ssm
 
     cfg = get_config(SSM_ARCH)
     tp, single, control, rows2 = ([r["ssm_tp"] for r in ranks], ranks[0]["ssm_single"],
@@ -3981,13 +4036,18 @@ def ssm_tp_check(ranks: list, card: str) -> dict:
         fail(f"14d: the tensor-parallel step is {tp[0]['plain']} from the plain one-process "
              f"step's updates (limit {SSM_TP_PLAIN_TOL}), losses "
              f"{[r['loss'] for r in tp]} against {single['loss']}")
-    gathers = 2 * 2 * cfg.n_layers * TRAIN_BATCH  # w_in, conv_w; forward and recompute
-    sums = 2 * cfg.n_layers * TRAIN_BATCH  # their gradients, once a microbatch
-    if any(r["staged_model"].get("model_reduce_scatter", 0) != sums
-           or r["staged_batch"].get("all_gather", 0) > gathers
-           or r["staged_batch"].get("reduce_scatter", 0) for r in tp):
+    per = cfg.n_layers * TRAIN_BATCH  # a layer a microbatch
+    want = {"model_all_to_all": 2 * 3 * per, "model_all_gather": 2 * per,
+            "model_reduce_scatter": per}
+    if any(any(r["staged_model"].get(k, 0) != v for k, v in want.items())
+           or r["staged_batch"].get("all_gather", 0) or r["staged_batch"].get("reduce_scatter", 0)
+           for r in tp):
         fail(f"14d: collectives staged {[(r['staged_model'], r['staged_batch']) for r in tp]}; "
-             f"want {sums} model_reduce_scatter and at most {gathers} all_gather a rank")
+             f"want {want} a rank and no all_gather or reduce_scatter of a parameter")
+    dims = dict(d_model=cfg.d_model, expand=cfg.ssm_expand, state=cfg.ssm_state)
+    widths = [sum(n for _, n in ssm.in_columns(r, FSDP_RANKS, **dims))
+              for r in range(FSDP_RANKS)]
+    d_inner, heads, _ = ssm.ssm_dims(**dims)
     served = np.load(FSDP_DIR / "ssm_serve.npz")
     calls = ["prefill"] + [f"decode step {i}" for i in range(1, SSM_SERVE_STEPS + 1)]
 
@@ -4014,9 +4074,12 @@ def ssm_tp_check(ranks: list, card: str) -> dict:
     print(f"{card} | tp 14d: {SSM_ARCH} at full width and depth ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, 32 SSM heads of 64, state {cfg.ssm_state}, vocabulary "
           f"{cfg.vocab_size}), one step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens as (data 1, model "
-          f"{FSDP_RANKS}) in phase 14's processes, each rank computing its SSM heads (its "
-          f"columns of the whole w_in, B and C alike on both, the gated norm's sum of squares "
-          f"summed over model, w_out row-parallel), {TRAIN_BATCH} microbatches of one row: "
+          f"{FSDP_RANKS}) in phase 14's processes, each rank computing its SSM heads and its "
+          f"share of B and C (w_in columns a rank {widths} of "
+          f"{2 * d_inner + 2 * cfg.ssm_state + heads}, "
+          f"gathered as pieces from the ranks' blocks; B and C gathered over model after the conv; "
+          f"the gated norm's sum of squares summed over model, w_out row-parallel), "
+          f"{TRAIN_BATCH} microbatches of one row: "
           f"the split control's bits (losses {[r['loss'] for r in tp]}, norms "
           f"{[r['grad_norm'] for r in tp]}, every leaf: worst update gap "
           f"{tp[0]['control']['update_gap']}); against the plain one-process step (loss "
@@ -4030,7 +4093,9 @@ def ssm_tp_check(ranks: list, card: str) -> dict:
           f"{single['peak_gib']:.3f} in one process; step {[round(r['step_ms'], 1) for r in tp]} "
           f"ms a rank against {single['step_ms']:.1f} ms in one process and "
           f"{control['step_ms']:.1f} for the control (host clock); collectives staged over "
-          f"model {[r['staged_model'] for r in tp]}, the rest {[r['staged_batch'] for r in tp]}")
+          f"model {[r['staged_model'] for r in tp]} (B and C gathers: model_all_gather), the "
+          f"rest {[r['staged_batch'] for r in tp]}; bytes staged a layer a microbatch "
+          f"{[round(r['staged_bytes'] / per) for r in tp]}")
     print(f"{card} | tp 14d serving: {SSM_ARCH} at full width and depth, prefill of "
           f"{SSM_SERVE_PROMPT[0]} x {SSM_SERVE_PROMPT[1]} tokens and {SSM_SERVE_STEPS} decode "
           f"steps as (data 1, model {FSDP_RANKS}), parameters and cache as blocks: every logits "
@@ -4045,8 +4110,12 @@ def ssm_tp_check(ranks: list, card: str) -> dict:
           f"{serve[0]['single']['prefill_ms']:.1f} and {serve[0]['single']['decode_ms']:.1f} "
           f"without a mesh and {serve[0]['control']['prefill_ms']:.1f} and "
           f"{serve[0]['control']['decode_ms']:.1f} for the control (host clock); collectives "
-          f"staged {[r['staged'] for r in serve]}")
-    return dict(plain_gap=tp[0]["plain"]["update_gap"], rows2_gap=rows2["update_gap"],
+          f"staged {[r['staged'] for r in serve]}, all over model; bytes they brought back a "
+          f"layer: prefill {[round(r['prefill_bytes'] / cfg.n_layers) for r in serve]}, a decode "
+          f"step {[round(r['decode_bytes'] / cfg.n_layers) for r in serve]}")
+    return dict(in_columns=widths, step_bytes_a_layer=[r["staged_bytes"] / per for r in tp],
+                decode_bytes_a_layer=[r["decode_bytes"] / cfg.n_layers for r in serve],
+                plain_gap=tp[0]["plain"]["update_gap"], rows2_gap=rows2["update_gap"],
                 serve_err=max(errs), serve_err_f32=max(errs32), serve_own_bf16=max(own))
 
 

@@ -24,7 +24,8 @@ blocks, the layers split over ``model``, gradients reduce-scattered into
 blocks), so a train cell's useful ratio (model flops over the ranks'
 flops) counts rematerialization and the pieces every ``model`` rank
 computes alike (a vocabulary or head count that does not divide
-``model``, the SSM's B and C columns and its (Q x Q) scores); prefill,
+``model`` and the SSM's (Q x Q) scores, as the reference's program
+repeats them); prefill,
 decode and the tree cells run
 ``tfm.prefill`` (or ``forward_logits`` for an encoder), ``decode_step``
 over a cache placed by ``rules.cache_shardings`` and

@@ -14,11 +14,13 @@ Decode is O(1) per token: conv ring buffer + state update
 
 With ``w_out`` as this rank's ``model`` block (``sharding.ops.use_tp``:
 the sharded train step, and serving on blocks) the layer computes its
-rank's heads only, as the reference's partitioned program does where it
-pins them to ``"tp"``: its columns of the whole in-projection, its heads'
-conv channels beside B and C (computed alike on every rank), the SSD on
-its heads, the gated norm with its sum of squares summed over ``model``,
-and ``w_out`` row-parallel (``_ssd_forward_tp``, ``_ssd_decode_step_tp``).
+rank's share only, as the reference's partitioned program does: its
+heads' z, x and dt columns of the in-projection and ``state / tp`` columns
+each of B and C (so the ranks' columns make the whole in-projection once),
+the conv on those channels alone, B and C then gathered over ``model``
+(their gradients summed and scattered back), the SSD on its heads, the
+gated norm with its sum of squares summed over ``model``, and ``w_out``
+row-parallel (``_ssd_forward_tp``, ``_ssd_decode_step_tp``).
 """
 from __future__ import annotations
 
@@ -173,38 +175,83 @@ def ssd_forward(params, x, *, d_model: int, expand: int, state: int, chunk: int 
 
 
 # ---------------------------------------------------------------------------
-# the split over ``model``: a rank's heads
+# the split over ``model``: a rank's heads, and its share of B and C
 # ---------------------------------------------------------------------------
 #
-# ``w_in``'s packed columns [z | x | B | C | dt] and ``conv_w``'s channels
-# [x | B | C] are cut by their rules into contiguous blocks that do not line
-# up with heads, so the layer gathers both whole (the backward sums the
-# ranks' gradients over ``model``) and takes rank r's columns: its heads'
-# z, x and dt, and the whole of B and C, which every head reads (the
-# reference pins them replicated).  ``w_out``'s rows are the rank's heads'
-# channels: row-parallel on its ``model`` block.
+# Rank r of n computes ``w_in``'s packed columns [z_r | x_r | B_r | C_r |
+# dt_r]: its heads' z, x and dt and the r-th ``state / n`` of B and of C
+# (``in_columns``), and convolves its channels [x_r | B_r | C_r] of
+# ``conv_w`` (``conv_channels``; the conv is per channel).  The rules cut
+# both leaves into contiguous ``model`` blocks that do not line up with
+# these, so the layer gathers its pieces from the ranks that hold them
+# (``sharding.ops.Block.model_pieces``).  B and C are gathered whole over
+# ``model`` after the conv, since every head reads them
+# (``_gather_bc``).  ``w_out``'s rows are the rank's heads' channels:
+# row-parallel on its ``model`` block.
 
 HEAD_LEAVES = ("a_log", "dt_bias", "d_skip")
 
 
+def splits_over(n: int, *, d_model: int, expand: int, state: int) -> bool:
+    """Whether the layer splits over a ``model`` axis of ``n``: its heads
+    and its state both divide ``n``."""
+    return ssm_dims(d_model, expand, state)[1] % n == 0 and state % n == 0
+
+
+def in_columns(r: int, n: int, *, d_model: int, expand: int, state: int) -> tuple:
+    """Rank ``r`` of ``n``'s columns of ``w_in``, ((start, length), ...)
+    ascending: [z_r | x_r | B_r | C_r | dt_r]."""
+    d_inner, h, _ = ssm_dims(d_model, expand, state)
+    cl, sl, hl = d_inner // n, state // n, h // n
+    return ((r * cl, cl), (d_inner + r * cl, cl), (2 * d_inner + r * sl, sl),
+            (2 * d_inner + state + r * sl, sl), (2 * d_inner + 2 * state + r * hl, hl))
+
+
+def conv_channels(r: int, n: int, *, d_model: int, expand: int, state: int) -> tuple:
+    """Rank ``r`` of ``n``'s channels of ``conv_w`` (and of the conv
+    history), ((start, length), ...) ascending: [x_r | B_r | C_r]."""
+    d_inner = ssm_dims(d_model, expand, state)[0]
+    cl, sl = d_inner // n, state // n
+    return ((r * cl, cl), (d_inner + r * sl, sl), (d_inner + state + r * sl, sl))
+
+
 def tp_share(params, r: int, n: int, *, d_model: int, expand: int, state: int) -> dict:
-    """Rank ``r`` of ``n``'s share of the whole SSM parameters (every leaf
-    but ``w_out``): ``w_in``'s columns [z_r | x_r | B | C | dt_r],
-    ``conv_w``'s channels [x_r | B | C], its heads' ``a_log``, ``dt_bias``
-    and ``d_skip`` and its channels' ``norm_gamma``."""
+    """Rank ``r`` of ``n``'s share of the SSM parameters (every leaf but
+    ``w_out``): ``w_in`` and ``conv_w`` as given (the rank's pieces,
+    ``in_columns`` and ``conv_channels``), its heads' ``a_log``,
+    ``dt_bias`` and ``d_skip`` and its channels' ``norm_gamma`` cut from the
+    whole."""
     d_inner, h, _ = ssm_dims(d_model, expand, state)
     cl, hl = d_inner // n, h // n
-    w_in = params["w_in"]
-    share = {
-        "w_in": torch.cat([w_in.narrow(1, r * cl, cl), w_in.narrow(1, d_inner + r * cl, cl),
-                           w_in.narrow(1, 2 * d_inner, 2 * state),
-                           w_in.narrow(1, 2 * d_inner + 2 * state + r * hl, hl)], dim=1),
-        "conv_w": torch.cat([params["conv_w"].narrow(0, r * cl, cl),
-                             params["conv_w"].narrow(0, d_inner, 2 * state)], dim=0),
-        "norm_gamma": params["norm_gamma"].narrow(0, r * cl, cl),
-    }
+    share = {"w_in": params["w_in"], "conv_w": params["conv_w"],
+             "norm_gamma": params["norm_gamma"].narrow(0, r * cl, cl)}
     share.update({k: params[k].narrow(0, r * hl, hl) for k in HEAD_LEAVES})
     return share
+
+
+def _gather_bc(bc, mesh, state: int):
+    """B and C whole (each (..., state)) from this rank's channels ``bc``
+    [B_r | C_r] after the conv: one gather over ``model``, whose backward
+    sums the ranks' gradients (each rank's heads read all of B and C) and
+    scatters them back."""
+    from repro_torch.sharding.ops import gather_from_model
+
+    n = mesh.shape["model"]
+    whole = gather_from_model(bc.contiguous(), bc.dim() - 1, mesh, summed=True)
+    parts = whole.unflatten(-1, (n, 2, state // n))
+    return parts.select(-2, 0).flatten(-2), parts.select(-2, 1).flatten(-2)
+
+
+def _whole_channels(t, mesh, d_inner: int, state: int):
+    """The conv history's channels whole, [x | B | C], from this rank's
+    [x_r | B_r | C_r] ``t`` (no gradient)."""
+    from repro_torch.sharding.ops import gather_from_model
+
+    n = mesh.shape["model"]
+    cl, sl = d_inner // n, state // n
+    ranks = gather_from_model(t.contiguous(), t.dim() - 1, mesh).unflatten(-1, (n, cl + 2 * sl))
+    return torch.cat([ranks.narrow(-1, a, l).flatten(-2)
+                      for a, l in ((0, cl), (cl, sl), (cl + sl, sl))], dim=-1)
 
 
 def gated_norm_tp(g, gamma, mesh, width: int, dtype, eps: float = 1e-6):
@@ -219,41 +266,43 @@ def gated_norm_tp(g, gamma, mesh, width: int, dtype, eps: float = 1e-6):
     return ((g * torch.rsqrt(total / width + eps)) * (1.0 + gamma.float())).to(dtype)
 
 
+def _split_check(n: int, **dims) -> None:
+    if not splits_over(n, **dims):
+        raise ValueError(f"an SSM of {dims} does not split over a model axis of {n}")
+
+
 def _ssd_forward_tp(params, x, mesh, *, d_model: int, expand: int, state: int, chunk: int,
                     return_final_state: bool):
-    """``ssd_forward`` on this rank's ``h / tp`` heads: ``w_in``,
-    ``conv_w`` and the per-head leaves whole (each rank takes its
-    ``tp_share``; the gradients are summed over ``model`` where they were
-    gathered), ``x``'s gradient summed over ``model`` in float32
-    (``column_mm``), the gated norm's sum of squares summed over ``model``
+    """``ssd_forward`` on this rank's ``h / tp`` heads and ``state / tp``
+    columns each of B and C: ``w_in`` and ``conv_w`` as the rank's pieces
+    (``tp_share``), ``x``'s gradient summed over ``model`` in float32
+    (``column_mm``), B and C gathered over ``model`` after the conv
+    (``_gather_bc``), the gated norm's sum of squares summed over ``model``
     (``gated_norm_tp``), ``w_out`` row-parallel.  The final state is the
-    rank's heads'; the conv history is whole (its x channels gathered over
-    ``model``)."""
+    rank's heads'; the conv history is whole (the ranks' channels gathered
+    over ``model``)."""
     from repro_torch.models.layers import _row_parallel, column_mm
-    from repro_torch.sharding.ops import axis_index, gather_from_model
+    from repro_torch.sharding.ops import axis_index
 
     d_inner, h, _ = ssm_dims(d_model, expand, state)
     n = mesh.shape["model"]
-    if h % n:
-        raise ValueError(f"{h} SSM heads do not split over a model axis of {n}")
+    _split_check(n, d_model=d_model, expand=expand, state=state)
     share = tp_share(params, axis_index("model", mesh), n, d_model=d_model, expand=expand,
                      state=state)
-    hl, cl = h // n, d_inner // n
+    hl, cl, sl = h // n, d_inner // n, state // n
     s_real = x.shape[1]
     pad = (-s_real) % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
-    z, xs, b, c, dt = torch.split(column_mm(x, share["w_in"], mesh), [cl, cl, state, state, hl],
-                                  dim=-1)
-    conv_in = torch.cat([xs, b, c], dim=-1)  # the rank's channels [x_r | B | C]
-    xs, b, c = torch.split(_causal_conv(conv_in, share["conv_w"]), [cl, state, state], dim=-1)
+    z, conv_in, dt = torch.split(column_mm(x, share["w_in"], mesh), [cl, cl + 2 * sl, hl],
+                                 dim=-1)  # conv_in: the rank's channels [x_r | B_r | C_r]
+    xs, bc = torch.split(_causal_conv(conv_in, share["conv_w"]), [cl, 2 * sl], dim=-1)
+    b, c = _gather_bc(bc, mesh, state)
     y, s_run = _ssd_scan(share, xs, b, c, dt, chunk=chunk, s_real=s_real)
     y = gated_norm_tp(y.float() * silu(z).float(), share["norm_gamma"], mesh, d_inner, x.dtype)
     out = _row_parallel(y, params["w_out"], mesh)[:, :s_real]
     if return_final_state:
-        tail = conv_in[:, s_real - (CONV_K - 1):s_real, :]
-        conv = torch.cat([gather_from_model(tail[..., :cl].contiguous(), 2, mesh),
-                          tail[..., cl:]], dim=-1)
+        conv = _whole_channels(conv_in[:, s_real - (CONV_K - 1):s_real], mesh, d_inner, state)
         return out, {"conv": conv, "ssm": s_run}
     return out
 
@@ -317,34 +366,33 @@ def ssd_decode_step(params, x, cache, *, d_model: int, expand: int, state: int):
 
 
 def _ssd_decode_step_tp(params, x, cache, mesh, *, d_model: int, expand: int, state: int):
-    """``ssd_decode_step`` on this rank's heads.  ``cache``: the conv
-    history whole (B, K - 1, conv_dim) and the state of the rank's heads
-    (B, h / tp, N, P); returns the new ones alike, the new history's x
-    channels gathered over ``model``."""
+    """``ssd_decode_step`` on this rank's heads and its share of B and C.
+    ``cache``: the conv history whole (B, K - 1, conv_dim) and the state of
+    the rank's heads (B, h / tp, N, P); returns the new ones alike, the new
+    history's channels gathered over ``model``."""
     from repro_torch.models.layers import _row_parallel, column_mm
-    from repro_torch.sharding.ops import axis_index, gather_from_model
+    from repro_torch.sharding.ops import axis_index
 
     d_inner, h, _ = ssm_dims(d_model, expand, state)
     n = mesh.shape["model"]
-    if h % n:
-        raise ValueError(f"{h} SSM heads do not split over a model axis of {n}")
+    _split_check(n, d_model=d_model, expand=expand, state=state)
     r = axis_index("model", mesh)
     share = tp_share(params, r, n, d_model=d_model, expand=expand, state=state)
-    hl, cl = h // n, d_inner // n
-    z, xs, b, c, dt = torch.split(column_mm(x[:, 0], share["w_in"], mesh),
-                                  [cl, cl, state, state, hl], dim=-1)
-    conv_in = torch.cat([xs, b, c], dim=-1)  # (B, cl + 2N): the rank's channels
+    hl, cl, sl = h // n, d_inner // n, state // n
+    z, conv_in, dt = torch.split(column_mm(x[:, 0], share["w_in"], mesh), [cl, cl + 2 * sl, hl],
+                                 dim=-1)  # conv_in (B, cl + 2 sl): the rank's channels
     old = cache["conv"]
-    hist = torch.cat([torch.cat([old.narrow(2, r * cl, cl), old[..., d_inner:]], dim=-1),
-                      conv_in[:, None]], dim=1)  # (B,K,cl+2N)
+    mine = torch.cat([old.narrow(2, a, l) for a, l in
+                      conv_channels(r, n, d_model=d_model, expand=expand, state=state)], dim=2)
+    hist = torch.cat([mine, conv_in[:, None]], dim=1)  # (B,K,cl+2sl)
     conv_out = silu(torch.einsum("bkc,ck->bc", hist, share["conv_w"].to(x.dtype)))
-    xs, b, c = torch.split(conv_out, [cl, state, state], dim=-1)
+    xs, bc = torch.split(conv_out, [cl, 2 * sl], dim=-1)
+    b, c = _gather_bc(bc, mesh, state)
 
     y, s_new = _ssd_decode_heads(share, xs, b, c, dt, cache["ssm"])
     g = y.float() * silu(z).float()
     out = _row_parallel(gated_norm_tp(g, share["norm_gamma"], mesh, d_inner, x.dtype),
                         params["w_out"], mesh)
-    new_in = torch.cat([gather_from_model(conv_in[:, :cl].contiguous(), 1, mesh),
-                        conv_in[:, cl:]], dim=-1)
+    new_in = _whole_channels(conv_in, mesh, d_inner, state)
     new_conv = torch.cat([old, new_in[:, None]], dim=1)[:, 1:]
     return out[:, None], {"conv": new_conv, "ssm": s_new}

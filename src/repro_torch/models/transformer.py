@@ -21,28 +21,30 @@ the JAX package's ``init_params`` output as numpy arrays, so both packages
 compute the same thing from the same weights.  The caches carry their
 position as a Python int; ``decode_step`` advances a cache in place.
 
-Handed ``sharding.ops.Block``s (the sharded train step, the dry run), the
-model is tensor-parallel over the mesh's ``model`` axis
+Handed ``sharding.ops.Block``s (the sharded train step, the dry run),
+the model is tensor-parallel over the mesh's ``model`` axis
 (``sharding.ops.use_tp``): each layer's parameters are gathered over the
-batch axes only, into this rank's ``model`` blocks (``_layer_params``), and
-the layers split their work with them, as the reference's partitioned
-program does: attention over query heads, the MLP over its FFN columns,
-the experts, the SSM blocks over their heads, and the embedding, head and
-cross-entropy over the vocabulary where it divides ``model`` (a dimension
-that does not divide stays whole, and every ``model`` rank computes that
-piece alike).  Attention whose query heads do not divide ``model``, and
-an SSM whose heads do not, gather their parameters whole.  The SSM's
-packed in-projection and conv are gathered whole on every rank, which
-takes its heads' columns of them (``ssm.tp_share``).  ``loss_fn`` then
-takes this rank's rows.  So do ``forward_logits``, ``prefill`` and
-``decode_step`` wherever ``rules.batch_pspec`` splits the batch over the
-batch axes (``pod`` x ``data``), as the reference's partitioned serving
-program computes each device's rows: each batch leaf is the rank's rows (a
-``DTensor`` placed over the batch axes gives its local tensor, a plain
-whole tensor is cut, with no communication), the cache a tree of
-``Block``s placed by ``rules.cache_shardings`` for the whole batch of which
-the rank allocates and writes its share only, and the logits come back as
-the rank's rows (a ``DTensor``) for ``DTensor`` inputs, or gathered over the
+batch axes only, into this rank's ``model`` blocks (``_layer_params``),
+and the layers split their work with them, as the reference's
+partitioned program does: attention over query heads, the MLP over its
+FFN columns, the experts, the SSM blocks over their heads, and the
+embedding, head and cross-entropy over the vocabulary where it divides
+``model`` (a dimension that does not divide stays whole, and every
+``model`` rank computes that piece alike).  Attention whose query heads
+do not divide ``model``, and an SSM whose heads or state do not, gather
+their parameters whole.  Each rank gathers only its pieces of the SSM's
+packed in-projection and conv: its heads' columns and its share of B's
+and C's (``ssm.in_columns``, ``ssm.conv_channels``), each from the rank
+whose block holds it.  ``loss_fn`` then takes this rank's rows.  So do
+``forward_logits``, ``prefill`` and ``decode_step`` wherever
+``rules.batch_pspec`` splits the batch over the batch axes (``pod`` x
+``data``), as the reference's partitioned serving program computes each
+device's rows: each batch leaf is the rank's rows (a ``DTensor`` placed
+over the batch axes gives its local tensor, a plain whole tensor is cut,
+with no communication), the cache a tree of ``Block``s placed by
+``rules.cache_shardings`` for the whole batch of which the rank
+allocates and writes its share only, and the logits come back as the
+rank's rows (a ``DTensor``) for ``DTensor`` inputs, or gathered over the
 batch axes for plain ones (``_rows_of``).  Where the batch axes do not
 divide the batch (batch 1), every rank takes the whole batch under the
 ambient mesh, as the reference does.
@@ -146,21 +148,29 @@ def _blocks_mesh(params):
     return next((t.mesh for t in tree_leaves(params) if isinstance(t, Block)), None)
 
 
-def _ssm_heads(cfg: ModelConfig) -> int:
-    return ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_state)[1]
+def _ssm_dims(cfg: ModelConfig) -> dict:
+    return dict(d_model=cfg.d_model, expand=cfg.ssm_expand, state=cfg.ssm_state)
 
 
-def _ssm_split_params(tree):
-    """An SSM layer's parameters for its split over ``model``: ``w_out``
-    as this rank's ``model`` block (row-parallel), every other leaf whole,
-    its gradient summed over ``model`` (each rank uses its heads' part of
-    it, and B's and C's columns of ``w_in`` and ``conv_w`` alike)."""
+def _ssm_split_params(cfg: ModelConfig, tree, n: int):
+    """An SSM layer's parameters for its split over a ``model`` axis of
+    ``n``: ``w_out`` as this rank's ``model`` block (row-parallel), ``w_in``
+    and ``conv_w`` as the rank's pieces (``ssm.in_columns``,
+    ``ssm.conv_channels``: gathered from the ranks whose blocks hold them,
+    each piece's gradient sent back), every other leaf whole, its gradient
+    summed over ``model`` (each rank uses its heads' part of it)."""
     from repro_torch.sharding.ops import Block
+
+    dims = _ssm_dims(cfg)
+    pieces = {"w_in": (1, tuple(ssm_mod.in_columns(r, n, **dims) for r in range(n))),
+              "conv_w": (0, tuple(ssm_mod.conv_channels(r, n, **dims) for r in range(n)))}
 
     def one(k, a):
         if not isinstance(a, Block):
             return a
         a = _for_rows(k, a)
+        if k in pieces:
+            return a.model_pieces(*pieces[k])
         return a.model_block() if k == "w_out" else a.whole(sum_over_model=True)
 
     return {k: one(k, v) for k, v in tree.items()}
@@ -169,15 +179,16 @@ def _ssm_split_params(tree):
 def _layer_params(cfg: ModelConfig, tree):
     """One layer's parameters gathered where they are blocks: the ``model``
     blocks of every part that splits its work over ``model``; the SSM's
-    ``w_out`` block beside its other leaves whole (``_ssm_split_params``);
-    the whole tensors of attention whose query heads do not divide
-    ``model``, and of an SSM whose heads do not (it runs unsplit, its
-    parameters gathered over ``model`` too)."""
+    ``w_out`` block and pieces of ``w_in`` and ``conv_w`` beside its other
+    leaves whole (``_ssm_split_params``); the whole tensors of attention
+    whose query heads do not divide ``model``, and of an SSM whose heads or
+    state do not (it runs unsplit, its parameters gathered over ``model``
+    too)."""
     mesh = _blocks_mesh(tree)
     tp = mesh.shape.get("model", 1) if mesh is not None else 1
     whole = ({"attn"} if cfg.n_heads % tp else set()) | \
-        ({"ssm"} if "ssm" in tree and _ssm_heads(cfg) % tp else set())
-    return {k: (_ssm_split_params(v) if k == "ssm" and tp > 1 and k not in whole
+        ({"ssm"} if "ssm" in tree and not ssm_mod.splits_over(tp, **_ssm_dims(cfg)) else set())
+    return {k: (_ssm_split_params(cfg, v, tp) if k == "ssm" and tp > 1 and k not in whole
                 else _gathered(v, split=k not in whole, name=k, weights=True))
             for k, v in tree.items()}
 
@@ -799,7 +810,7 @@ def _ssm_state_heads(cfg, cache, l: int, mesh):
     if _heads_block(state, mesh) is not None:
         return state[l].model_block()
     whole = state[l].whole() if isinstance(state, Block) else state[l]
-    hl = _ssm_heads(cfg) // mesh.shape["model"]
+    hl = ssm_mod.ssm_dims(**_ssm_dims(cfg))[1] // mesh.shape["model"]
     return whole.narrow(1, axis_index("model", mesh) * hl, hl)
 
 

@@ -43,14 +43,16 @@ matmuls.  Three autograd-aware collectives over ``model`` join the shares
 (``copy_to_model``, ``reduce_from_model``, ``gather_from_model``); a value
 that all ``model`` ranks hold alike keeps a gradient that they hold
 alike.  A layer that does not split (attention whose query heads do not
-divide ``model``, an SSM whose heads do not) gathers its parameters whole
-(``Block.whole``); the ``model`` ranks then compute the same gradient,
-and each keeps its block's share of it.  A layer whose ranks use
-different parts of a parameter that its rule cuts otherwise (the SSM's
-packed in-projection and conv, its per-head leaves) gathers it whole with
-``sum_over_model``: the backward sums the ranks' gradients over ``model``
-(a reduce-scatter into the block, or an all-reduce where the rule leaves
-the parameter whole over ``model``).
+divide ``model``, an SSM whose heads or state do not) gathers its
+parameters whole (``Block.whole``); the ``model`` ranks then compute the
+same gradient, and each keeps its block's share of it.  A layer whose
+ranks use parts of a parameter that its rule cuts otherwise gathers those
+parts: disjoint pieces (the SSM's packed in-projection and conv) with
+``Block.model_pieces``, each piece from the ``model`` rank whose block
+holds it (an all-to-all, its gradient sent back the same way); parts of
+a parameter the rule leaves whole over ``model`` (the SSM's per-head
+leaves) as the whole with ``sum_over_model``: the backward sums the
+ranks' gradients over ``model`` (an all-reduce).
 
 Every collective goes through ``_collective``.  gloo carries CPU tensors;
 a CUDA tensor on a gloo group (several ranks on one card, where NCCL
@@ -81,10 +83,13 @@ _LOGICAL = {
 }
 
 # host-staged collectives by name ("all_reduce", "all_gather",
-# "reduce_scatter"; "model_all_reduce", "model_all_gather" and
-# "model_reduce_scatter" for the tensor-parallel layers' collectives over
-# ``model``) in this process; read by the smoke run, reset by the caller
+# "reduce_scatter"; "model_all_reduce", "model_all_gather",
+# "model_reduce_scatter" and "model_all_to_all" for the tensor-parallel
+# layers' collectives over ``model``) in this process, and the bytes each
+# name brought back to the card (its results'); read by the smoke run,
+# reset by the caller
 STAGED: Counter = Counter()
+STAGED_BYTES: Counter = Counter()
 # the mesh axes a batch splits over (pure data parallelism over pods, FSDP
 # over data); every other axis sees the same rows
 BATCH_AXES = ("pod", "data")
@@ -316,13 +321,22 @@ def _staged(t: torch.Tensor, group) -> bool:
 
 def _collective(name: str, t: torch.Tensor, group, *, tag: str = "", **kw):
     """``all_reduce`` (``op=``), ``reduce_scatter`` (the sum, this rank's
-    share of dimension 0) or ``all_gather`` (every rank's tensor in rank
-    order, concatenated along ``dim=``) of ``t`` over ``group``, on a copy.
-    A CUDA tensor on a group without NCCL is staged through the host and
-    counted in ``STAGED`` under ``tag`` + ``name``."""
+    share of dimension 0), ``all_gather`` (every rank's tensor in rank
+    order, concatenated along ``dim=``) or ``all_to_all`` (``t`` cut along
+    ``dim=`` into ``send=`` sizes, the i-th to rank i; the pieces received,
+    ``recv=`` sizes, concatenated in rank order) of ``t`` over ``group``, on
+    a copy.  A CUDA tensor on a group without NCCL is staged through the
+    host and counted in ``STAGED`` (and its result's bytes in
+    ``STAGED_BYTES``) under ``tag`` + ``name``."""
     staged = _staged(t, group)
+    out = _run_collective(name, t, group, staged, **kw)
     if staged:
         STAGED[tag + name] += 1
+        STAGED_BYTES[tag + name] += out.numel() * out.element_size()
+    return out
+
+
+def _run_collective(name: str, t: torch.Tensor, group, staged: bool, **kw):
     if name == "all_reduce":
         work = t.detach().to("cpu", copy=True) if staged else t.detach().clone()
         dist.all_reduce(work, op=kw["op"], group=group)
@@ -336,6 +350,12 @@ def _collective(name: str, t: torch.Tensor, group, *, tag: str = "", **kw):
         getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(out, work,
                                                                            group=group)
         return out.to(t.device) if staged else out
+    if name == "all_to_all":
+        dim, send, recv = kw["dim"], list(kw["send"]), list(kw["recv"])
+        work = (t.detach().cpu() if staged else t.detach()).movedim(dim, 0).contiguous()
+        out = work.new_empty((sum(recv),) + tuple(work.shape[1:]))
+        dist.all_to_all_single(out, work, recv, send, group=group)
+        return out.movedim(0, dim).contiguous().to(t.device)
     # gloo has no unsigned type wider than a byte: gather the bits as the
     # signed type of their width
     dim = kw["dim"]
@@ -513,18 +533,25 @@ class _ReduceFromModel(torch.autograd.Function):
 
 class _GatherFromModel(torch.autograd.Function):
     """Forward: the ``model`` ranks' pieces concatenated along ``dim``.
-    Backward: this rank's piece of the gradient (held alike)."""
+    Backward: this rank's piece of the gradient (held alike), or
+    (``summed``: each rank's gradient is its own) this rank's piece of the
+    ranks' float32 gradients summed, rounded once to the gradient's type
+    (a reduce-scatter)."""
 
     @staticmethod
-    def forward(ctx, x, dim, mesh):
-        ctx.dim, ctx.mesh = dim, mesh
+    def forward(ctx, x, dim, mesh, summed):
+        ctx.dim, ctx.mesh, ctx.summed = dim, mesh, summed
         return _collective("all_gather", x, mesh.group("model"), tag="model_", dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.summed:
+            piece = _collective("reduce_scatter", grad.float().movedim(ctx.dim, 0),
+                                ctx.mesh.group("model"), tag="model_")
+            return piece.movedim(0, ctx.dim).to(grad.dtype).contiguous(), None, None, None
         n = grad.shape[ctx.dim] // ctx.mesh.shape["model"]
         piece = grad.narrow(ctx.dim, ctx.mesh.axis_index("model") * n, n)
-        return piece.contiguous(), None, None
+        return piece.contiguous(), None, None, None
 
 
 def max_over_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -545,11 +572,13 @@ def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _ReduceFromModel.apply(x, mesh)
 
 
-def gather_from_model(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, dim: int, mesh: Mesh, *,
+                      summed: bool = False) -> torch.Tensor:
     """Each ``model`` rank's piece ``x`` concatenated along ``dim`` in rank
     order: an all-gather forward, this rank's piece of the gradient
-    backward."""
-    return _GatherFromModel.apply(x, dim, mesh)
+    backward; with ``summed`` (the ranks use the whole differently) of the
+    ranks' gradients summed (a reduce-scatter)."""
+    return _GatherFromModel.apply(x, dim, mesh, summed)
 
 
 # ---------------------------------------------------------------------------
@@ -613,34 +642,107 @@ def _reduce_to_block(grad: torch.Tensor, spec, mesh: Mesh, whole: bool = True,
     return g.contiguous()
 
 
+def _pieces_plan(table, size: int, n: int) -> list:
+    """``plan[r][s]``: the (start in rank r's block, length) ranges that
+    ``model`` rank r holds of the pieces ``table[s]`` ((start, length), ...)
+    that rank s takes of a dimension of ``size`` cut into n contiguous
+    blocks, in s's order.  Each rank's pieces ascend and do not overlap, so
+    the ranges it receives, concatenated in rank order, are its pieces in
+    order."""
+    m = size // n
+    plan = [[[] for _ in range(n)] for _ in range(n)]
+    for s, pieces in enumerate(table):
+        end = 0
+        for start, length in pieces:
+            if start < end:
+                raise ValueError(f"model rank {s}'s pieces {pieces} do not ascend")
+            end = start + length
+            while length:
+                r = start // m
+                take = min(length, (r + 1) * m - start)
+                plan[r][s].append((start - r * m, take))
+                start, length = start + take, length - take
+    return plan
+
+
+def _plan_of(spec, mesh: Mesh, dim: int, table, block: int):
+    """(the ``model`` size, this rank's index along it, the exchange's
+    ``_pieces_plan`` for ``model`` blocks of ``block`` entries along
+    ``dim``, which ``spec`` must split over ``model``)."""
+    if [d for d, axes in _block_entries(spec) if "model" in axes] != [dim]:
+        raise ValueError(f"pieces along dimension {dim} of a block placed {spec}: only the "
+                         f"dimension split over model is taken in pieces")
+    n = mesh.shape["model"]
+    return n, mesh.axis_index("model"), _pieces_plan(table, block * n, n)
+
+
+def _take_pieces(t: torch.Tensor, spec, mesh: Mesh, dim: int, table) -> torch.Tensor:
+    """This rank's pieces ``table[model index]`` of ``t`` (its ``model``
+    block, gathered over the batch axes) along ``dim``, each from the
+    ``model`` rank whose block holds it: one all-to-all."""
+    n, me, plan = _plan_of(spec, mesh, dim, table, t.shape[dim])
+    parts = [t.narrow(dim, a, l) for s in range(n) for a, l in plan[me][s]]
+    send = [sum(l for _, l in plan[me][s]) for s in range(n)]
+    recv = [sum(l for _, l in plan[r][me]) for r in range(n)]
+    return _collective("all_to_all", torch.cat(parts, dim) if parts else t.narrow(dim, 0, 0),
+                       mesh.group("model"), tag="model_", dim=dim, send=send, recv=recv)
+
+
+def _pieces_grad(grad: torch.Tensor, shape, spec, mesh: Mesh, dim: int, table) -> torch.Tensor:
+    """``_take_pieces``' backward: the gradient of this rank's pieces ->
+    that of its ``model`` block (``shape``), each piece's gradient sent
+    back to the rank whose block holds it (the reverse all-to-all)."""
+    n, me, plan = _plan_of(spec, mesh, dim, table, shape[dim])
+    send = [sum(l for _, l in plan[me][s]) for s in range(n)]
+    recv = [sum(l for _, l in plan[r][me]) for r in range(n)]
+    got = _collective("all_to_all", grad, mesh.group("model"), tag="model_", dim=dim,
+                      send=recv, recv=send)
+    g, off = grad.new_zeros(shape), 0
+    for ranges in plan[me]:
+        for a, l in ranges:
+            g.narrow(dim, a, l).add_(got.narrow(dim, off, l))
+            off += l
+    return g
+
+
 class _GatherBlock(torch.autograd.Function):
     """Forward: the whole tensor from every rank's block, or (``whole``
-    False) its ``model`` block, gathered over the batch axes only.
-    Backward: the gradient reduced to this rank's block
-    (``_reduce_to_block``).  Nothing is saved, so under
+    False) its ``model`` block, gathered over the batch axes only, or
+    (``pieces``) this rank's pieces of it (``_take_pieces``).  Backward:
+    the gradient reduced to this rank's block (``_reduce_to_block``, after
+    ``_pieces_grad``).  Nothing is saved, so under
     ``torch.utils.checkpoint`` the gather runs again in the backward pass,
     and a tensor gathered once serves several backward passes
     (microbatches)."""
 
     @staticmethod
-    def forward(ctx, local, spec, mesh, whole, sum_over_model):
+    def forward(ctx, local, spec, mesh, whole, sum_over_model, pieces):
         ctx.spec, ctx.mesh, ctx.whole, ctx.sum_over_model = spec, mesh, whole, sum_over_model
-        return _gather_local(local, spec, mesh, None if whole else BATCH_AXES)
+        ctx.pieces = pieces
+        t = _gather_local(local, spec, mesh, None if whole else BATCH_AXES)
+        if pieces is None:
+            return t
+        ctx.shape = tuple(t.shape)
+        return _take_pieces(t, spec, mesh, *pieces)
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.pieces is not None:
+            grad = _pieces_grad(grad, ctx.shape, ctx.spec, ctx.mesh, *ctx.pieces)
         g = _reduce_to_block(grad, ctx.spec, ctx.mesh, ctx.whole, ctx.sum_over_model)
-        return g, None, None, None, None
+        return g, None, None, None, None, None
 
 
 def gather_block(local: torch.Tensor, spec, mesh: Mesh, *, whole: bool = True,
-                 sum_over_model: bool = False) -> torch.Tensor:
+                 sum_over_model: bool = False, pieces=None) -> torch.Tensor:
     """The whole tensor whose block on this rank is ``local`` under
     ``spec`` (or, ``whole`` False, its ``model`` block: gathered over the
-    batch axes only); its gradient flows back to ``local`` summed over the
-    batch axes, and with ``sum_over_model`` over ``model`` too (the
-    ``model`` ranks used different parts of the whole tensor)."""
-    return _GatherBlock.apply(local, spec, mesh, whole, sum_over_model)
+    batch axes only; with ``pieces``, (dim, table), this rank's pieces
+    ``table[model index]`` of it along dim); its gradient flows back to
+    ``local`` summed over the batch axes, and with ``sum_over_model`` over
+    ``model`` too (the ``model`` ranks used different parts of the whole
+    tensor)."""
+    return _GatherBlock.apply(local, spec, mesh, whole, sum_over_model, pieces)
 
 
 class Block:
@@ -693,6 +795,16 @@ class Block:
         """This rank's ``model`` block of the tensor: whole along every
         dimension but the one its spec splits over ``model``."""
         return gather_block(self.local, self.spec, self.mesh, whole=False)
+
+    def model_pieces(self, dim: int, table) -> torch.Tensor:
+        """This rank's pieces ``table[r]`` ((start, length), ..., ascending;
+        r its ``model`` index) of the tensor along ``dim``, the dimension
+        its spec splits over ``model``, concatenated, whole along every
+        other dimension: gathered over the batch axes, each piece from the
+        ``model`` rank whose block holds it.  ``table`` lists every
+        ``model`` rank's pieces, which do not overlap; each piece's gradient
+        goes back to its block."""
+        return gather_block(self.local, self.spec, self.mesh, whole=False, pieces=(dim, table))
 
     def put(self, dim: int, start: int, value: torch.Tensor) -> None:
         """Write ``value``, global along every dimension but ``dim``, where

@@ -22,9 +22,10 @@ an all-reduce where a dimension does not divide), so gradients exist only
 as blocks and microbatches add into them.  The model is tensor-parallel
 over ``model`` (``models.transformer``): each ``model`` rank computes its
 share of every layer from its blocks, and the layers' all-reduces over
-``model`` join the shares (the SSM blocks compute their rank's heads from
-their in-projection and conv gathered whole, whose gradients the gathers'
-backward sums over ``model``).  Each rank updates its own blocks of
+``model`` join the shares (the SSM blocks compute their rank's heads and
+share of B and C from their pieces of the in-projection and conv, each
+gathered from the rank whose block holds it and its gradient sent back).
+Each rank updates its own blocks of
 the parameters and moments with the global gradient norm
 (``optimizer.sharded_global_norm``).
 ``make_integer_dp_train_step`` is the reference's data-parallel variant over

@@ -25,6 +25,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.utils._python_dispatch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch import comm_analysis, dryrun, op_cost
@@ -118,9 +119,51 @@ with mesh, use_mesh(mesh):
         serve[mode] = {"dot_flops": dot_flops(jax.make_jaxpr(f)(*args).jaxpr),
                        "argument": jax.jit(f).lower(*args).compile().memory_analysis()
                        .argument_size_in_bytes}
+
+# the mamba2 smoke model's in-projection on the same mesh, as the compiled
+# program computes it per device: the widths of the dots whose right operand
+# is a (d_model, k) weight contracted on d_model, the head's (the vocabulary,
+# whole or over model) left out, in the train step, prefill and decode
+import re
+from repro.train import optimizer as jopt
+from repro.train.step import make_train_step
+
+def in_proj_widths(text, d_model, head):
+    shapes = dict(re.findall(r"(%[\\w.-]+) = \\w+\\[([\\d,]*)\\]", text))
+    widths = set()
+    dots = r"= \\w+\\[[\\d,]*\\]\\S* dot\\(%[\\w.-]+, (%[\\w.-]+)\\),([^\\n]*)"
+    for rhs, rest in re.findall(dots, text):
+        dims = [int(d) for d in shapes[rhs].split(",")]
+        if "rhs_contracting_dims={0}" in rest and len(dims) == 2 and dims[0] == d_model \\
+                and dims[1] not in head:
+            widths.add(dims[1])
+    return sorted(widths)
+
+scfg = smoke_config("mamba2-370m")
+head = {scfg.vocab_size, scfg.vocab_size // 4}
+ssm_cols = {}
+with mesh, use_mesh(mesh):
+    shapes = tfm.param_shapes(scfg)
+    sh = rules.params_shardings(shapes, mesh)
+    params = jax.tree.map(lambda s, h: jax.ShapeDtypeStruct(s.shape, s.dtype, sharding=h),
+                          shapes, sh)
+    ostate = {"m": params, "v": params,
+              "step": jax.ShapeDtypeStruct((), jnp.int32, sharding=NamedSharding(mesh, P()))}
+    cache = jax.eval_shape(lambda: tfm.init_cache(scfg, 8, 64))
+    cache = jax.tree.map(lambda s, h: jax.ShapeDtypeStruct(s.shape, s.dtype, sharding=h),
+                         cache, rules.cache_shardings(mesh, cache))
+    programs = {"train": (make_train_step(scfg, jopt.AdamWConfig()), (params, ostate, batch)),
+                "prefill": (lambda p, b: tfm.prefill(scfg, p, b, max_seq=64),
+                            (params, {"tokens": batch["tokens"]})),
+                "decode": (lambda p, c, t: tfm.decode_step(scfg, p, c, t),
+                           (params, cache, jax.ShapeDtypeStruct((8, 1), jnp.int32, sharding=bs)))}
+    for mode, (f, args) in programs.items():
+        text = jax.jit(f).lower(*args).compile().as_text()
+        ssm_cols[mode] = in_proj_widths(text, scfg.d_model, head)
 print(json.dumps({"flops": jc["flops"], "dot_flops": dots, "coll": cb["total"],
                   "temp": ma.temp_size_in_bytes, "argument": ma.argument_size_in_bytes,
-                  "one_flops": one["flops"], "one_dot_flops": one_dots, "serve": serve}))
+                  "one_flops": one["flops"], "one_dot_flops": one_dots, "serve": serve,
+                  "ssm_in_cols": ssm_cols}))
 """
 
 
@@ -220,6 +263,89 @@ def test_dryrun_serving_on_small_mesh_against_the_reference(mode, reference):
     assert ratio <= SERVE_FLOPS_RATIO, ratio
     pos_bytes = 4 if mode == "decode" else 0
     assert rec["memory"]["argument_size_in_bytes"] + pos_bytes == want["argument"]
+
+
+class _InProjection(torch.utils._python_dispatch.TorchDispatchMode):
+    """The widths k of the ``mm``s whose right operand is a (d_model, k)
+    weight, the head's widths ``skip`` left out: the in-projection's."""
+
+    def __init__(self, d_model: int, skip):
+        super().__init__()
+        self.d_model, self.skip, self.widths = d_model, set(skip), set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default:
+            rows, k = args[1].shape
+            if rows == self.d_model and k not in self.skip:
+                self.widths.add(k)
+        return func(*args, **(kwargs or {}))
+
+
+def _rank_program(cfg, mesh, mode: str):
+    """(the program, its arguments) of ``mode`` for the mamba2 smoke model
+    on ``mesh``, as the dry run lowers a cell: the train step on the
+    parameters and moments as ``DTensor``s, prefill and decode on blocks,
+    the batch of 8 x 64 tokens over ``data``."""
+    tokens = lambda s: sp.sds((8, s), torch.int32, mesh, P("data", None))
+    params = sp.params_specs(cfg, mesh)
+    if mode == "train":
+        return make_train_step(cfg, opt.AdamWConfig()), \
+            (params, sp.opt_state_specs(cfg, mesh), {"tokens": tokens(64), "labels": tokens(64)})
+    blocks = ops.blocks(params, rules.params_shardings(params, mesh))
+    if mode == "prefill":
+        return (lambda p, b: tfm.prefill(cfg, p, b, max_seq=64)), (blocks, {"tokens": tokens(64)})
+    cache = tfm.init_cache(cfg, 8, 64, device="meta")
+    pos = cache.pop("pos")
+    sh = rules.cache_shardings(mesh, cache)
+    cache = {**ops.blocks(rules.place(cache, sh), sh), "pos": pos}
+    return (lambda p, c, t: tfm.decode_step(cfg, p, c, t)), (blocks, cache, tokens(1))
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+def test_ssm_in_projection_is_split_as_the_reference_compiles_it(mode, reference):
+    """Fault F: on (data 2, model 4) each ``model`` rank of the mamba2 smoke
+    model computes as many in-projection columns as the reference's
+    compiled program computes per device (137 of 548: its heads' z, x and
+    dt columns and a quarter of B's and of C's), in the train step, prefill
+    and decode; and the ranks' columns, as each gathers them
+    (``Block.model_pieces``), make the whole in-projection once.  Each
+    ``model`` rank runs in a fake process group as that rank, on ``meta``
+    tensors.  With every rank computing all of B and C, each computed
+    (548 - 32) / 4 + 32 = 161."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    cfg = smoke_config("mamba2-370m")
+    d_inner = cfg.ssm_expand * cfg.d_model
+    width = 2 * d_inner + 2 * cfg.ssm_state + d_inner // 64
+    want = reference["ssm_in_cols"][mode]
+    assert want == [width // 4]
+    taken = []
+    for rank in range(4):  # data 0, model 0 to 3
+        dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=8)
+        real, seen = ops.gather_block, []
+
+        def spy(local, spec, mesh_, **kw):
+            if kw.get("pieces") is not None and kw["pieces"][0] == 1:
+                seen.append(kw["pieces"][1][mesh_.axis_index("model")])
+            return real(local, spec, mesh_, **kw)
+
+        ops.gather_block = spy
+        try:
+            with compat_make_mesh((2, 4), ("data", "model"), device="cpu") as mesh, \
+                    use_mesh(mesh), torch.set_grad_enabled(mode == "train"):
+                fn, args = _rank_program(cfg, mesh, mode)
+                with _InProjection(cfg.d_model, {cfg.vocab_size, cfg.vocab_size // 4}) as mm:
+                    fn(*args)
+        finally:
+            ops.gather_block = real
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        assert sorted(mm.widths) == want, (rank, sorted(mm.widths))
+        assert seen and all(p == seen[0] for p in seen)
+        assert sum(n for _, n in seen[0]) == want[0]
+        taken += [c for start, n in seen[0] for c in range(start, start + n)]
+    assert sorted(taken) == list(range(width))
 
 
 def test_trip_count_awareness():

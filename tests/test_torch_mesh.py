@@ -20,7 +20,8 @@ reference's 5e-2 of the single-device step's and of the reference's mesh
 loss, and its gradient norm and updated parameters near both
 (``NORM_TOL``, ``UPDATE_TOL``; olmoe against the reference's mesh step
 ``REF_MESH_TOLS``), no parameter that its rule splits over ``model``
-gathered over ``model`` but the SSM's packed in-projection and conv; the
+gathered whole over ``model`` (the SSM's packed in-projection and conv
+come as each rank's pieces); the
 SSM's gated norm split over ``model`` within ``GATED_NORM_TOL`` of the
 one-process norm.  Fault C's two-rank case and the (1, 1) mesh's bits are
 here too.
@@ -459,22 +460,26 @@ def test_sharded_step_holds_only_blocks(arch, sides):
 
 
 # the leaves gathered whole over ``model`` though their rule splits them
-# there: the SSM's packed in-projection and conv, whose rank blocks do not
-# line up with heads (each rank takes its heads' columns of the whole)
-SSM_WHOLE = {"blocks/ssm/conv_w", "blocks/ssm/w_in"}
-WHOLE_OVER_MODEL = {"granite-3-2b": set(), "olmoe-1b-7b": set(), "zamba2-2.7b": SSM_WHOLE,
-                    "mamba2-370m": SSM_WHOLE}
-# leaves each model must gather into their ``model`` blocks: attention's
-# query and output weights, the SSM's out-projection and the embedding
+# there: none (the SSM's packed in-projection and conv, whose rank blocks do
+# not line up with heads, are gathered as each rank's pieces, of a ``model``
+# block's shape: ``ssm.in_columns``, ``ssm.conv_channels``)
+WHOLE_OVER_MODEL = {"granite-3-2b": set(), "olmoe-1b-7b": set(), "zamba2-2.7b": set(),
+                    "mamba2-370m": set()}
+# leaves each model must gather into their ``model`` blocks (or, for the
+# SSM's in-projection and conv, into pieces of that shape): attention's
+# query and output weights, the SSM's three projections and the embedding
+SSM_SPLIT = {"blocks/ssm/w_in", "blocks/ssm/conv_w", "blocks/ssm/w_out"}
 SPLIT_LEAVES = {"granite-3-2b": {"blocks/attn/wq", "blocks/attn/wo", "embed"},
                 "olmoe-1b-7b": {"blocks/attn/wq", "blocks/attn/wo", "embed"},
-                "zamba2-2.7b": {"shared/attn/wq", "shared/attn/wo", "blocks/ssm/w_out", "embed"},
-                "mamba2-370m": {"blocks/ssm/w_out", "embed"}}
+                "zamba2-2.7b": {"shared/attn/wq", "shared/attn/wo", "embed"} | SSM_SPLIT,
+                "mamba2-370m": {"embed"} | SSM_SPLIT}
 # the ceiling on the 8 ranks' flops over the one-device step's (with the
-# ``model`` ranks repeating their data shard's work it was 4 and more): the
-# replicated router and norms, the SSM's B and C columns and its (Q x Q)
-# scores, which every ``model`` rank computes
-TP_FLOPS_RATIO = 1.15
+# ``model`` ranks repeating their data shard's work it was 4 and more; 1.15
+# while every ``model`` rank also computed all of the SSM's B and C
+# columns): the replicated router and norms and the SSM's (Q x Q) scores,
+# which every ``model`` rank computes, as the reference's program does.
+# The largest reading, 1.0125 (mamba2), plus 0.02 set before it was read
+TP_FLOPS_RATIO = 1.04
 # the gated norm split over two ranks against the one-process norm:
 # relative to the largest output and gradient
 GATED_NORM_TOL = 1e-6
@@ -485,9 +490,9 @@ def test_no_split_block_is_gathered_over_model(arch, sides):
     """In the (2, 4) mesh's step each rank gathers every parameter whose
     rule splits it over ``model`` over the batch axes only, into its
     ``model`` block (whole along every other dimension, cut by 4 along that
-    one: the shape of the weight operand its matmuls take), except the SSM's
-    in-projection and conv, which are gathered whole; and the ranks' flops
-    together are the one-device step's, not four times them."""
+    one: the shape of the weight operand its matmuls take), the SSM's
+    in-projection and conv into the rank's pieces of that shape; and the
+    ranks' flops together are the one-device step's, not four times them."""
     ref, ranks = sides
     key = f"train[{arch}]_"
     tr = np.load(ref / f"train_{arch}.npz")
@@ -498,6 +503,8 @@ def test_no_split_block_is_gathered_over_model(arch, sides):
         split = set(r[key + "split_leaves"].tolist())
         assert SPLIT_LEAVES[arch] <= split, split
     ratio = sum(r[key + "flops"] for r in ranks) / single_flops
+    print(f"{arch}: the 8 ranks' flops {ratio:.4f} times one device's step's (limit "
+          f"{TP_FLOPS_RATIO})")
     assert ratio < TP_FLOPS_RATIO, ratio
 
 
@@ -588,8 +595,9 @@ def test_tensor_parallel_serving_is_the_split_control_bit_for_bit(cache, tp_serv
     (data 1, model 2) mesh, its SSM heads and vocabulary split over the two
     ranks, give bit for bit the logits of the split control
     (``chip_smoke.split_control``: one process, each share's heads, conv
-    channels, conv history and state taken by head, the sums joined in rank
-    order), over a plain cache and over a block cache: the control of
+    channels, conv history and state taken by head, with its share of B's
+    and C's columns and channels, the sums joined in rank order), over a
+    plain cache and over a block cache: the control of
     ``chip_smoke.py``'s step 14d serving at full depth."""
     got, control = tp_serve_control
     assert len(control) == TP_SERVE_CONTROL["steps"] + 1

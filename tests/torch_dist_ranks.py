@@ -113,8 +113,9 @@ MOE_SHAPE = (4, 16)  # batch, seq of the olmoe smoke block's input
 # the train step's smoke models: a dense model whose kv heads do not divide
 # the model axis (the merged-head split, K/V gathered from the ranks'
 # columns), an MoE model (the experts over model), a hybrid (the SSM blocks
-# and the shared attention and MLP split) and an SSM model (its heads over
-# model, the in-projection and conv gathered whole)
+# and the shared attention and MLP split) and an SSM model (its heads and
+# its share of B and C over model, the in-projection's and conv's pieces
+# gathered from the ranks' blocks)
 TRAIN_ARCHS = ("granite-3-2b", "olmoe-1b-7b", "zamba2-2.7b", "mamba2-370m")
 # the train case's AdamW: with eps 1, no warmup and no weight decay, the
 # first step moves each parameter by g / (|g| + 1) of the clipped gradient g
@@ -276,10 +277,10 @@ def _gather_records(params, mesh):
     """While the step runs, each parameter gather (``ops.gather_block``) by
     leaf: ``whole_over_model``, the leaves gathered whole with a dimension
     split over ``model`` (a gather over ``model``); ``split_shapes_ok``,
-    whether every leaf gathered into its ``model`` block came out whole
-    along every dimension but the one its spec splits over ``model``, that
-    one cut by the ``model`` size; ``split_leaves``, the leaves gathered
-    so."""
+    whether every leaf gathered into its ``model`` block (or into its
+    pieces, ``Block.model_pieces``) came out whole along every dimension but
+    the one its spec splits over ``model``, that one cut by the ``model``
+    size; ``split_leaves``, the leaves gathered so."""
     from repro_torch.sharding import ops
     from repro_torch.train.tree import flatten_with_paths, path_key
 
@@ -294,8 +295,8 @@ def _gather_records(params, mesh):
     real = ops.gather_block
     seen = []
 
-    def spy(local, spec, mesh_, *, whole=True, sum_over_model=False):
-        got = real(local, spec, mesh_, whole=whole, sum_over_model=sum_over_model)
+    def spy(local, spec, mesh_, *, whole=True, sum_over_model=False, pieces=None):
+        got = real(local, spec, mesh_, whole=whole, sum_over_model=sum_over_model, pieces=pieces)
         name, shape = where[local.untyped_storage().data_ptr()]
         seen.append((name, shape[len(shape) - got.dim():], tuple(spec), whole, tuple(got.shape)))
         return got
@@ -761,3 +762,43 @@ def gated_norm_rank(rank, n, out_dir):
     np.savez(os.path.join(out_dir, f"gated_norm_{rank}.npz"), y=y.detach().numpy(),
              g_grad=gl.grad.numpy(), gamma_grad=gam.grad.numpy(),
              g=g.numpy(), gamma=gamma.numpy(), weight=weight.numpy())
+
+
+# ``Block.model_pieces`` on a (data 2, model 2) mesh: each case is (the
+# global shape, the spec, the dimension, the model ranks' pieces along it)
+PIECES_CASES = {
+    "columns_split": ((6, 12), ("data", "model"), 1,
+                      (((0, 2), (5, 3), (10, 1)), ((2, 3), (8, 2), (11, 1)))),
+    "rows_split": ((12, 3), ("model", None), 0, (((1, 4), (9, 3)), ((0, 1), (5, 4)))),
+}
+
+
+def pieces_weight(shape, dim: int, n: int, rank: int) -> np.ndarray:
+    """The loss weight of rank ``rank``'s ``n`` pieced entries: a seeded
+    normal array of the gathered shape, one for each rank."""
+    size = list(shape)
+    size[dim] = n
+    return np.random.default_rng(10 + rank).normal(size=size).astype(np.float32)
+
+
+def pieces_rank(rank, n, out_dir):
+    """For each ``PIECES_CASES`` case: this rank's ``Block`` of one seeded
+    float32 tensor, its pieces gathered by ``model_pieces`` and, under the
+    loss sum(pieces * ``pieces_weight``), the gradient of its block;
+    saved as ``pieces_<r>.npz``."""
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.sharding.ops import Block, P, local_block
+
+    mesh = compat_make_mesh((2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for name, (shape, spec, dim, table) in PIECES_CASES.items():
+        whole = torch.from_numpy(np.random.default_rng(5).normal(size=shape).astype(np.float32))
+        local = local_block(whole, mesh, P(*spec)).clone().requires_grad_(True)
+        got = Block(local, spec, mesh).model_pieces(dim, table)
+        weight = pieces_weight(shape, dim, got.shape[dim], rank)
+        (got * torch.from_numpy(weight)).sum().backward()
+        out[f"{name}_got"] = got.detach().numpy()
+        out[f"{name}_grad"] = local.grad.numpy()
+        out[f"{name}_model"] = mesh.axis_index("model")
+        out[f"{name}_data"] = mesh.axis_index("data")
+    np.savez(os.path.join(out_dir, f"pieces_{rank}.npz"), **out)
