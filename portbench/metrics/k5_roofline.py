@@ -1,0 +1,7 @@
+"""K5, the QuickScorer kernel (``bitvector_tile<...>``): its counted least
+time (``portbench.work``) over its device time in the trace, in %."""
+from portbench import devtrace, stats
+
+
+def read(records, cfg):
+    return stats.kernel_roofline(records, cfg, devtrace.K5)
