@@ -14,6 +14,9 @@ call it moves the rows over, keys them (FlInt) and runs
 the dense grid the tables keep with ``device="cpu"``.  The partials are the exact
 uint32 accumulators of every other backend, so ``flint`` and ``integer``
 differ only in the shared numpy finalize, and every plan can shard it.
+While a ``torch.profiler`` records, the steps are the ranges of the ``cuda``
+backend: ``backend.rows_in``, ``backend.keys``, ``backend.launch`` and
+``backend.rows_out``.
 
 Rows must carry at least the forest's ``n_features`` columns, as for the
 ``cuda`` backend: K5 takes the row stride from the rows.
@@ -31,6 +34,7 @@ from repro_torch.kernels.bitvector import (
     pack_bitvector_tables,
     tree_bitvector,
 )
+from repro_torch.obs import profiled
 
 
 @register_backend
@@ -59,5 +63,11 @@ class BitvectorBackend(TreeBackend):
             raise ValueError(
                 f"rows of shape {X.shape} have fewer columns than the "
                 f"{self.packed.n_features} features the forest reads")
-        x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
-        return u32_numpy(tree_bitvector(float_to_key(x), self._tables))
+        with profiled("backend.rows_in"):
+            x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
+        with profiled("backend.keys"):
+            keys = float_to_key(x)
+        with profiled("backend.launch"):
+            acc = tree_bitvector(keys, self._tables)
+        with profiled("backend.rows_out"):
+            return u32_numpy(acc)

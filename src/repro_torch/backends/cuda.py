@@ -7,7 +7,9 @@ no request repacks them.  Per call it moves the rows over, keys them (FlInt),
 launches K1, K2 or K3 through ``kernels.ops.tree_predict_integer`` and
 returns the uint32 partials to the host, where the shared numpy finalize
 runs.  ``flint`` and ``integer`` accumulate the same partials and differ
-only in that finalize.
+only in that finalize.  While a ``torch.profiler`` records, the four steps
+are the ranges ``backend.rows_in``, ``backend.keys``, ``backend.launch`` and
+``backend.rows_out`` (``repro_torch.obs.profiled``).
 
 ``impl="auto"`` (the default) resolves per layout: the bounded walk (K1) on
 scannable ``leaf_major`` tables, the gather walk (K2) on ``padded`` ones or
@@ -32,6 +34,7 @@ from repro_torch.core.ensemble import u32_numpy
 from repro_torch.core.flint import float_to_key
 from repro_torch.kernels.ops import resolve_impl, tree_predict_integer
 from repro_torch.kernels.tree_traverse import pack_node_quads
+from repro_torch.obs import profiled
 
 _DEFAULT_BLOCK_B = 256  # the engine's row bucket; not the CTA size
 
@@ -85,10 +88,15 @@ class CudaBackend(TreeBackend):
         impl = self.impl
         if self._auto_small_batch and len(X) < _SMALL_BATCH_GATHER_ROWS:
             impl = "gather"
-        x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
-        acc = tree_predict_integer(
-            float_to_key(x), *self._tables, depth=self.packed.max_depth,
-            impl=impl, device=self.device,
-            internal_counts=self._internal_counts if impl == "leaf_major" else None,
-            quads=self._quads, **self._blocks)
-        return u32_numpy(acc)
+        with profiled("backend.rows_in"):
+            x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
+        with profiled("backend.keys"):
+            keys = float_to_key(x)
+        with profiled("backend.launch"):
+            acc = tree_predict_integer(
+                keys, *self._tables, depth=self.packed.max_depth,
+                impl=impl, device=self.device,
+                internal_counts=self._internal_counts if impl == "leaf_major" else None,
+                quads=self._quads, **self._blocks)
+        with profiled("backend.rows_out"):
+            return u32_numpy(acc)

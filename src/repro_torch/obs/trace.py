@@ -29,6 +29,14 @@ Design constraints, in order:
     once; the batch span is parented to its first sampled rider and lists
     every rider span id in ``attrs["riders"]``, so the export layer can
     graft the shared execution subtree under *each* request that rode it.
+
+Beside the tracer, :func:`profiled` names the serving path's stages in a
+``torch.profiler`` trace, on the profiler's own clock: while a profiler
+records, each stage runs inside a range (``gateway.*``, ``batcher.*``,
+``engine.pad``, ``plan.*``, ``backend.*``), so the device trace can say what
+the host was doing while the card waited.  With no profiler recording it
+hands out :data:`NULL_SPAN` and enters nothing.  :class:`stage` times a
+block into a stage sample, a span and a range at once.
 """
 from __future__ import annotations
 
@@ -36,7 +44,10 @@ import threading
 import time
 from typing import Optional
 
-__all__ = ["Span", "Tracer", "NULL_SPAN", "NULL_TRACER"]
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _torch_profiler
+
+__all__ = ["Span", "Tracer", "NULL_SPAN", "NULL_TRACER", "profiled", "stage"]
 
 
 class Span:
@@ -134,6 +145,68 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+
+def profiled(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler records,
+    else :data:`NULL_SPAN`.  Use as ``with profiled("plan.finalize"): ...``.
+
+    The check is one read of torch's module flag, so a site costs an
+    attribute read and a no-op ``with`` when nothing records.  The range is
+    torch's ``_RecordFunctionFast``, which holds the interpreter lock from
+    its entry to its exit (``record_function`` hands it over at each, which
+    stretches every other thread's stages) and lands in the trace as a
+    ``cpu_op`` event.  A profiler keeps the ranges of the threads it records:
+    by default the thread that started it, where on any other thread the
+    range is one check in C; every thread with ``profile_all_threads`` in its
+    ``torch._C._profiler._ExperimentalConfig``.  Never hold a range across an
+    ``await``: it would interleave with other coroutines' ranges on the
+    event loop's thread."""
+    if _torch_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return NULL_SPAN
+
+
+class stage:
+    """Times a block as one serving stage: a :func:`profiled` range named
+    ``range_name``, ``record(key, ms)`` with the block's wall milliseconds,
+    and, when ``parent`` is a live span, the span ``span`` (``key`` if not
+    given) committed under it through ``tracer.record`` with ``attrs``.  Set
+    attributes known only once the block has run on ``.attrs`` inside it.  A
+    block that raises records no sample and no span.
+
+        with stage("plan.finalize", self._record_stage, "finalize",
+                   self._tracer, self.trace_parent):
+            out = finalize_partials(...)
+    """
+
+    __slots__ = ("_range", "_record", "_key", "_tracer", "_parent", "_span",
+                 "attrs", "_t0")
+
+    def __init__(self, range_name: str, record, key: str, tracer=None,
+                 parent=None, span: Optional[str] = None, **attrs):
+        self._range = profiled(range_name)
+        self._record = record
+        self._key = key
+        self._tracer = tracer
+        self._parent = parent
+        self._span = span or key
+        self.attrs = attrs
+
+    def __enter__(self) -> "stage":
+        self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter_ns()
+        if exc_type is None:
+            self._record(self._key, (t1 - self._t0) / 1e6)
+            if self._parent and self._tracer is not None:
+                self._tracer.record(self._span, self._t0, t1,
+                                    parent=self._parent, **self.attrs)
+        self._range.__exit__(exc_type, exc, tb)
+        return False
 
 
 class Tracer:

@@ -23,16 +23,18 @@ Plans that only serve exact-integer partial modes set
 ``deterministic_only = True`` so the gateway rejects the route up front.
 
 Tracing is duck-typed: a tracer is any object with
-``record(name, t0_ns, t1_ns, parent=..., **attrs)``.
+``record(name, t0_ns, t1_ns, parent=..., **attrs)``.  While a
+``torch.profiler`` records, each shard's call is a ``plan.shard`` range and
+the finalize a ``plan.finalize`` range (``repro_torch.obs.profiled``).
 """
 from __future__ import annotations
 
 import abc
 import threading
-import time
 from typing import ClassVar, Optional
 
 from repro_torch.core.ensemble import finalize_partials, mode_spec
+from repro_torch.obs import stage
 
 
 def build_backend(backend, model, mode: str, layout: Optional[str],
@@ -111,12 +113,9 @@ class ExecutionPlan(abc.ABC):
                 f"non-deterministic mode {self.mode!r}"
             )
         acc = self.predict_partials(X)
-        t0 = time.perf_counter_ns()
-        out = finalize_partials(self.mode, acc, self._n_trees, self._scale)
-        t1 = time.perf_counter_ns()
-        self._record_stage("finalize", (t1 - t0) / 1e9)
-        self._span("finalize", t0, t1, self.trace_parent)
-        return out
+        with stage("plan.finalize", self._record_stage, "finalize", self._tracer,
+                   self.trace_parent):
+            return finalize_partials(self.mode, acc, self._n_trees, self._scale)
 
     # ------------------------------------------------------- shard metadata
     @property
@@ -191,30 +190,27 @@ class ExecutionPlan(abc.ABC):
         if parent and self._tracer is not None:
             self._tracer.record(name, t0_ns, t1_ns, parent=parent, **attrs)
 
-    def _record(self, label: str, seconds: float) -> None:
+    def _record(self, label: str, ms: float) -> None:
         with self._timings_lock:
-            ms, calls = self._timings.get(label, (0.0, 0))
-            self._timings[label] = (ms + seconds * 1e3, calls + 1)
+            total, calls = self._timings.get(label, (0.0, 0))
+            self._timings[label] = (total + ms, calls + 1)
 
-    def _record_stage(self, stage: str, seconds: float) -> None:
+    def _record_stage(self, name: str, ms: float) -> None:
         """Accumulate one pipeline-stage sample (pad/merge/finalize)."""
         with self._timings_lock:
-            ms, calls = self._stages.get(stage, (0.0, 0))
-            self._stages[stage] = (ms + seconds * 1e3, calls + 1)
+            total, calls = self._stages.get(name, (0.0, 0))
+            self._stages[name] = (total + ms, calls + 1)
 
     def _timed(self, label: str, fn, *args, span_parent=None):
         """Run ``fn`` timing it into the shard ledger (and a span when
         traced).  Backends return host arrays, so the wall time includes
         the device work.  Shard pool threads receive the parent span
         explicitly (captured by the dispatching thread), never via the
-        thread-local."""
-        t0 = time.perf_counter_ns()
-        out = fn(*args)
-        t1 = time.perf_counter_ns()
-        self._record(label, (t1 - t0) / 1e9)
-        if span_parent:
-            self._span(f"shard:{label}", t0, t1, span_parent, label=label)
-        return out
+        thread-local.  The profiler range is ``plan.shard`` whatever the
+        label, which stays the span's."""
+        with stage("plan.shard", self._record, label, self._tracer, span_parent,
+                   f"shard:{label}", label=label):
+            return fn(*args)
 
     def drain_timings(self) -> dict:
         """Per-shard wall time since the last drain: ``{label: (ms, calls)}``."""

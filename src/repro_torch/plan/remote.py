@@ -276,7 +276,7 @@ class RemoteTreeParallelPlan(ExecutionPlan):
         t0 = time.perf_counter_ns()
         merged = reduce(np.add, partials)
         t1 = time.perf_counter_ns()
-        self._record_stage("merge", (t1 - t0) / 1e9)
+        self._record_stage("merge", (t1 - t0) / 1e6)
         self._span("merge", t0, t1, parent, shards=len(partials))
         return merged
 
@@ -319,7 +319,7 @@ class RemoteTreeParallelPlan(ExecutionPlan):
                     span.end(error=type(exc).__name__, evicted=True)
                 continue
             t1 = time.perf_counter_ns()
-            self._record(label, (t1 - t0) / 1e9)
+            self._record(label, (t1 - t0) / 1e6)
             if span:
                 # graft the worker's request-relative spans under the
                 # dispatch span, anchored at dispatch start: worker wall

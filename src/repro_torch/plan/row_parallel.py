@@ -76,7 +76,7 @@ class RowParallelPlan(ExecutionPlan):
         t0 = time.perf_counter_ns()
         out = np.concatenate([np.asarray(p) for p in parts])
         t1 = time.perf_counter_ns()
-        self._record_stage("merge", (t1 - t0) / 1e9)
+        self._record_stage("merge", (t1 - t0) / 1e6)
         self._span("merge", t0, t1, parent, shards=len(parts))
         return out
 
@@ -99,7 +99,7 @@ class RowParallelPlan(ExecutionPlan):
         scores = np.concatenate([np.asarray(s) for s, _ in outs])
         preds = np.concatenate([np.asarray(p) for _, p in outs])
         t1 = time.perf_counter_ns()
-        self._record_stage("merge", (t1 - t0) / 1e9)
+        self._record_stage("merge", (t1 - t0) / 1e6)
         self._span("merge", t0, t1, parent, shards=len(outs))
         return scores, preds
 

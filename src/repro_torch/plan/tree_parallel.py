@@ -206,7 +206,7 @@ class TreeParallelPlan(ExecutionPlan):
         t0 = time.perf_counter_ns()
         merged = reduce(np.add, partials)
         t1 = time.perf_counter_ns()
-        self._record_stage("merge", (t1 - t0) / 1e9)
+        self._record_stage("merge", (t1 - t0) / 1e6)
         self._span("merge", t0, t1, parent, shards=len(partials))
         return merged
 

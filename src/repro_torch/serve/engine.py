@@ -21,6 +21,8 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.obs import stage
+
 
 class LMEngine:
     """Batched prefill + greedy or sampled decode for one LM configuration.
@@ -341,11 +343,11 @@ class TreeEngine:
         return X, b, nb
 
     def _pad_traced(self, X):
-        t0 = time.perf_counter_ns()
-        X, b, nb = self._pad(X)
-        t1 = time.perf_counter_ns()
-        self.plan._record_stage("pad", (t1 - t0) / 1e9)
-        self.plan._span("pad", t0, t1, self.plan.trace_parent, rows=b, padded=nb)
+        plan = self.plan
+        with stage("engine.pad", plan._record_stage, "pad", plan._tracer,
+                   plan.trace_parent) as st:
+            X, b, nb = self._pad(X)
+            st.attrs = {"rows": b, "padded": nb}
         return X, b, nb
 
     def _execute(self, fn, X):

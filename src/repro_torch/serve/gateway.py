@@ -35,7 +35,10 @@ A batch shared by several coalesced requests emits ONE batch subtree,
 parented under the first live rider and tagged with every rider's span id
 (``attrs["riders"]``) so the export layer grafts it under each.  Untraced
 gateways pay one falsy-check per stage (``NULL_TRACER`` / ``NULL_SPAN``
-propagate through every hook).
+propagate through every hook).  While a ``torch.profiler`` records, the same
+stages are named ranges in its trace (``repro_torch.obs.profiled``):
+``gateway.cache_probe`` and ``gateway.stitch`` here on the event loop,
+``gateway.batch`` and ``gateway.record`` on the batch thread.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ import numpy as np
 
 from repro_torch.backends import backend_class
 from repro_torch.device import resolve_device
-from repro_torch.obs import NULL_TRACER
+from repro_torch.obs import NULL_TRACER, profiled, stage
 from repro_torch.serve.cache import QuantizedKeyCache, row_keys
 from repro_torch.serve.metrics import MetricsRegistry
 from repro_torch.serve.queue import AdmissionError, MicroBatcher
@@ -154,35 +157,38 @@ class Gateway:
         under the first *live* rider and tagged with every rider's span id —
         the export layer grafts it under each of them.
         """
-        mv = self.registry.get(model_id)  # resolve version at dispatch time
-        eng = self._engine(mv)
-        mm = self.metrics.model(model_id)
-        live = [s for s in rider_spans if s]
-        batch_span = None
-        if live:
-            batch_span = self.tracer.child(
-                live[0], "batch", model=model_id, rows=len(X),
-                riders=[s.span_id for s in live],
-            )
-        eng.attach_trace(self.tracer, batch_span)
-        try:
-            scores, preds = eng.predict_scores(X)
-        finally:
-            eng.detach_trace()
-            if batch_span:
-                batch_span.end()
-        # per-shard + per-stage wall time of this dispatch -> metrics row
-        mm.record_shards(eng.drain_shard_timings())
-        mm.record_stages(eng.drain_stage_timings())
-        mm.record_compiles(eng.drain_compile_timings())
-        # the dispatched SIMD ISA (free here: the batch above already built
-        # the backend, so the probe never triggers a compile)
-        mm.record_isa(eng.simd_isa())
-        mm.record_tuned(eng.tuned_config)
-        mm.record_spec(str(self.spec))
-        # meta = the version that actually computed, so cache fills are keyed
-        # consistently even when a hot-swap lands between submit and dispatch
-        return scores, preds, eng.padded_rows(len(X)), mv.version
+        with profiled("gateway.batch"):
+            mv = self.registry.get(model_id)  # resolve version at dispatch time
+            eng = self._engine(mv)
+            mm = self.metrics.model(model_id)
+            live = [s for s in rider_spans if s]
+            batch_span = None
+            if live:
+                batch_span = self.tracer.child(
+                    live[0], "batch", model=model_id, rows=len(X),
+                    riders=[s.span_id for s in live],
+                )
+            eng.attach_trace(self.tracer, batch_span)
+            try:
+                scores, preds = eng.predict_scores(X)
+            finally:
+                eng.detach_trace()
+                if batch_span:
+                    batch_span.end()
+            with profiled("gateway.record"):
+                # per-shard + per-stage wall time of this dispatch -> metrics row
+                mm.record_shards(eng.drain_shard_timings())
+                mm.record_stages(eng.drain_stage_timings())
+                mm.record_compiles(eng.drain_compile_timings())
+                # the dispatched SIMD ISA (free here: the batch above already
+                # built the backend, so the probe never triggers a compile)
+                mm.record_isa(eng.simd_isa())
+                mm.record_tuned(eng.tuned_config)
+                mm.record_spec(str(self.spec))
+            # meta = the version that actually computed, so cache fills are
+            # keyed consistently even when a hot-swap lands between submit and
+            # dispatch
+            return scores, preds, eng.padded_rows(len(X)), mv.version
 
     # -------------------------------------------------------------- submit
     async def submit(self, model_id: str, X):
@@ -199,22 +205,19 @@ class Gateway:
         # every child hook below then short-circuits
         span = self.tracer.request_span("request", model=model_id, rows=n)
 
-        tc0 = time.perf_counter_ns()
-        keys = row_keys(X) if cacheable else [None] * n
-        cached: dict[int, tuple] = {}
-        if cacheable:
-            for i, rk in enumerate(keys):
-                hit = self.cache.get(
-                    self.cache.key_for(model_id, mv.version, self.mode, rk)
-                )
-                if hit is not None:
-                    cached[i] = hit
-            mm.record_cache(len(cached), n - len(cached))
-        tc1 = time.perf_counter_ns()
-        mm.record_stage("cache", (tc1 - tc0) / 1e6)
-        if span:
-            self.tracer.record("cache_probe", tc0, tc1, parent=span,
-                               hits=len(cached), rows=n)
+        with stage("gateway.cache_probe", mm.record_stage, "cache", self.tracer,
+                   span, "cache_probe") as st:
+            keys = row_keys(X) if cacheable else [None] * n
+            cached: dict[int, tuple] = {}
+            if cacheable:
+                for i, rk in enumerate(keys):
+                    hit = self.cache.get(
+                        self.cache.key_for(model_id, mv.version, self.mode, rk)
+                    )
+                    if hit is not None:
+                        cached[i] = hit
+                mm.record_cache(len(cached), n - len(cached))
+            st.attrs = {"hits": len(cached), "rows": n}
 
         miss_idx = [i for i in range(n) if i not in cached]
         if not miss_idx:
@@ -222,7 +225,8 @@ class Gateway:
             # into hit_requests, and record latency like any other request —
             # a gateway that timed only its misses would report p50/p95 far
             # worse than what a high-hit-rate client stream experiences.
-            scores, preds = self._stitch(n, cached, [], None, None)
+            with stage("gateway.stitch", mm.record_stage, "stitch"):
+                scores, preds = self._stitch(n, cached, [], None, None)
             mm.hit_requests += 1
             mm.record_request(n, (time.perf_counter() - t0) * 1e3)
             span.end(cache="all_hit")
@@ -247,19 +251,15 @@ class Gateway:
             mm.record_rejected()
             span.end(rejected=True)
             raise
-        ts0 = time.perf_counter_ns()
-        if cacheable:
-            for j, i in enumerate(miss_idx):
-                self.cache.put(
-                    self.cache.key_for(model_id, served_version, self.mode, keys[i]),
-                    m_scores[j], m_preds[j],
-                )
-        scores, preds = self._stitch(n, cached, miss_idx, m_scores, m_preds)
-        ts1 = time.perf_counter_ns()
-        mm.record_stage("stitch", (ts1 - ts0) / 1e6)
-        if span:
-            self.tracer.record("stitch", ts0, ts1, parent=span,
-                               cached=len(cached), computed=len(miss_idx))
+        with stage("gateway.stitch", mm.record_stage, "stitch", self.tracer, span,
+                   cached=len(cached), computed=len(miss_idx)):
+            if cacheable:
+                for j, i in enumerate(miss_idx):
+                    self.cache.put(
+                        self.cache.key_for(model_id, served_version, self.mode, keys[i]),
+                        m_scores[j], m_preds[j],
+                    )
+            scores, preds = self._stitch(n, cached, miss_idx, m_scores, m_preds)
         mm.record_request(n, (time.perf_counter() - t0) * 1e3)
         span.end()
         return scores, preds

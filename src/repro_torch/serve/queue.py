@@ -19,7 +19,10 @@ dispatch, the micro-batching wait) under that parent and reports the same
 waits to ``on_queue`` for the per-stage metric histograms.  With
 ``pass_spans=True`` the executor is called as ``execute(model_id, X,
 rider_spans)`` so the gateway can graft the shared batch subtree under every
-rider request.
+rider request.  While a ``torch.profiler`` records, the worker's two stretches
+of host work between awaits are named ranges: ``batcher.assemble`` (from the
+dispatch instant: queue spans, ``on_queue``, the concatenation) and
+``batcher.scatter`` (``on_batch`` and the callers' results).
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Tuple
 
 import numpy as np
+
+from repro_torch.obs import profiled
 
 ExecuteFn = Callable[[str, np.ndarray], Tuple[np.ndarray, np.ndarray, int, object]]
 
@@ -166,29 +171,33 @@ class MicroBatcher:
                 batch.append(nxt)
                 rows += nxt.rows
             self._queued_rows[model_id] -= rows
-            # dispatch instant: every pending request's micro-batching wait
-            # ends here, together — one queue span per request, one stage
-            # sample per request
-            t_dispatch = time.perf_counter()
-            if self._tracer is not None:
-                for p in batch:
-                    if p.span:
-                        self._tracer.record(
-                            "queue", int(p.t_enqueue * 1e9),
-                            int(t_dispatch * 1e9), parent=p.span, rows=p.rows,
-                        )
-            if self._on_queue is not None:
-                try:
-                    self._on_queue(
-                        model_id,
-                        [(t_dispatch - p.t_enqueue) * 1e3 for p in batch],
-                    )
-                except Exception:
-                    pass  # metrics callbacks must never take down the lane
             try:
-                # concatenate inside the try: ragged feature widths from a
-                # misbehaving client must fail its batch, not kill the worker
-                X = np.concatenate([p.X for p in batch]) if len(batch) > 1 else batch[0].X
+                # the batch's host work up to the executor; no await inside,
+                # so the range cannot interleave with other coroutines'
+                with profiled("batcher.assemble"):
+                    # dispatch instant: every pending request's
+                    # micro-batching wait ends here, together — one queue
+                    # span per request, one stage sample per request
+                    t_dispatch = time.perf_counter()
+                    if self._tracer is not None:
+                        for p in batch:
+                            if p.span:
+                                self._tracer.record(
+                                    "queue", int(p.t_enqueue * 1e9),
+                                    int(t_dispatch * 1e9), parent=p.span, rows=p.rows,
+                                )
+                    if self._on_queue is not None:
+                        try:
+                            self._on_queue(
+                                model_id,
+                                [(t_dispatch - p.t_enqueue) * 1e3 for p in batch],
+                            )
+                        except Exception:
+                            pass  # metrics callbacks must never take down the lane
+                    # concatenate inside the try: ragged feature widths from
+                    # a misbehaving client must fail its batch, not kill the
+                    # worker
+                    X = np.concatenate([p.X for p in batch]) if len(batch) > 1 else batch[0].X
                 if self._pass_spans:
                     spans = tuple(p.span for p in batch)
                     scores, preds, padded, meta = await loop.run_in_executor(
@@ -210,18 +219,19 @@ class MicroBatcher:
                 if closing and carry is None:
                     return
                 continue
-            if self._on_batch is not None:
-                try:
-                    self._on_batch(model_id, rows, padded)
-                except Exception:
-                    pass  # metrics callbacks must never take down the lane
-            off = 0
-            for p in batch:
-                if not p.future.done():
-                    p.future.set_result(
-                        (scores[off:off + p.rows], preds[off:off + p.rows], meta)
-                    )
-                off += p.rows
+            with profiled("batcher.scatter"):
+                if self._on_batch is not None:
+                    try:
+                        self._on_batch(model_id, rows, padded)
+                    except Exception:
+                        pass  # metrics callbacks must never take down the lane
+                off = 0
+                for p in batch:
+                    if not p.future.done():
+                        p.future.set_result(
+                            (scores[off:off + p.rows], preds[off:off + p.rows], meta)
+                        )
+                    off += p.rows
             if closing and carry is None:
                 return
 
