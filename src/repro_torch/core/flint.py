@@ -17,6 +17,9 @@ import numpy as np
 import torch
 
 _INT32_MIN = -2147483648
+# numpy scalars, so the numpy twin's operators skip converting Python ints
+_SIGN_SHIFT = np.int32(31)
+_MAGNITUDE = np.int32(0x7FFFFFFF)
 
 
 def float_to_key(f: torch.Tensor) -> torch.Tensor:
@@ -32,9 +35,18 @@ def key_to_float(k: torch.Tensor) -> torch.Tensor:
 
 
 def float_to_key_np(f: np.ndarray) -> np.ndarray:
+    """float32 array -> order-preserving int32 keys, in int32 arithmetic.
+
+    Branch-free: with ``s = b >> 31`` (-1 for negative ``b``, else 0) and
+    ``m = b & 0x7FFFFFFF``, ``(m ^ s) - s`` is ``b`` for ``b >= 0`` and
+    ``-m == INT32_MIN - b`` otherwise; no step can overflow.
+    """
     b = np.asarray(f, np.float32).view(np.int32)
-    neg = (np.int64(_INT32_MIN) - b.astype(np.int64)).astype(np.int32)
-    return np.where(b < 0, neg, b)
+    sign = b >> _SIGN_SHIFT
+    key = b & _MAGNITUDE
+    key ^= sign
+    key -= sign
+    return key
 
 
 def key_to_float_np(k: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Serving subsystem: the shape-bucketing engine, the async gateway, and the
 shard-worker fabric.
 
-Request path:  client → Gateway.submit → QuantizedKeyCache (per-row probe)
+Request path:  client → Gateway.submit → QuantizedKeyCache (a request's probe)
              → MicroBatcher (coalesce to block-shaped batches under a
                latency deadline, admission-controlled) → ModelRegistry
                (versioned, hot-swappable, ITRF artifacts mmap-loaded)

@@ -1,17 +1,18 @@
 """The serving gateway: cache → micro-batcher → registry → engine → plan.
 
-``Gateway.submit(model_id, X)`` is the one client entry point.  Per row it
-first probes the :class:`QuantizedKeyCache` (exact FlInt-key match — safe
-because the flint/integer engines are bit-deterministic); rows that miss are
-coalesced by the :class:`MicroBatcher` into block-shaped batches and executed
-on the :class:`TreeEngine` of the model's *current* registry version for the
+``Gateway.submit(model_id, X)`` is the one client entry point.  It first
+probes the :class:`QuantizedKeyCache` with the request's rows at once (exact
+FlInt-key match — safe because the flint/integer engines are
+bit-deterministic); rows that miss are coalesced by the
+:class:`MicroBatcher` into block-shaped batches and executed on the
+:class:`TreeEngine` of the model's *current* registry version for the
 gateway's route (an :class:`EngineSpec` such as ``integer:cuda`` or
 ``integer:cuda@padded?impl=onehot``) on the gateway's ``device``, then
-inserted into the cache.  Every deterministic route gives the same bits, so
-cache entries stay keyed on (model, version, mode) only.  The response
-stitches cached and computed rows back into request order, so callers
-always see exactly what a direct ``TreeEngine.predict_scores`` on their rows
-would return, bit for bit.
+filled into the cache in one call.  Every deterministic route gives the same
+bits, so cache entries stay keyed on (model, version, mode) only.  The
+response stitches cached and computed rows back into request order by
+indexing, so callers always see exactly what a direct
+``TreeEngine.predict_scores`` on their rows would return, bit for bit.
 
 The batcher runs each batch in an executor thread, so several model lanes —
 and several gateways — launch kernels from threads at once; the kernels'
@@ -53,6 +54,9 @@ from repro_torch.serve.cache import QuantizedKeyCache, row_keys
 from repro_torch.serve.metrics import MetricsRegistry
 from repro_torch.serve.queue import AdmissionError, MicroBatcher
 from repro_torch.serve.registry import ModelRegistry
+
+# a probe with no hit: no rows, no scores, no preds
+_NO_HITS = (np.empty(0, np.intp), None, None)
 
 
 class Gateway:
@@ -207,41 +211,42 @@ class Gateway:
 
         with stage("gateway.cache_probe", mm.record_stage, "cache", self.tracer,
                    span, "cache_probe") as st:
-            keys = row_keys(X) if cacheable else [None] * n
-            cached: dict[int, tuple] = {}
+            hit_idx, h_scores, h_preds = _NO_HITS
             if cacheable:
-                for i, rk in enumerate(keys):
-                    hit = self.cache.get(
-                        self.cache.key_for(model_id, mv.version, self.mode, rk)
-                    )
-                    if hit is not None:
-                        cached[i] = hit
-                mm.record_cache(len(cached), n - len(cached))
-            st.attrs = {"hits": len(cached), "rows": n}
+                keys = row_keys(X)
+                hit_idx, h_scores, h_preds = self.cache.probe(
+                    (model_id, mv.version, self.mode), keys)
+                mm.record_cache(len(hit_idx), n - len(hit_idx))
+            st.attrs = {"hits": len(hit_idx), "rows": n}
 
-        miss_idx = [i for i in range(n) if i not in cached]
-        if not miss_idx:
+        if len(hit_idx) == n:
             # served entirely from cache: skip the batcher, count the request
             # into hit_requests, and record latency like any other request —
             # a gateway that timed only its misses would report p50/p95 far
             # worse than what a high-hit-rate client stream experiences.
             with stage("gateway.stitch", mm.record_stage, "stitch"):
-                scores, preds = self._stitch(n, cached, [], None, None)
+                scores, preds = self._stitch(n, hit_idx, h_scores, h_preds,
+                                             None, None, None)
             mm.hit_requests += 1
             mm.record_request(n, (time.perf_counter() - t0) * 1e3)
             span.end(cache="all_hit")
             return scores, preds
+        miss_idx = slice(None)  # every row, as a view
+        if len(hit_idx):
+            missed = np.ones(n, bool)
+            missed[hit_idx] = False
+            miss_idx = np.flatnonzero(missed)
         try:
             m_scores, m_preds, served_version = await self.batcher.submit(
                 model_id, X[miss_idx], span=span
             )
-            if cached and served_version != mv.version:
+            if len(hit_idx) and served_version != mv.version:
                 # a hot-swap landed between the cache probe and dispatch:
                 # the hits are from the old version.  Recompute the whole
                 # request in ONE batcher call — a single execute runs on a
                 # single version, so the response cannot mix versions.
-                cached = {}
-                miss_idx = list(range(n))
+                hit_idx, h_scores, h_preds = _NO_HITS
+                miss_idx = slice(None)
                 m_scores, m_preds, served_version = await self.batcher.submit(
                     model_id, X, span=span
                 )
@@ -252,32 +257,34 @@ class Gateway:
             span.end(rejected=True)
             raise
         with stage("gateway.stitch", mm.record_stage, "stitch", self.tracer, span,
-                   cached=len(cached), computed=len(miss_idx)):
+                   cached=len(hit_idx), computed=n - len(hit_idx)):
             if cacheable:
-                for j, i in enumerate(miss_idx):
-                    self.cache.put(
-                        self.cache.key_for(model_id, served_version, self.mode, keys[i]),
-                        m_scores[j], m_preds[j],
-                    )
-            scores, preds = self._stitch(n, cached, miss_idx, m_scores, m_preds)
+                self.cache.fill(
+                    (model_id, served_version, self.mode),
+                    keys if isinstance(miss_idx, slice)
+                    else list(map(keys.__getitem__, miss_idx.tolist())),
+                    m_scores, m_preds,
+                )
+            scores, preds = self._stitch(n, hit_idx, h_scores, h_preds,
+                                         miss_idx, m_scores, m_preds)
         mm.record_request(n, (time.perf_counter() - t0) * 1e3)
         span.end()
         return scores, preds
 
     @staticmethod
-    def _stitch(n, cached, miss_idx, m_scores, m_preds):
+    def _stitch(n, hit_idx, h_scores, h_preds, miss_idx, m_scores, m_preds):
         """Reassemble cached and computed rows into request order."""
         # shape/dtype from the results themselves: after a mid-request
         # hot-swap the serving version's class count may differ from mv's
-        proto = m_scores[0] if m_scores is not None else next(iter(cached.values()))[0]
+        proto = m_scores if m_scores is not None else h_scores
         scores = np.empty((n, proto.shape[-1]), proto.dtype)
         preds = np.empty(n, np.int32)
-        for i, (s_row, p) in cached.items():
-            scores[i] = s_row
-            preds[i] = p
-        for j, i in enumerate(miss_idx):
-            scores[i] = m_scores[j]
-            preds[i] = m_preds[j]
+        if len(hit_idx):
+            scores[hit_idx] = h_scores
+            preds[hit_idx] = h_preds
+        if m_scores is not None:
+            scores[miss_idx] = m_scores
+            preds[miss_idx] = m_preds
         return scores, preds
 
     # ------------------------------------------------------------- control

@@ -73,3 +73,25 @@ def test_keys_preserve_order_of_finite_floats():
     f = np.unique(f[np.isfinite(f)])  # sorted, -0.0 and +0.0 merged
     keys = tflint.float_to_key(torch.from_numpy(f)).numpy()
     assert np.all(np.diff(keys.astype(np.int64)) > 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int32_numpy_keys_bit_equal_to_the_jax_packages(seed):
+    """The port's numpy keys, computed in int32 arithmetic, against the JAX
+    package's int64 round trip: every special pattern (the sign bit alone,
+    -0.0's 0x80000000, included), a sweep of each pattern's neighbours, and
+    seeded random bits, flat, as cache rows and as one scalar."""
+    rng = np.random.default_rng(seed)
+    near = (_SPECIAL[:, None].astype(np.int64) + np.arange(-2, 3)) % 2 ** 32
+    bits = np.concatenate([_SPECIAL, near.ravel().astype(np.uint32),
+                           rng.integers(0, 2 ** 32, 1 << 16, dtype=np.uint64).astype(np.uint32)])
+    f = bits.view(np.float32)
+    port = tflint.float_to_key_np(f)
+    assert port.dtype == np.int32
+    np.testing.assert_array_equal(port, jflint.float_to_key_np(f))
+    rows = f[:87 * (len(f) // 87)].reshape(-1, 87)
+    np.testing.assert_array_equal(tflint.float_to_key_np(rows), jflint.float_to_key_np(rows))
+    assert int(tflint.float_to_key_np(np.float32(-0.0))) == 0
+    for b in _SPECIAL.tolist():
+        x = np.array(b, np.uint32).view(np.float32)
+        assert int(tflint.float_to_key_np(x)) == int(jflint.float_to_key_np(x))

@@ -91,6 +91,95 @@ def test_gateway_matches_the_jax_gateway(data, route, ref_route):
     assert not np.array_equal(outs[6][0], outs[4][0][:12])
 
 
+@pytest.fixture(scope="module")
+def two_class_forest(data):
+    """A JAX forest of two classes, where ``data``'s forests have four."""
+    X = data[0]
+    return JForest(n_estimators=3, max_depth=4, seed=3).fit(X[:400], (X[:400, 0] > 0).astype(int))
+
+
+def _serve_tiny_cache(gateway_cls, registry_cls, route, data, v2, **kw):
+    """An 8-row cache under 20-row requests: repeated rows inside a request,
+    concurrent requests that fill the same rows, then a hot swap to a forest
+    of another class count while a request with cached rows is queued (its
+    whole request is recomputed on the new version), and requests after."""
+    X, _, v1, _ = data
+    reg = registry_cls()
+    reg.register_forest("m", v1)
+    gw = gateway_cls(reg, route, max_batch_rows=32, max_delay_ms=1.0, cache_rows=8, **kw)
+    rng = np.random.default_rng(5)
+    reqs = [X[rng.integers(0, 30, size=20)] for _ in range(6)]
+
+    async def run():
+        outs = list(await asyncio.gather(*[gw.submit("m", r) for r in reqs[:3]]))
+        for r in reqs[3:] + reqs[:2]:
+            outs.append(await gw.submit("m", r))
+        outs.append(await gw.submit("m", reqs[5][:6]))  # 6 rows, all stored after
+        tail = asyncio.ensure_future(gw.submit("m", reqs[5]))  # probes v1: hits
+        await asyncio.sleep(0)
+        reg.register_forest("m", v2)  # ... and is served by v2
+        outs.append(await tail)
+        outs += list(await asyncio.gather(*[gw.submit("m", r) for r in reqs[:2]]))
+        await gw.close()
+        return outs
+
+    outs = asyncio.run(run())
+    st = gw.stats()
+    return outs, reqs, st["cache"], st["per_model"]["m"]
+
+
+@pytest.mark.parametrize("route,ref_route", [ROUTES[0], ROUTES[2]])
+def test_tiny_cache_repeats_and_a_class_count_swap_match_the_jax_gateway(
+        data, two_class_forest, route, ref_route):
+    outs, reqs, cache, per_model = _serve_tiny_cache(
+        Gateway, ModelRegistry, route, data, two_class_forest, device="cpu")
+    jouts, _, jcache, jper_model = _serve_tiny_cache(
+        JGateway, JModelRegistry, ref_route, data, two_class_forest)
+    assert len(outs) == len(jouts) == 12
+    for (s, p), (js, jp) in zip(outs, jouts, strict=True):
+        assert s.dtype == np.asarray(js).dtype
+        np.testing.assert_array_equal(s, np.asarray(js))
+        np.testing.assert_array_equal(p, np.asarray(jp))
+    for key in ("hits", "misses", "rows", "evictions"):
+        assert cache[key] == jcache[key], key
+    for key in ("requests", "hit_requests", "rows", "batches", "cache_hits", "rejected"):
+        assert per_model[key] == jper_model[key], key
+    assert cache["rows"] == 8 and cache["evictions"] > 0 and cache["hits"] > 0
+    assert any(len(np.unique(r, axis=0)) < len(r) for r in reqs)
+    # each answer equals a direct engine of the version that served it
+    direct = ModelRegistry()
+    v1 = direct.register_forest("v1", data[2]).engine(route, device="cpu")
+    v2 = direct.register_forest("v2", two_class_forest).engine(route, device="cpu")
+    served = reqs[:3] + reqs[3:] + reqs[:2] + [reqs[5][:6]]
+    for (s, p), X in zip(outs[:9], served, strict=True):
+        np.testing.assert_array_equal(s, v1.predict_scores(X)[0])
+        np.testing.assert_array_equal(p, v1.predict_scores(X)[1])
+    for (s, p), X in zip(outs[9:], [reqs[5]] + reqs[:2], strict=True):
+        assert s.shape == (20, 2)
+        np.testing.assert_array_equal(s, v2.predict_scores(X)[0])
+        np.testing.assert_array_equal(p, v2.predict_scores(X)[1])
+
+
+def test_gateway_probes_the_cache_once_a_request(data):
+    X, _, v1, _ = data
+    reg = ModelRegistry()
+    reg.register_forest("m", v1)
+    gw = Gateway(reg, "integer:cuda", max_delay_ms=1.0, device="cpu")
+    off = Gateway(reg, "float:reference", max_delay_ms=1.0, device="cpu")
+
+    async def run():
+        for g in (gw, off):
+            for a, b in ((0, 1), (0, 20), (0, 20), (10, 40)):  # one all-hit request
+                await g.submit("m", X[a:b])
+            await g.close()
+
+    asyncio.run(run())
+    st = gw.cache.stats()
+    assert st["probes"] == 4 and (st["hits"] + st["misses"]) / st["probes"] == 71 / 4
+    assert gw.stats()["per_model"]["m"]["hit_requests"] == 1
+    assert off.cache.capacity_rows == 0 and off.cache.stats()["probes"] == 0
+
+
 def test_gateway_stats_and_table(data):
     outs, _, per_model, _ = _serve(Gateway, ModelRegistry, "integer:cuda", data, device="cpu")
     assert per_model["spec"] == "integer:cuda" and per_model["tuned"] == "-"
