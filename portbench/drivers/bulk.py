@@ -26,7 +26,7 @@ class Driver:
         from repro_torch.serve import TreeEngine
 
         ctx = self.ctx
-        ir = ForestIR.from_forest(system.program_forest(ctx.forest))
+        ir = ForestIR.from_forest(ctx.family.program_model(ctx.forest))
         self.engine = TreeEngine(ir, spec=ctx.mix["route"], device=ctx.device)
         for n in sorted(set(ctx.mix["sizes"])):
             self.engine.predict_scores(ctx.traffic.ring[:n])

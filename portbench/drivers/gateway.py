@@ -29,7 +29,7 @@ class Driver:
 
         ctx = self.ctx
         reg = ModelRegistry()
-        mv = reg.register_forest(system.MODEL_ID, system.program_forest(ctx.forest))
+        mv = reg.register_forest(system.MODEL_ID, ctx.family.program_model(ctx.forest))
         self.gw = Gateway(reg, ctx.mix["route"], device=ctx.device, **ctx.mix["gateway"])
         eng = mv.engine(self.gw.spec, device=ctx.device, plan_kwargs=self.gw.plan_kwargs)
         eng.warm(max(ctx.mix["sizes"]))

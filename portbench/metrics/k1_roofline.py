@@ -1,5 +1,6 @@
 """K1, the bounded walk (``walk_tile<..., Walk::kBounded, ...>``): its counted
-least time (``portbench.work``) over its device time in the trace, in %."""
+least time (by the configuration's family) over its device time in the trace,
+in %."""
 from portbench import devtrace, stats
 
 

@@ -1,5 +1,5 @@
 """K5, the QuickScorer kernel (``bitvector_tile<...>``): its counted least
-time (``portbench.work``) over its device time in the trace, in %."""
+time (by the configuration's family) over its device time in the trace, in %."""
 from portbench import devtrace, stats
 
 

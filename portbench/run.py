@@ -5,14 +5,16 @@
 
 Run from the root of a checkout that holds ``src/repro_torch``.  It
 
-1. makes the cell's forest and traffic from ``--seed``, builds the program's
-   engine or gateway on the mix's route (the kernels are built with ``nvcc``
-   into ``build/repro_torch/`` in the checkout on the first run there), warms
-   the cell's own buckets and runs the mix's warm-up traffic: ``setup_s``;
+1. makes the cell's model, by its configuration's family
+   (``portbench/families/``), and its traffic from ``--seed``, builds the
+   program's engine or gateway on the mix's route (the kernels are built with
+   ``nvcc`` into ``build/repro_torch/`` in the checkout on the first run
+   there), warms the cell's own buckets and runs the mix's warm-up traffic:
+   ``setup_s``;
 2. drives the mix for ``--seconds`` (under ``torch.profiler`` with
    ``--trace 1``);
-3. frees the program's state and compares the kept answers with the plain
-   reference (``portbench/reference.py``) on the card;
+3. frees the program's state and compares the kept answers with the family's
+   plain reference on the card;
 4. fails, printing no result, if JAX or the JAX package is loaded;
 5. fails, printing no result, if a metric that ``BENCHMARK.json`` gives the
    cell reads nothing: a kernel renamed, launches that no longer pair with
@@ -23,7 +25,8 @@ Run from the root of a checkout that holds ``src/repro_torch``.  It
    with ``--trace 1`` ``breakdown``, and last ``check``.
 
 Without a CUDA card, or with fewer than the cell asks for, it exits 2 and
-prints no result; so it does for a name or a mix key that nothing reads.
+prints no result; so it does for a name, a family or a mix key that nothing
+reads.
 """
 from __future__ import annotations
 
@@ -44,7 +47,6 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from portbench import catalog, check, devtrace, stats  # noqa: E402
-from portbench.forest import make_forest  # noqa: E402
 from portbench.traffic import Traffic  # noqa: E402
 
 DEVICE = "cuda"
@@ -146,9 +148,10 @@ def main(argv=None) -> int:
 
     traced = bool(args.trace)
     marks = [("start", time.perf_counter())]
-    forest = make_forest(cell.cfg, args.seed)
+    forest = cell.family.make_forest(cell.cfg, args.seed)
     marks.append(("forest", time.perf_counter()))
-    ctx = SimpleNamespace(cfg=cell.cfg, mix=cell.mix, forest=forest, device=torch.device(DEVICE),
+    ctx = SimpleNamespace(cfg=cell.cfg, mix=cell.mix, family=cell.family, forest=forest,
+                          device=torch.device(DEVICE),
                           traffic=Traffic(cell.mix, cell.cfg["n_features"], args.seed),
                           trace=traced)
     marks.append(("rows", time.perf_counter()))
@@ -177,9 +180,7 @@ def main(argv=None) -> int:
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
 
-    from portbench.reference import Reference
-
-    ref = Reference(forest, ctx.device)
+    ref = cell.family.Reference(forest, ctx.device)
     ref_scores, ref_preds = ref.scores(ctx.traffic.ring)
     correct, limits = check.verdict(check.compare(answers, ref_scores, ref_preds, failed))
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from portbench import devtrace, work
+from portbench import catalog, devtrace
 
 
 def window_s(records: dict) -> float:
@@ -35,10 +35,10 @@ def window_events(records: dict) -> list:
 
 
 def kernel_roofline(records: dict, cfg: dict, pattern):
-    """Counted least time over measured time, in %, of the launches of one
-    walk kernel.  Each launch of the walk kernels (``devtrace.WALK`` or
-    ``pattern``) is paired, in order, with one batch; a count that does not
-    pair up, or no launch of ``pattern``, reads nothing."""
+    """Counted least time (by the configuration's family) over measured time,
+    in %, of the launches of one walk kernel.  Each launch of the walk kernels
+    (``devtrace.WALK`` or ``pattern``) is paired, in order, with one batch; a
+    count that does not pair up, or no launch of ``pattern``, reads nothing."""
     walks = [e for e in window_events(records)
              if e[0] == "kernel" and (devtrace.WALK.search(e[1]) or pattern.search(e[1]))]
     batches = records.get("batches", [])
@@ -47,6 +47,7 @@ def kernel_roofline(records: dict, cfg: dict, pattern):
     mine = [(e, rows) for e, rows in zip(walks, batches) if pattern.search(e[1])]
     if not mine:
         return None
-    least = sum(work.bound_s(cfg, rows)[0] for _, rows in mine)
+    bound_s = catalog.family(cfg).bound_s
+    least = sum(bound_s(cfg, rows)[0] for _, rows in mine)
     took = sum(e[3] for e, _ in mine) * 1e-6
     return 100.0 * least / took if took > 0 else None

@@ -176,6 +176,14 @@ def test_a_broken_timed_path_is_not_correct(checkout, patch, workload):
     assert result["check"]["rows_wrong"]["value"] > 0
 
 
+def test_a_configuration_of_an_unknown_family_fails_and_prints_no_result(checkout):
+    (checkout / "portbench" / "configs" / "tiny.json").write_text(
+        json.dumps(dict(TINY, family="no_such_family")))
+    proc, result = run_cell(checkout, "tiny.tbulk")
+    assert proc.returncode == 2 and result is None and proc.stdout.strip() == ""
+    assert "no_such_family" in proc.stderr
+
+
 def test_a_run_that_holds_jax_prints_no_result(checkout):
     proc, result = run_cell(checkout, "tiny.tbulk", "jax")
     assert proc.returncode == 3 and result is None

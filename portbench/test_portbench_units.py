@@ -1,8 +1,10 @@
 """CPU tests of the benchmark's pieces: the reference against the port's
-``integer:reference`` route, the work counts, the catalog, the traffic
-generator and the metric readers on a small recorded trace."""
+``integer:reference`` route, the ``rf`` family's forests and answers pinned,
+the work counts, the catalog, the traffic generator and the metric readers on
+a small recorded trace."""
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from portbench import catalog, devtrace, stats, work
-from portbench.forest import make_forest
+from portbench.forest import ROWS_STREAM, make_forest, rng_for
 from portbench.reference import Reference
 from portbench.traffic import Traffic, check_mix
 
@@ -70,6 +72,49 @@ def test_reference_imports_nothing_of_the_program_or_jax():
     assert not tops & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
 
 
+def digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+# the forests' arrays and the reference's answers on the first 4,096 ring rows,
+# as the benchmark drew and computed them before configurations had families
+PINNED = {
+    ("intreeger-rf", 0): ("74fd856d10ccc2727e1353ce4332b00976b6d4149d1c0b61cd00ed839df82c06",
+                          "90a530032208ede3a007528358f79a95a08ff309b19dbd3a64c1709004cabd29"),
+    ("intreeger-rf", 1): ("985893ed558fc32bd4e46b6abc4c6ec3d4a225e99cf70808ae724afbc0818cc4",
+                          "b889f3b3e28f8c979bf8908971b6b58973d546ba3df35f74b1185ad41d6f0cc8"),
+    ("intreeger-rf", 2): ("307086c519fdeb296e982cb4fa98ff5ff991c174d555f5acc20f60b049944fc4",
+                          "a6cd3721bd6020e6b2f3c5fcb25e9e9a517dacf9ecc0af0798d418ffe71dafec"),
+    ("covtype-rf500", 0): ("9df38d8ed5b994d785af453e0e2e45ce6f1819d9d8bf18fdd53165c5a0a69b80",
+                           "65a27e09265f4ca4ab3bf1093301c1ded084668aa9ce0610faa06358d919884f"),
+    ("covtype-rf500", 1): ("88d760ecffb4cc24fe3dc263f8af6632943fad6ad67f43bc10b258dee4692dd8",
+                           "0d1d640ba82ffacc6891d78a01425b75aefa48e343eb455c0c9e901d578b9f49"),
+    ("covtype-rf500", 2): ("3b9ab192f117ad18a8f8eb9463d374fbb5cb250f2d8fe69de126d45e9fd6337c",
+                           "6a471c2cfed54be444c5c66dae506e85747977ddc00fd388571553c2a3e7f5dd"),
+}
+
+
+@pytest.mark.parametrize("name,seed", sorted(PINNED))
+def test_the_rf_family_draws_and_answers_as_before(name, seed):
+    cfg = CFGS[name]
+    fam = catalog.family(cfg)
+    assert "family" not in cfg
+    assert (fam.make_forest, fam.Reference) == (make_forest, Reference)
+    assert (fam.batch_bytes, fam.batch_ops, fam.bound_s) == (work.batch_bytes, work.batch_ops,
+                                                             work.bound_s)
+    forest = fam.make_forest(cfg, seed)
+    x = rng_for(seed, ROWS_STREAM).standard_normal((4096, cfg["n_features"]), dtype=np.float32)
+    scores, preds = fam.Reference(forest, "cpu").scores(x)
+    got = (digest(forest.feature, forest.threshold, forest.left, forest.right, forest.leaf_probs),
+           digest(scores, preds))
+    assert got == PINNED[(name, seed)]
+
+
 def test_work_counts_pinned_for_65536_rows():
     rf, cov = CFGS["intreeger-rf"], CFGS["covtype-rf500"]
     assert work.batch_bytes(rf, 65536) == 31_193_088
@@ -96,9 +141,23 @@ def test_every_cell_of_the_benchmark_resolves():
         assert all(m["moves"] in names for m in cell.per_layer)
 
 
-@pytest.mark.parametrize("what", ["workload", "traffic", "reader", "driver", "mix key"])
+@pytest.mark.parametrize("what", ["workload", "traffic", "reader", "driver", "mix key",
+                                  "family"])
 def test_an_unknown_name_fails_loudly(what, tmp_path):
-    if what == "mix key":  # a client model that no driver implements
+    if what == "family":  # a configuration file that names a family with no module
+        bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+        for c in bench["configs"]:
+            c["file"] = f"configs/{c['name']}.json"
+            cfg = dict(CFGS[c["name"]], family="no_such_family")
+            (tmp_path / "configs").mkdir(exist_ok=True)
+            (tmp_path / c["file"]).write_text(json.dumps(cfg))
+        (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+        (tmp_path / "portbench").symlink_to(ROOT / "portbench")
+        with pytest.raises(catalog.UnknownName, match="no_such_family"):
+            catalog.load_cell(bench["workloads"][0]["name"], root=tmp_path)
+        with pytest.raises(catalog.UnknownName):
+            catalog.family({"family": "no_such_family"})
+    elif what == "mix key":  # a client model that no driver implements
         mix = json.loads((ROOT / "portbench" / "traffic" / "gateway.c32.json").read_text())
         catalog.driver(mix)
         with pytest.raises(catalog.UnknownName, match="loop"):
@@ -216,6 +275,18 @@ def test_metric_readers_on_a_small_recorded_trace():
     b = devtrace.breakdown(stats.window_events(rec), rec["host_events"], *rec["trace_window"])
     assert b["device_ops"][0] == [K1_NAME, pytest.approx(800e-6)]
     assert ["host: aten::argmax", pytest.approx(400e-6)] in b["idle_gaps"]
+
+
+def test_the_readers_take_the_counts_of_the_configurations_family():
+    boosted = dict(family="gbt", n_rounds=500, n_classes=7, depth=8, n_features=54,
+                   learning_rate=0.3, threshold_sample_rows=4096)
+    gbt = catalog.family(boosted)
+    rec = recorded()
+    assert catalog.reader("k1_roofline").read(rec, boosted) == pytest.approx(
+        100 * 2 * gbt.bound_s(boosted, 65536)[0] / 800e-6)
+    ops = 2 * gbt.batch_ops(boosted, 65536) + gbt.batch_ops(boosted, 20)
+    assert catalog.reader("mfu.trees").read(rec, boosted) == pytest.approx(
+        100 * ops / (0.003 * 67e12))
 
 
 @pytest.mark.parametrize("name", ["k1_roofline", "k5_roofline", "device.idle", "copy.h2d_ms"])

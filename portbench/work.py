@@ -1,4 +1,5 @@
-"""The work a batch of rows needs, counted from the forest's shape alone.
+"""The work a batch of rows needs, counted from the forest's shape alone: the
+``rf`` family's counts, and the peaks every family's counts are held to.
 
 The counts hold whatever kernel or layout serves the rows, so a later redesign
 cannot make them stale:
@@ -36,9 +37,14 @@ def batch_ops(cfg: dict, rows: int) -> int:
     return rows * cfg["n_trees"] * (3 * cfg["depth"] + cfg["n_classes"])
 
 
-def bound_s(cfg: dict, rows: int) -> tuple:
-    """(least seconds for one launch over ``rows`` rows, "bytes" or
+def least_s(n_bytes: int, ops: int) -> tuple:
+    """(least seconds for ``n_bytes`` and ``ops`` at the peaks, "bytes" or
     "operations", whichever sets it)."""
-    by_bytes = batch_bytes(cfg, rows) / HBM_BYTES_PER_S
-    by_ops = batch_ops(cfg, rows) / NON_TENSOR_OPS_PER_S
+    by_bytes = n_bytes / HBM_BYTES_PER_S
+    by_ops = ops / NON_TENSOR_OPS_PER_S
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def bound_s(cfg: dict, rows: int) -> tuple:
+    """``least_s`` of one launch over ``rows`` rows."""
+    return least_s(batch_bytes(cfg, rows), batch_ops(cfg, rows))
