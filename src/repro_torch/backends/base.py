@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import ClassVar, Optional
 
 from repro_torch.device import resolve_device
+from repro_torch.ir.forest_ir import margin_ir, refuse_margins
 
 
 class BackendUnavailable(RuntimeError):
@@ -59,6 +60,10 @@ class TreeBackend(abc.ABC):
 
     name: ClassVar[str]
     capabilities: ClassVar[BackendCapabilities]
+    #: True when the backend serves a margin model (boosted trees) in
+    #: ``integer`` mode: its partials are the uint32 sums of any leaf bit
+    #: patterns, so the signed margins come out exact
+    margins: ClassVar[bool] = False
 
     def __init__(self, packed, mode: str = "integer", *, device=None):
         if mode not in self.capabilities.modes:
@@ -68,6 +73,10 @@ class TreeBackend(abc.ABC):
             )
         self.capabilities.require_layout(getattr(packed, "layout", "padded"),
                                          self.name)
+        if not self.margins:
+            refuse_margins(packed, f"backend {self.name!r}")
+        elif mode != "integer":
+            refuse_margins(packed, f"mode {mode!r} on backend {self.name!r}")
         self.packed = packed
         self.mode = mode
         self.device = self.placement(device)
@@ -97,8 +106,9 @@ class TreeBackend(abc.ABC):
 
     def predict_scores(self, X):
         """Float features (B, F) -> (scores (B, C), preds (B,) int32); for
-        deterministic modes ``finalize_partials(predict_partials(X))``."""
-        from repro_torch.core.ensemble import finalize_partials
+        deterministic modes ``finalize_partials(predict_partials(X))``, with
+        a margin model's base added."""
+        from repro_torch.core.ensemble import finalize_margins, finalize_partials
 
         if not self.deterministic:
             raise NotImplementedError(
@@ -106,6 +116,9 @@ class TreeBackend(abc.ABC):
                 f"the non-deterministic mode {self.mode!r}"
             )
         acc = self.predict_partials(X)
+        ir = margin_ir(self.packed)
+        if ir is not None:
+            return finalize_margins(acc, ir.base_fixed)
         return finalize_partials(self.mode, acc, self.packed.n_trees,
                                  self.packed.scale)
 

@@ -40,6 +40,7 @@ from repro_torch.obs import profiled
 @register_backend
 class BitvectorBackend(TreeBackend):
     name = "bitvector"
+    margins = True
     capabilities = BackendCapabilities(
         modes=("flint", "integer"),
         deterministic_modes=("flint", "integer"),

@@ -46,6 +46,7 @@ _SMALL_BATCH_GATHER_ROWS = 64
 @register_backend
 class CudaBackend(TreeBackend):
     name = "cuda"
+    margins = True
     capabilities = BackendCapabilities(
         modes=("flint", "integer"),
         deterministic_modes=("flint", "integer"),

@@ -20,6 +20,7 @@ from repro_torch.core.ensemble import (
 @register_backend
 class ReferenceBackend(TreeBackend):
     name = "reference"
+    margins = True
     capabilities = BackendCapabilities(
         modes=MODES,
         deterministic_modes=("flint", "integer"),

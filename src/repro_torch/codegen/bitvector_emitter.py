@@ -65,6 +65,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.codegen.table_emitter import _array_lines, _decimals, _i32, _simd_prelude, _u32
+from repro_torch.ir.forest_ir import refuse_margins
 
 _CTZ64 = [
     "static int ctz64(uint64_t x) {",
@@ -401,6 +402,7 @@ def emit_bitvector_c(bv, mode: str = "integer", interleave: int = 1) -> str:
     restructures every block variant around them (see module docstring).
     ``K=1`` emits the ungrouped stream with per-entry early exits.
     """
+    refuse_margins(bv, "codegen 'emit_bitvector_c'")
     assert mode == "integer", (
         "the bitvector scorer is emitted once as the integer translation "
         "unit; flint reuses it and diverges only in the shared finalize"

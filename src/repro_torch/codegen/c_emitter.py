@@ -10,13 +10,16 @@ ensemble where
     ``floor((2**32-1)/n_trees)`` (Sec. III-A),
 
 plus the float baseline (paper Listing 4 flavor) for comparison.  The emitted
-file needs only <stdint.h> — no libm, no FPU.
+file needs only <stdint.h> — no libm, no FPU.  Every emitter (this one, the
+table walk and the bitvector scorer) refuses a margin model (boosted trees)
+with ``ValueError``: the C has no signed margins or base.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.core.packing import PackedEnsemble
+from repro_torch.ir.forest_ir import refuse_margins
 
 
 def _c_float(v: float) -> str:
@@ -84,6 +87,7 @@ def emit_c(packed: PackedEnsemble, mode: str = "integer") -> str:
     mode == "float":   void predict(const float* data, float* result)
     """
     assert mode in ("integer", "flint", "float")
+    refuse_margins(packed, "codegen 'emit_c'")
     c, t = packed.n_classes, packed.n_trees
     lines = ["#include <stdint.h>", ""]
     if mode == "integer":

@@ -59,6 +59,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.codegen.c_emitter import _c_float, emit_predict_class
+from repro_torch.ir.forest_ir import refuse_margins
 
 _VALS_PER_LINE = 12
 
@@ -113,6 +114,7 @@ def emit_table_walk_c(ragged, mode: str = "integer", block_rows: int = None) -> 
     arithmetic child selects, an all-leaves early exit per level, and a
     scalar-``predict`` tail for the final partial block.
     """
+    refuse_margins(ragged, "codegen 'emit_table_walk_c'")
     assert mode in ("integer", "flint"), (
         "the table walk serves the deterministic integer-compare modes; "
         "float thresholds would reintroduce the FPU the paper removes"

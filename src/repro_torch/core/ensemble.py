@@ -12,7 +12,10 @@ is a uint32 sum, associative mod 2^32, so any backend, kernel tiling or shard
 order gives the same bits.  Finalize stays in numpy, exactly as in the JAX
 package: an argmax over uint32 scores held as int32 would misorder every
 score >= 2^31 (single-tree forests have them), and the uint32 -> float32
-conversion of ``flint`` must round as numpy does.
+conversion of ``flint`` must round as numpy does.  A margin model (boosted
+trees, ``ir.forest_ir``) accumulates the same uint32 sums of its leaves' bit
+patterns; its finalize (``integer`` only) reads them as int32, adds the base
+and takes the signed argmax.
 
 ``_predict`` is the torch walk behind the ``reference`` backend and runs on
 any device.  Torch has little uint32 arithmetic, so it accumulates in int64
@@ -110,11 +113,25 @@ def mode_spec(mode: str) -> ModeSpec:
         raise ValueError(f"unknown mode {mode!r}; have {MODES}") from None
 
 
+def finalize_margins(acc, base):
+    """A margin model's finalize: (B, C) uint32 partials -> ``(margins (B, C)
+    int32, preds (B,) int32)``.  The partials are the sums of the leaves'
+    int32 bit patterns mod 2^32, so their int32 view is the signed leaf sum
+    exactly; the model's scale keeps that sum plus the base inside int32
+    (``ForestIR._check_margins``), so the int32 add cannot wrap.  ``preds``
+    is the first largest margin's class, as numpy's argmax gives it."""
+    scores = np.ascontiguousarray(acc, np.uint32).view(np.int32) + np.asarray(base, np.int32)
+    return scores, np.argmax(scores, axis=1).astype(np.int32)
+
+
 def finalize_partials(mode: str, acc, n_trees: int, scale: int = None):
-    """The standalone finalize over (B, C) uint32 partials, in numpy.
+    """The standalone finalize over an averaged forest's (B, C) uint32
+    partials, in numpy: the scores are the partials themselves
+    (``integer``) or their probabilities (``flint``).
 
     ``n_trees``/``scale`` are the full ensemble's.  Returns ``(scores,
-    preds)``; every backend and plan funnels through this one function.
+    preds)``; every backend and plan funnels through this one function, or
+    through :func:`finalize_margins` for a margin model.
     """
     spec = mode_spec(mode)
     if not spec.deterministic:
@@ -122,6 +139,17 @@ def finalize_partials(mode: str, acc, n_trees: int, scale: int = None):
     acc = np.asarray(acc)
     scores = spec.finalize(acc, n_trees, scale)
     return scores, np.argmax(scores, axis=1).astype(np.int32)
+
+
+def _margin_base(packed, mode: str):
+    """A margin model's int32 base margins, or ``None`` for an averaged
+    forest; a margin model in any mode but ``integer`` raises ``ValueError``."""
+    from repro_torch.ir.forest_ir import margin_ir, refuse_margins
+
+    if mode != "integer":
+        refuse_margins(packed, f"mode {mode!r}")
+    ir = margin_ir(packed)
+    return None if ir is None else ir.base_fixed
 
 
 def u32_numpy(acc: torch.Tensor) -> np.ndarray:
@@ -135,6 +163,7 @@ def ensemble_device_arrays(packed, mode: str, device) -> dict:
     feature indices int64 (gather indices), thresholds in the mode's compare
     domain, leaves as int64 fixed point or float32 probabilities."""
     spec = mode_spec(mode)
+    _margin_base(packed, mode)
     thr = packed.threshold if mode == "float" else packed.threshold_key
     leaf = getattr(packed, spec.leaf_field)
     leaf = leaf.astype(np.int64) if spec.deterministic else leaf.astype(np.float32)
@@ -186,13 +215,17 @@ def predict_partials_mode(packed, X, mode: str, *, device, arrays=None):
 
 def predict_mode(packed, X, mode: str, *, device, arrays=None):
     """``(scores, preds)`` as numpy for any mode; deterministic modes go
-    through :func:`finalize_partials`."""
+    through :func:`finalize_partials`, a margin model (``integer`` only)
+    through :func:`finalize_margins`."""
     spec = mode_spec(mode)
+    base = _margin_base(packed, mode)
     if arrays is None:
         arrays = ensemble_device_arrays(packed, mode, device)
     x = torch.as_tensor(np.asarray(X, np.float32), device=device)
     acc = _predict(arrays, spec.domain_transform(x), packed.max_depth,
                    spec.deterministic)
+    if base is not None:
+        return finalize_margins(u32_numpy(acc), base)
     if spec.deterministic:
         return finalize_partials(mode, u32_numpy(acc), packed.n_trees,
                                  packed.scale)
@@ -205,6 +238,7 @@ def predict_float(packed, X, *, device, arrays=None):
     added in the reference's order and the sums divided by ``n``, as the
     reference's eager ``predict_float`` divides (its jitted routes, and
     ``predict_mode`` here, multiply by the float32 reciprocal)."""
+    _margin_base(packed, "float")
     if arrays is None:
         arrays = ensemble_device_arrays(packed, "float", device)
     x = torch.as_tensor(np.asarray(X, np.float32), device=device)
@@ -227,7 +261,9 @@ def integer_probs(packed, acc) -> np.ndarray:
     """Ensemble-average probabilities (float32 numpy) from the uint32
     scores (a numpy array or a tensor of uint32 or their int32 bits)."""
     from repro_torch.core.fixedpoint import fixed_to_prob
+    from repro_torch.ir.forest_ir import refuse_margins
 
+    refuse_margins(packed, "integer_probs")
     if not torch.is_tensor(acc):
         acc = torch.from_numpy(np.ascontiguousarray(acc, np.uint32).view(np.int32))
     return fixed_to_prob(acc, packed.n_trees).cpu().numpy()

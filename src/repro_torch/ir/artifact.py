@@ -229,8 +229,10 @@ def write_itrf(path, ir, *, include_float: bool = True,
     codec.  ``tuned`` is a map of the port's tune keys to winners, written
     to the ``tune_db`` section under each device's :func:`tune_host_key`.
     """
+    from repro_torch.ir.forest_ir import refuse_margins
     from repro_torch.ir.packed_leaf import GROUP_SIZE, pack_leaf_payload
 
+    refuse_margins(ir, "the ITRF artifact")
     group = int(group or GROUP_SIZE)
     flags = 0
     sections = [

@@ -1,9 +1,20 @@
 """The canonical, layout-free forest representation.
 
 ``ForestIR`` is the single point where quantization happens: FlInt int32
-keys of every float32 threshold and uint32 fixed-point leaf probabilities at
-scale ``floor((2**32-1)/n_trees)``.  Every layout is a materialization of
-this IR and never re-quantizes.
+keys of every float32 threshold, and fixed-point leaves of one of two kinds:
+
+  * ``averaged`` (a random forest): uint32 leaf probabilities at scale
+    ``floor((2**32-1)/n_trees)``, whose uint32 sums are the scores;
+  * ``margin`` (boosted trees, a tree a class a round): each leaf's signed
+    margin ``floor(learning_rate * leaf * scale)`` at ``pack_gbt``'s scale
+    ``(2**31-1) // ((T+1) * ceil(M))``, stored as its int32 bit pattern in
+    its tree's class column of the ``C``-wide leaf row, zeros elsewhere.
+    ``tree_class`` and the int32 ``base_fixed`` a class ride along; the
+    uint32 sums, read as int32 plus the base, are the margins.
+
+Every layout and walk sums ``leaf_fixed`` rows mod 2^32 whatever the kind, so
+both stay exact on every layout.  Every layout is a materialization of this
+IR and never re-quantizes.
 
 Storage is CSR-style: per-node arrays for all trees concatenated in tree
 order, with ``node_offsets`` (T+1,) delimiting each tree's slice.  Child
@@ -20,6 +31,12 @@ import numpy as np
 
 from repro_torch.core.fixedpoint import prob_to_fixed_np, scale_for
 from repro_torch.core.flint import float_to_key_np
+from repro_torch.obs import profiled
+
+#: the kinds of model an IR holds (module docstring)
+AVERAGED, MARGIN = "averaged", "margin"
+KINDS = (AVERAGED, MARGIN)
+INT32_MAX = 2 ** 31 - 1
 
 #: the canonical CSR arrays under their ITRF section names, with the dtype
 #: each is stored in; ``from_numpy`` takes exactly these
@@ -50,6 +67,30 @@ def tree_depth_from_arrays(feature, left, right) -> int:
     return depth
 
 
+def is_booster(model) -> bool:
+    """A trained booster: ``trees_`` a list a class of lists a round, with
+    ``base_`` margins (``trees.GradientBoostedClassifier``'s duck type)."""
+    trees = getattr(model, "trees_", None)
+    return (getattr(model, "base_", None) is not None and bool(trees)
+            and isinstance(trees[0], (list, tuple)))
+
+
+def margin_ir(model):
+    """The margin-kind ForestIR behind ``model`` (an IR or a layout artifact
+    that carries its IR), or ``None`` for an averaged forest."""
+    ir = model if isinstance(model, ForestIR) else getattr(model, "ir", None)
+    return ir if getattr(ir, "kind", AVERAGED) == MARGIN else None
+
+
+def refuse_margins(model, route: str) -> None:
+    """Raise ``ValueError`` naming ``route`` when ``model`` is a margin model."""
+    if margin_ir(model) is not None:
+        raise ValueError(
+            f"{route} does not serve a boosted (margin) model; score it in "
+            "'integer' mode on the reference, cuda or bitvector backend "
+            "under the single, tree_parallel or row_parallel plan")
+
+
 @dataclass
 class ForestIR:
     """Canonical quantized forest: unpadded CSR node arrays + quantized data.
@@ -74,8 +115,38 @@ class ForestIR:
     n_features: int
     # set on sub-forest IRs (see :meth:`subset`): the parent ensemble's
     # fixed-point scale.  None means "a whole ensemble", scale_for(n_trees).
+    # A margin IR always sets it: pack_gbt's scale.
     quant_scale: Optional[int] = None
+    kind: str = AVERAGED
+    # margin IRs only: each tree's class (T,) int32 and the base margins
+    # (C,) int32 at the scale
+    tree_class: Optional[np.ndarray] = None
+    base_fixed: Optional[np.ndarray] = None
     _layouts: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown model kind {self.kind!r}; have {KINDS}")
+        if self.kind == MARGIN:
+            self._check_margins()
+
+    def _check_margins(self) -> None:
+        """A margin IR's tables describe it, and its scale bounds the sum of
+        ``T + 1`` terms (every tree's leaf and the base) inside int32."""
+        if self.quant_scale is None or self.quant_scale < 1:
+            raise ValueError(
+                f"margin scale {self.quant_scale!r} cannot bound {self.n_trees + 1} "
+                "signed terms inside int32")
+        if np.shape(self.tree_class) != (self.n_trees,) \
+                or np.shape(self.base_fixed) != (self.n_classes,):
+            raise ValueError(f"a margin IR needs tree_class ({self.n_trees},) and "
+                             f"base_fixed ({self.n_classes},)")
+        term = max(int(np.abs(self.leaf_fixed.view(np.int32).astype(np.int64)).max(initial=0)),
+                   int(np.abs(self.base_fixed.astype(np.int64)).max(initial=0)))
+        if (self.n_trees + 1) * term > INT32_MAX:
+            raise ValueError(
+                f"margin terms up to {term} at scale {self.quant_scale}: the sum of "
+                f"{self.n_trees + 1} such terms can leave int32")
 
     # ------------------------------------------------------------ properties
     @property
@@ -99,15 +170,26 @@ class ForestIR:
     @property
     def scale(self) -> int:
         """The fixed-point scale ``leaf_fixed`` is quantized at (the parent
-        ensemble's for a sub-forest carved by :meth:`subset`)."""
+        ensemble's for a sub-forest carved by :meth:`subset`; ``pack_gbt``'s
+        for a margin IR)."""
         return self.quant_scale if self.quant_scale is not None \
             else scale_for(self.n_trees)
+
+    def trees_per_class(self) -> Optional[list]:
+        """A margin IR's tree count a class; ``None`` for an averaged one."""
+        if self.kind != MARGIN:
+            return None
+        return np.bincount(self.tree_class, minlength=self.n_classes).tolist()
 
     # --------------------------------------------------------- constructors
     @classmethod
     def from_forest(cls, forest) -> "ForestIR":
         """Quantize a trained forest (``trees_``/``n_classes_``/
-        ``n_features_`` duck type) into the canonical IR."""
+        ``n_features_`` duck type) into the canonical IR: an averaged IR, or
+        a margin IR for a booster (:func:`is_booster`)."""
+        if is_booster(forest):
+            with profiled("ir.margins"):
+                return cls._from_booster(forest)
         trees = forest.trees_
         T = len(trees)
         C = forest.n_classes_
@@ -132,6 +214,54 @@ class ForestIR:
             n_trees=T,
             n_classes=C,
             n_features=forest.n_features_,
+        )
+
+    @classmethod
+    def _from_booster(cls, booster) -> "ForestIR":
+        """A margin IR, quantized by ``trees.gbt.pack_gbt`` itself (scale,
+        leaves, base), with the trees class-major as it orders them."""
+        from repro_torch.trees.gbt import pack_gbt
+
+        trees = [t for stages in booster.trees_ for t in stages]
+        if not (np.isfinite(booster.base_).all()
+                and all(np.isfinite(t.leaf_probs).all() for t in trees)):
+            raise ValueError("a boosted model with non-finite margins has no scale")
+        packed = pack_gbt(booster)
+        T, C = len(trees), int(booster.n_classes_)
+        counts = [t.n_nodes for t in trees]
+        offsets = np.zeros(T + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        total = int(offsets[-1])
+        # each node's tree and its index there, and the tree's class column
+        tree_of = np.repeat(np.arange(T), counts)
+        local = np.arange(total) - offsets[tree_of]
+        node, col = np.arange(total), packed.tree_class[tree_of]
+        leaf_fixed = np.zeros((total, C), np.uint32)
+        leaf_fixed[node, col] = packed.leaf_fixed[tree_of, local].view(np.uint32)
+        feature = np.concatenate([t.feature for t in trees]).astype(np.int32)
+        leaf = feature < 0
+        margins = booster.learning_rate * np.concatenate([t.leaf_probs[:, 0] for t in trees])
+        leaf_probs = np.zeros((total, C), np.float64)
+        leaf_probs[node[leaf], col[leaf]] = margins[leaf]
+        threshold = np.concatenate([t.threshold for t in trees]).astype(np.float32)
+        n_features = getattr(booster, "n_features_", 0) or int(feature.max(initial=-1)) + 1
+        return cls(
+            feature=feature,
+            threshold=threshold,
+            threshold_key=float_to_key_np(threshold),
+            left=np.concatenate([t.left for t in trees]).astype(np.int32),
+            right=np.concatenate([t.right for t in trees]).astype(np.int32),
+            leaf_probs=leaf_probs,
+            leaf_fixed=leaf_fixed,
+            node_offsets=offsets,
+            tree_depths=np.asarray([t.depth for t in trees], np.int32),
+            n_trees=T,
+            n_classes=C,
+            n_features=int(n_features),
+            quant_scale=int(packed.scale),
+            kind=MARGIN,
+            tree_class=packed.tree_class.astype(np.int32),
+            base_fixed=packed.base_fixed.astype(np.int32),
         )
 
     @classmethod
@@ -169,7 +299,10 @@ class ForestIR:
                    quant_scale=None if quant_scale is None else int(quant_scale))
 
     def to_numpy(self) -> dict:
-        """The canonical CSR arrays, copied (inverse of :meth:`from_numpy`)."""
+        """The canonical CSR arrays, copied (inverse of :meth:`from_numpy`).
+        A margin IR has no such form: its classes and base are not among
+        them, so it raises ``ValueError``."""
+        refuse_margins(self, "ForestIR.to_numpy")
         return {name: getattr(self, name).copy() for name in ARRAY_DTYPES}
 
     @classmethod
@@ -267,13 +400,17 @@ class ForestIR:
             n_classes=self.n_classes,
             n_features=self.n_features,
             quant_scale=self.scale,
+            kind=self.kind,
+            tree_class=None if self.tree_class is None else self.tree_class[start:stop],
+            base_fixed=self.base_fixed,
         )
 
     # ------------------------------------------------------------- artifacts
     def to_itrf(self, path, **kwargs) -> dict:
         """Serialize as an ITRF binary artifact (see
         :mod:`repro_torch.ir.artifact` for the format and the writer
-        options)."""
+        options).  A margin IR raises ``ValueError``: ITRF holds no
+        classes or base."""
         from repro_torch.ir.artifact import write_itrf
 
         return write_itrf(path, self, **kwargs)

@@ -21,11 +21,16 @@ Three registered plans:
                         mode, float included.
 Plans that only serve exact-integer partial modes set
 ``deterministic_only = True`` so the gateway rejects the route up front.
+A margin model (boosted trees) merges its shards as the same wrapping uint32
+sums, exact mod 2^32; its finalize reads them as int32 and adds the base.
+It takes the ``integer`` mode only, and ``remote_tree_parallel`` refuses it.
 
 Tracing is duck-typed: a tracer is any object with
 ``record(name, t0_ns, t1_ns, parent=..., **attrs)``.  While a
 ``torch.profiler`` records, each shard's call is a ``plan.shard`` range and
-the finalize a ``plan.finalize`` range (``repro_torch.obs.profiled``).
+the finalize a ``plan.finalize`` range (``repro_torch.obs.profiled``); a
+margin model's signed view, base add and argmax are a ``plan.margins`` range
+inside it, recorded as the stage ``margins``.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ import abc
 import threading
 from typing import ClassVar, Optional
 
-from repro_torch.core.ensemble import finalize_partials, mode_spec
+from repro_torch.core.ensemble import finalize_margins, finalize_partials, mode_spec
+from repro_torch.ir.forest_ir import margin_ir, refuse_margins
 from repro_torch.obs import stage
 
 
@@ -89,11 +95,15 @@ class ExecutionPlan(abc.ABC):
     deterministic_only: ClassVar[bool] = False
 
     def __init__(self, model, *, mode: str = "integer"):
+        if mode != "integer":
+            refuse_margins(model, f"mode {mode!r} under plan {self.name!r}")
         self.mode = mode
         self._spec = mode_spec(mode)
         # the FULL ensemble's finalize constants
         self._n_trees = getattr(model, "n_trees", None)
         self._scale = getattr(model, "scale", None)
+        ir = margin_ir(model)
+        self._base = None if ir is None else ir.base_fixed
         self._timings: dict = {}
         self._stages: dict = {}
         self._timings_lock = threading.Lock()
@@ -115,7 +125,11 @@ class ExecutionPlan(abc.ABC):
         acc = self.predict_partials(X)
         with stage("plan.finalize", self._record_stage, "finalize", self._tracer,
                    self.trace_parent):
-            return finalize_partials(self.mode, acc, self._n_trees, self._scale)
+            if self._base is None:
+                return finalize_partials(self.mode, acc, self._n_trees, self._scale)
+            with stage("plan.margins", self._record_stage, "margins", self._tracer,
+                       self.trace_parent):
+                return finalize_margins(acc, self._base)
 
     # ------------------------------------------------------- shard metadata
     @property

@@ -56,6 +56,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.device import resolve_device
+from repro_torch.ir.forest_ir import refuse_margins
 from repro_torch.plan.base import ExecutionPlan, as_ir, register_plan
 from repro_torch.plan.tree_parallel import tree_ranges
 from repro_torch.serve import wire
@@ -158,6 +159,8 @@ class RemoteTreeParallelPlan(ExecutionPlan):
                  connect_timeout_s: float = 60.0, retries: Optional[int] = None,
                  span_dir=None, model_id: str = "model", version: int = 0):
         ir = as_ir(model)
+        # the wire's HELLO carries no classes or base
+        refuse_margins(ir, f"plan {self.name!r}")
         super().__init__(ir, mode=mode)
         if not self._spec.deterministic:
             raise ValueError(

@@ -113,7 +113,10 @@ class TreeEngine:
     the reference's deprecation shim.  ``device`` places the backend's
     tables and work: ``cuda`` unless ``device="cpu"`` is passed.
     ``predict``/``predict_scores`` take numpy (B, F) float32 rows of any
-    count and return numpy results.
+    count and return numpy results: uint32 scores for an averaged forest,
+    and for a margin model (a booster's IR, ``integer`` mode only) its (B, C)
+    int32 margins with the base added; ``predict_partials`` returns the
+    merged uint32 partials either way.
 
     ``autotune=True`` (or ``?autotune=true`` in the spec) measures the cuda
     backend's CTA shape, or a host-C backend's ``block_rows`` or
@@ -259,6 +262,21 @@ class TreeEngine:
     def deterministic(self) -> bool:
         """True when outputs are bit-exact integer scores."""
         return self.plan.deterministic
+
+    def describe(self) -> dict:
+        """The plan's description (plan, mode, shards, backends, layout) and
+        the model's: ``kind`` (``averaged`` or ``margin``), ``n_trees``,
+        ``n_classes``, and for a margin model ``trees_per_class`` and
+        ``margin_scale``."""
+        from repro_torch.ir.forest_ir import AVERAGED, margin_ir
+
+        d = self.plan.describe()
+        ir = margin_ir(self.packed)
+        d.update(kind=AVERAGED if ir is None else ir.kind, n_trees=self.packed.n_trees,
+                 n_classes=self.packed.n_classes)
+        if ir is not None:
+            d.update(trees_per_class=ir.trees_per_class(), margin_scale=int(ir.scale))
+        return d
 
     def simd_isa(self):
         """The SIMD ISA the serving backend (the first shard's) dispatches

@@ -1,7 +1,10 @@
 """Multi-model registry: versioned packed ensembles behind stable model ids.
 
 Models enter through any boundary the repo supports:
-  * a trained forest object (``register_forest``),
+  * a trained forest object (``register_forest``): a random forest, or a
+    booster (``GradientBoostedClassifier`` or its duck type), which serves
+    int32 margins on the routes that take a margin model
+    (``ir.forest_ir.refuse_margins``),
   * the Treelite-style JSON artifact (``register_json``), i.e. the
     ``trees/io`` exchange format — the path externally-trained models take,
   * an already-quantized artifact (``register_packed``), or
@@ -285,12 +288,14 @@ class ModelRegistry:
 
     def describe(self) -> dict:
         from repro_torch.ir import ForestIR
+        from repro_torch.ir.forest_ir import margin_ir
 
         out = {}
         for mid, mv in sorted(self._models.items()):
             d = {
                 "version": mv.version,
                 "source": mv.source,
+                "kind": "averaged" if margin_ir(mv.packed) is None else "margin",
                 "n_trees": mv.packed.n_trees,
                 "n_classes": mv.packed.n_classes,
                 "n_features": mv.packed.n_features,

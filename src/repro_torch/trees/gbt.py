@@ -120,11 +120,13 @@ class GradientBoostedClassifier:
     trees_: List[List[TreeArrays]] = field(default_factory=list)  # [class][stage]
     base_: np.ndarray = None
     n_classes_: int = 0
+    n_features_: int = 0
 
     def fit(self, X, y):
         X = np.asarray(X, np.float32)
         y = np.asarray(y)
         self.n_classes_ = int(y.max()) + 1
+        self.n_features_ = X.shape[1]
         rng = np.random.default_rng(self.seed)
         codes, edges = _quantile_bins(X, self.n_bins, rng)
         self.base_ = np.zeros(self.n_classes_)
