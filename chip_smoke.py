@@ -37,7 +37,13 @@ with one CUDA card.  It
      version and the end-to-end request of every route with CUDA events and
      the host clock; each kernel also at the gateway's small batches (K1 at
      1,000 rows, K2 at 20, K3 and K5 at both), and prints each kernel's CTA
-     shape and shared memory as its wrapper launched it,
+     shape and shared memory as its wrapper launched it; then serves four
+     threads at once through ``integer:cuda@leaf_major`` and
+     ``integer:bitvector`` at 65,536 and 20 rows, every answer held bit for
+     bit against the reference walk, every rows copy pinned on its thread's
+     own stream and counted in ``backends.staging.STAGED`` (printed), each
+     route's rows copy in device ms beside a pageable copy of the same rows
+     and the pinned host memory torch's caching host allocator held at most,
   6. serves a seeded open-loop workload through two ``Gateway``s over one
      ``ModelRegistry`` at once — ``integer:cuda?autotune=true`` (K1, and K2
      under 64 rows) and ``integer:cuda@padded?impl=onehot`` (K3) — with
@@ -302,6 +308,11 @@ SPAN_SHAPES = ({}, dict(block_b=32, block_t=1, splits=16), dict(block_b=64, bloc
                dict(block_b=128, block_t=24, splits=1), dict(block_b=256, block_t=2, splits=2),
                dict(block_b=128, block_t=3, splits=4, _stage_records=False))
 
+# the staging gate: four threads at once through each route, each thread's
+# requests seeded permutations of the main path's rows at each row count
+STAGING_ROUTES = ("integer:cuda@leaf_major", "integer:bitvector")
+STAGING_ROWS = (ROWS, 20)
+STAGING_THREADS, STAGING_ROUNDS = 4, 6
 # the gateway phase: request sizes and their shares, the share of requests
 # that repeat an earlier request's rows, the open-loop arrival rate
 GATEWAY_REQUESTS = 240
@@ -1028,6 +1039,93 @@ def check_and_time(cases: dict, flush, tt) -> dict:
 # ---------------------------------------------------------------------------
 # the gateway path
 # ---------------------------------------------------------------------------
+
+def staging_gate(engines: dict, want: tuple, X, seed: int, dev, card: str) -> dict:
+    """Four threads at once through each of ``STAGING_ROUTES`` at each of
+    ``STAGING_ROWS``, every request a seeded permutation of ``X``'s rows,
+    every answer held bit for bit against ``want`` (the reference walk's
+    scores and predictions on ``X``) taken alike; ``STAGED`` must count every
+    rows copy as pinned, with its padded rows' bytes.  Prints, a route and
+    row count, ``STAGED``, the rows copies' device ms a request in the
+    profiler's trace beside a pageable copy of the same rows on one thread,
+    and the host ms a request over the four threads."""
+    import threading
+
+    import torch
+    from portbench.devtrace import Profiled
+    from repro_torch.backends import staging
+
+    def h2d_ms(prof) -> tuple:
+        copies = [e for e in prof.events()[0] if e[0] == "gpu_memcpy" and "HtoD" in e[1]]
+        return sum(e[3] for e in copies) * 1e-3, sorted({e[1] for e in copies})
+
+    rng = np.random.default_rng(seed + 33)
+    out = {}
+    for spec in STAGING_ROUTES:
+        eng = engines[spec]
+        for n in STAGING_ROWS:
+            picks = [[rng.permutation(len(X))[:n] for _ in range(STAGING_ROUNDS)]
+                     for _ in range(STAGING_THREADS)]
+            rows = [[X[p] for p in per] for per in picks]
+            got = [None] * STAGING_THREADS
+            errors = []
+            go = threading.Barrier(STAGING_THREADS)
+
+            def client(i):
+                try:
+                    go.wait()
+                    got[i] = [eng.predict_scores(x) for x in rows[i]]
+                except Exception as e:  # reported below, with the route
+                    errors.append(repr(e))
+
+            staging.reset_staged()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(STAGING_THREADS)]
+            with Profiled() as prof:
+                t0 = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=600)
+                host_s = time.perf_counter() - t0
+            if errors or any(th.is_alive() for th in threads):
+                fail(f"staging gate {spec} at {n} rows: {errors or 'a thread did not finish'}")
+            for per_pick, per_got in zip(picks, got):
+                for p, (scores, preds) in zip(per_pick, per_got):
+                    if not (np.array_equal(scores, want[0][p])
+                            and np.array_equal(preds, want[1][p])):
+                        fail(f"staging gate {spec} at {n} rows: an answer of four "
+                             "threads differs from integer:reference")
+            requests = STAGING_THREADS * STAGING_ROUNDS
+            padded = eng.padded_rows(n)
+            staged = dict(staging.STAGED)
+            expect = {"pinned": requests, "plain": 0,
+                      "pinned_bytes": requests * padded * X.shape[1] * 4}
+            if staged != expect:
+                fail(f"staging gate {spec} at {n} rows: STAGED {staged}, expected {expect}")
+            pinned_ms, names = h2d_ms(prof)
+            same = torch.from_numpy(np.ascontiguousarray(X[:padded]))
+            with Profiled() as prof:
+                for _ in range(requests):
+                    same.to(dev)
+            pageable_ms, pageable_names = h2d_ms(prof)
+            out[f"{spec}@{n}"] = row = dict(
+                staged=staged, copy_ms=pinned_ms / requests, copies=names,
+                pageable_ms=pageable_ms / requests, pageable=pageable_names,
+                host_ms=host_s * 1e3 / requests)
+            print(f"{card} | staging gate {spec} at {n} rows ({padded} padded), "
+                  f"{STAGING_THREADS} threads x {STAGING_ROUNDS}: bit-identical to "
+                  f"integer:reference; STAGED {staged}; rows copy {row['copy_ms']:.4f} ms "
+                  f"device a request {names} against a pageable copy of the same rows "
+                  f"{row['pageable_ms']:.4f} ms {pageable_names}; {row['host_ms']:.3f} ms "
+                  "host a request over the threads")
+    # torch's caching host allocator: the pinned blocks it holds, at most
+    stats = getattr(torch.cuda, "host_memory_stats", dict)()
+    out["pinned_host"] = {k: v for k, v in stats.items()
+                          if ("bytes" in k and k.endswith(".peak")) or k == "num_host_alloc"}
+    print(f"{card} | staging gate: pinned host memory {out['pinned_host']}")
+    return out
+
 
 def fused_plan_phase(ir, X, refs: dict, baseline: str, baseline_ms: float, dev,
                      card: str) -> dict:
@@ -4434,8 +4532,10 @@ def main() -> None:
     }
     print("request integer:cuda@leaf_major steps, ms median: " + ", ".join(
         f"{k} {v:.4f}" for k, v in steps_ms.items()))
-    # for the deployment and host-C phases
+    # for the staging gate, the deployment and host-C phases
     want = {mode: refs[mode].predict_scores(X) for mode in ("integer", "flint")}
+    staged = staging_gate(engines, want["integer"], X, args.seed, dev, card)
+    print(json.dumps({"staging": staged}))
     ref_partials = refs["integer"].predict_partials(X)
     for eng in (*engines.values(), *refs.values()):  # the plans' shard pools too
         eng.close()

@@ -9,7 +9,8 @@ lowest surviving bit (see ``kernels/bitvector.py``).
 It packs the slot grid of ``bitvector_device_arrays`` once, at
 construction, into the records K5 reads (``pack_bitvector_tables``: one
 16-byte record per nonzero mask word), and copies them to its device.  Per
-call it moves the rows over, keys them (FlInt) and runs
+call ``backends.staging.partials`` moves the rows over (through pinned memory
+on the calling thread's own stream on the card), keys them (FlInt) and runs
 ``kernels.bitvector.tree_bitvector``: K5 on the card, the plain version on
 the dense grid the tables keep with ``device="cpu"``.  The partials are the exact
 uint32 accumulators of every other backend, so ``flint`` and ``integer``
@@ -23,18 +24,13 @@ Rows must carry at least the forest's ``n_features`` columns, as for the
 """
 from __future__ import annotations
 
-import numpy as np
-import torch
-
+from repro_torch.backends import staging
 from repro_torch.backends.base import BackendCapabilities, TreeBackend, register_backend
-from repro_torch.core.ensemble import u32_numpy
-from repro_torch.core.flint import float_to_key
 from repro_torch.kernels.bitvector import (
     bitvector_device_arrays,
     pack_bitvector_tables,
     tree_bitvector,
 )
-from repro_torch.obs import profiled
 
 
 @register_backend
@@ -57,18 +53,10 @@ class BitvectorBackend(TreeBackend):
         self._tables = pack_bitvector_tables(*(arrays[k] for k in (
             "entry_feat", "entry_key", "inv_mask", "init_mask", "leaf_off",
             "leaf_fixed")), device=self.device)
+        staging.tables_ready(self.device)
 
     def predict_partials(self, X):
-        X = np.asarray(X)
-        if X.ndim != 2 or X.shape[1] < self.packed.n_features:
-            raise ValueError(
-                f"rows of shape {X.shape} have fewer columns than the "
-                f"{self.packed.n_features} features the forest reads")
-        with profiled("backend.rows_in"):
-            x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
-        with profiled("backend.keys"):
-            keys = float_to_key(x)
-        with profiled("backend.launch"):
-            acc = tree_bitvector(keys, self._tables)
-        with profiled("backend.rows_out"):
-            return u32_numpy(acc)
+        return staging.partials(X, self.packed.n_features, self.device, self._launch)
+
+    def _launch(self, keys):
+        return tree_bitvector(keys, self._tables)

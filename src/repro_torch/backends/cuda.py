@@ -3,12 +3,14 @@ protocol (the counterpart of the JAX package's ``pallas`` backend).
 
 It copies the node tables to the card once, at construction, and packs the
 node quads that the kernels read there once too (``pack_node_quads``), so
-no request repacks them.  Per call it moves the rows over, keys them (FlInt),
-launches K1, K2 or K3 through ``kernels.ops.tree_predict_integer`` and
-returns the uint32 partials to the host, where the shared numpy finalize
-runs.  ``flint`` and ``integer`` accumulate the same partials and differ
-only in that finalize.  While a ``torch.profiler`` records, the four steps
-are the ranges ``backend.rows_in``, ``backend.keys``, ``backend.launch`` and
+no request repacks them.  Per call ``backends.staging.partials`` moves the
+rows over through pinned memory on the calling thread's own stream, keys
+them (FlInt), launches K1, K2 or K3 through
+``kernels.ops.tree_predict_integer`` and returns the uint32 partials to the
+host, where the shared numpy finalize runs.  ``flint`` and ``integer``
+accumulate the same partials and differ only in that finalize.  While a
+``torch.profiler`` records, the four steps are the ranges
+``backend.rows_in``, ``backend.keys``, ``backend.launch`` and
 ``backend.rows_out`` (``repro_torch.obs.profiled``).
 
 ``impl="auto"`` (the default) resolves per layout: the bounded walk (K1) on
@@ -29,12 +31,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.backends import staging
 from repro_torch.backends.base import BackendCapabilities, TreeBackend, register_backend
-from repro_torch.core.ensemble import u32_numpy
-from repro_torch.core.flint import float_to_key
 from repro_torch.kernels.ops import resolve_impl, tree_predict_integer
 from repro_torch.kernels.tree_traverse import pack_node_quads
-from repro_torch.obs import profiled
 
 _DEFAULT_BLOCK_B = 256  # the engine's row bucket; not the CTA size
 
@@ -79,25 +79,17 @@ class CudaBackend(TreeBackend):
         self._internal_counts = (as_t(packed.internal_counts.astype(np.int32))
                                  if scannable else None)
         self._quads = pack_node_quads(*self._tables[:4])
+        staging.tables_ready(self.device)
 
     def predict_partials(self, X):
-        X = np.asarray(X)
-        if X.ndim != 2 or X.shape[1] < self.packed.n_features:
-            raise ValueError(
-                f"rows of shape {X.shape} have fewer columns than the "
-                f"{self.packed.n_features} features the forest reads")
+        return staging.partials(X, self.packed.n_features, self.device, self._launch)
+
+    def _launch(self, keys):
         impl = self.impl
-        if self._auto_small_batch and len(X) < _SMALL_BATCH_GATHER_ROWS:
+        if self._auto_small_batch and len(keys) < _SMALL_BATCH_GATHER_ROWS:
             impl = "gather"
-        with profiled("backend.rows_in"):
-            x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
-        with profiled("backend.keys"):
-            keys = float_to_key(x)
-        with profiled("backend.launch"):
-            acc = tree_predict_integer(
-                keys, *self._tables, depth=self.packed.max_depth,
-                impl=impl, device=self.device,
-                internal_counts=self._internal_counts if impl == "leaf_major" else None,
-                quads=self._quads, **self._blocks)
-        with profiled("backend.rows_out"):
-            return u32_numpy(acc)
+        return tree_predict_integer(
+            keys, *self._tables, depth=self.packed.max_depth,
+            impl=impl, device=self.device,
+            internal_counts=self._internal_counts if impl == "leaf_major" else None,
+            quads=self._quads, **self._blocks)
